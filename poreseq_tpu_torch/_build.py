@@ -1,0 +1,145 @@
+"""Build and load the hand-written CUDA kernels of ``csrc/``.
+
+Each ``csrc/<name>.cu`` is compiled on first use with
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 --fmad=false
+         -shared -Xcompiler -fPIC
+
+into ``_build/lib<name>.so`` (listed in .gitignore) and loaded with ctypes.
+A library is rebuilt when its source or a shared ``csrc/*.cuh`` header is
+newer than it.  ``--fmad=false`` keeps every kernel on the expression tree of
+its plain PyTorch twin (no fused multiply-adds), so the twins can hold the
+kernels to tight tolerances.  A failed build raises with nvcc's stderr;
+nothing falls back to a twin.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+import time
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD = Path(__file__).resolve().parent / "_build"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC"]
+
+_LOCK = threading.Lock()
+
+
+def nvcc() -> str:
+    """The CUDA compiler: $CUDA_HOME/bin/nvcc, else nvcc on PATH, else the
+    toolkit's default location."""
+    for cand in (os.path.join(os.environ.get("CUDA_HOME", ""), "bin", "nvcc"),
+                 shutil.which("nvcc") or "", "/usr/local/cuda/bin/nvcc"):
+        if cand and os.path.isfile(cand):
+            return cand
+    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+
+
+def build(name: str) -> tuple[Path, float]:
+    """Compile csrc/<name>.cu if its library is missing or stale; returns
+    (library path, seconds spent compiling: 0 when up to date)."""
+    src = CSRC / f"{name}.cu"
+    lib = BUILD / f"lib{name}.so"
+    newest = max(p.stat().st_mtime for p in [src, *CSRC.glob("*.cuh")])
+    if lib.exists() and lib.stat().st_mtime >= newest:
+        return lib, 0.0
+    BUILD.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD)
+    os.close(fd)
+    try:
+        proc = subprocess.run([nvcc(), *NVCC_FLAGS, "-I", str(CSRC),
+                               "-o", tmp, str(src)],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {src}:\n{proc.stderr}")
+        os.replace(tmp, lib)      # atomic: concurrent builders never see
+    finally:                      # a half-written library
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return lib, time.perf_counter() - t0
+
+
+class Kernel:
+    """One csrc/<name>.cu library: built and loaded on first use, with a
+    plain-integer ``launches`` count that its wrapper bumps once per kernel
+    launch (never for a twin call)."""
+
+    def __init__(self, name: str, replaces: str, signatures: dict):
+        self.name = name
+        self.replaces = replaces
+        self.source = f"poreseq_tpu_torch/csrc/{name}.cu"
+        self._signatures = signatures
+        self._lib = None
+        self.launches = 0
+        self.build_seconds = 0.0
+
+    def lib(self) -> ctypes.CDLL:
+        with _LOCK:
+            if self._lib is None:
+                path, self.build_seconds = build(self.name)
+                lib = ctypes.CDLL(str(path))
+                for fn, argtypes in self._signatures.items():
+                    getattr(lib, fn).argtypes = argtypes
+                    getattr(lib, fn).restype = ctypes.c_int
+                self._lib = lib
+        return self._lib
+
+    def call(self, fn: str, *args) -> None:
+        """Run one C entry point (it launches on the current stream and
+        returns cudaGetLastError()); raise on a refused launch."""
+        err = getattr(self.lib(), fn)(*args)
+        if err != 0:
+            raise RuntimeError(f"{self.name}.{fn}: CUDA error {err}")
+        self.launches += 1
+
+
+def ptr(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def stream() -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+
+
+def check(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple,
+          device: torch.device) -> torch.Tensor:
+    """Validate a kernel operand before its pointer crosses into C."""
+    if t.device != device:
+        raise ValueError(f"{name}: on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name}: dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {shape}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: not contiguous")
+    return t
+
+
+def route(*tensors: torch.Tensor) -> str:
+    """'cpu' (plain twin) or 'cuda' (kernel) for a kernel wrapper's operands;
+    anything else raises."""
+    kinds = {t.device.type for t in tensors}
+    if kinds == {"cpu"}:
+        return "cpu"
+    if kinds == {"cuda"}:
+        return "cuda"
+    raise ValueError(f"kernel operands on {sorted(kinds)}: need all-cpu "
+                     "(plain twin) or all-cuda (kernel)")
+
+
+def dtype_suffix(dtype: torch.dtype) -> str:
+    if dtype == torch.float32:
+        return "f32"
+    if dtype == torch.float64:
+        return "f64"
+    raise ValueError(f"kernels take float32 or float64, not {dtype}")

@@ -1,0 +1,304 @@
+// Mutation group scorer (kernel 2 of the port).
+//
+// Replaces poreseq_tpu/engine/tpu/pallas_mutscore.py:_kernel
+// (score_groups_pallas) with the semantics of the default XLA scorer
+// poreseq_tpu/engine/tpu/mutscore.py:_group_kernel_body, which it
+// reproduces step for step for every (K, D) class, including slots whose
+// chosen column is the copied one (k_star < 0).  The plain PyTorch twin is
+// engine/mutscore.py:group_deltas_reference (+ sum_rows_reference).
+//
+// Per (start group g, event row e of the group's region slice) and per slot
+// p (one mutation; up to P=9 share a start): restart the forward DP from
+// the column before the mutation against the mutated states, for up to K
+// columns at scoring width Ws — the first step copies the realign-width
+// forward column through the seam offset, later steps carry the previous
+// refill column — keep the column at k_star, join it with the backward
+// lattice at q_b (columnMax over the realign width W) and subtract the
+// lag-0 join of the unmutated lattices at max(start-3, 1).  The deltas go
+// to a [G, P, E_g] buffer; a second kernel sums each (g, p) row over e in
+// order 0..E_g-1.  No float atomics: acceptance depends on the sign of
+// these totals, and the fixed order makes them reproducible.
+//
+// What bounds it on this card: each refill step is one max-plus scan over
+// Ws rows (log2 Ws block barriers) and the K steps of a slot are sequential,
+// so barrier latency bounds a block; the joins stream 4 lattice columns of
+// W values from L2/DRAM per slot.  The design gives every (group, event row)
+// its own block (tens of thousands of blocks fill the card), keeps the
+// carried column and the selected column in shared memory, precomputes the
+// band anchor each step shifts from, and lets a slot stop at its last
+// active step.  Rows of other regions and invalid slots exit at once.
+//
+// Built with --fmad=false so the kernel evaluates the twin's expression
+// tree without fused multiply-adds.
+#include "common.cuh"
+
+using namespace psq;
+
+struct MutArgs {
+  const void *Mf, *Sf, *Mb, *Sb;        // [C1, E, W] blank-extended lattices
+  const int *i0f, *i1f;                 // [E, C1] realign band geometry
+  const int *i0r, *i1r;                 // [E, C1] scoring band geometry
+  const void* win[3];                   // [Q1, E, Ws] mean, stdv, lsr
+  const void *bpf, *bpb;                // [C1, E] best prefix / suffix
+  const int* ev_region;                 // [E]
+  const int* n0;                        // [E]
+  const uint8_t* active;                // [E]
+  const void* lik[4];                   // [E] skip stay extend insert
+  const void* model[6];                 // [E, 1024]
+  const int *g_start, *g_startind, *g_S, *g_region, *g_evoff;   // [G]
+  const int *s_mlen, *s_nst;            // [G, P]
+  const int* s_win;                     // [G, P, K]
+  const uint8_t* s_valid;               // [G, P]
+  void* deltas;                         // [G, P, E_g]
+  void* totals;                         // [G, P]
+  int C1, E, W, Ws, Q1, RS, K, P, DM, E_g, G;
+  double lik_offset;
+};
+
+__device__ __forceinline__ int clampi(int x, int lo, int hi) {
+  return min(max(x, lo), hi);
+}
+
+template <typename T>
+__global__ void group_kernel(MutArgs a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int Ws = a.Ws, W = a.W, P = a.P, K = a.K, E = a.E, C1 = a.C1;
+  T* Mc = reinterpret_cast<T*>(smem_raw);     // carried refill column
+  T* selM = Mc + Ws;                          // selected column (k_star)
+  T* selS = selM + Ws;
+  T* scan = selS + Ws;                        // 6 * Ws
+  T* red = scan + 6 * Ws;                     // 32 T + 32 int
+  int* cik = reinterpret_cast<int*>(red + 32) + 32;   // [K] anchor per step
+
+  const int g = blockIdx.x / a.E_g, el = blockIdx.x % a.E_g;
+  const int r = threadIdx.x, nt = blockDim.x;
+  T* out = static_cast<T*>(a.deltas) + (size_t)g * P * a.E_g + el;
+  const int greg = a.g_region[g];
+  const int e = clampi(a.g_evoff[g], 0, E - a.E_g) + el;
+  if (!(a.active[e] && a.ev_region[e] == greg)) {
+    if (r < P) out[(size_t)r * a.E_g] = T(0);
+    return;
+  }
+
+  const T NB = neg_big<T>();
+  const T* Mf = static_cast<const T*>(a.Mf);
+  const T* Sf = static_cast<const T*>(a.Sf);
+  const T* Mb = static_cast<const T*>(a.Mb);
+  const T* Sb = static_cast<const T*>(a.Sb);
+  const T* bpf = static_cast<const T*>(a.bpf);
+  const T* bpb = static_cast<const T*>(a.bpb);
+  const int* i0f_e = a.i0f + (size_t)e * C1;
+  const int* i0r_e = a.i0r + (size_t)e * C1;
+  const int* i1r_e = a.i1r + (size_t)e * C1;
+  const int start = a.g_start[g], startind = a.g_startind[g];
+  const int sS = a.g_S[g];
+  const int n0e = a.n0[e];
+  const int st0 = clampi(startind, 0, C1 - 1);
+  const T* Mw = Mf + ((size_t)st0 * E + e) * W;
+  const T* Sw = Sf + ((size_t)st0 * E + e) * W;
+  const int wi0 = i0f_e[st0], wi1 = a.i1f[(size_t)e * C1 + st0];
+  const T wbest = bpf[(size_t)st0 * E + e];
+  const T lsk = static_cast<const T*>(a.lik[0])[e];
+  const T lst = static_cast<const T*>(a.lik[1])[e];
+  const T lex = static_cast<const T*>(a.lik[2])[e];
+  const T lin = static_cast<const T*>(a.lik[3])[e];
+  const T off = T(a.lik_offset);
+  const T* mdl[6];
+#pragma unroll
+  for (int k = 0; k < 6; ++k)
+    mdl[k] = static_cast<const T*>(a.model[k]) + (size_t)e * 1024;
+  const T* wm = static_cast<const T*>(a.win[0]);
+  const T* wsd = static_cast<const T*>(a.win[1]);
+  const T* wl = static_cast<const T*>(a.win[2]);
+  const int span = DMAX * a.DM + 64;
+  const int JMIN = -span, JMAX = a.RS + span, CMIN = -span, CMAX = span;
+  const int FSMIN = -64, FSMAX = a.RS + 64 + DMAX;
+
+  // the band anchor step k shifts from: it advances whenever ANY slot of
+  // the group (valid or not) is still refilling at step k
+  if (r == 0) {
+    int ci0 = wi0 + a.RS;
+    for (int k = 0; k < K; ++k) {
+      cik[k] = ci0;
+      bool any = false;
+      for (int p = 0; p < P; ++p) {
+        const int gp = g * P + p, mlen = a.s_mlen[gp], nst = a.s_nst[gp];
+        const int nfill = clampi(min(startind + mlen + 6, nst) - startind,
+                                 0, K);
+        any |= k < mlen + 6 && startind + 1 + k <= nst && k < nfill;
+      }
+      if (any) ci0 = i0r_e[clampi(st0 + 1 + k, 0, C1 - 1)];
+    }
+  }
+
+  // old score: lag-0 join of the unmutated lattices at max(start-3, 1)
+  T old;
+  {
+    const int q_old = clampi(max(start - 3, 1), 0, sS);
+    const size_t base = ((size_t)clampi(q_old, 0, C1 - 1) * E + e) * W;
+    const int fao = i0f_e[clampi(q_old, 0, C1 - 1)];
+    T m = T(0);
+    for (int rr = r; rr < W; rr += nt) {
+      const int ii = fao + rr;
+      if (ii >= 1 && ii <= n0e)
+        m = mx(m, mx(Mf[base + rr] + Mb[base + rr],
+                     Sf[base + rr] + Sb[base + rr]));
+    }
+    m = block_max(m, red);
+    const size_t qe = (size_t)clampi(q_old, 0, C1 - 1) * E + e;
+    old = mx(mx(mx(m, T(0)), bpf[qe]), bpb[qe]);
+  }
+  __syncthreads();              // cik visible
+
+  for (int p = 0; p < P; ++p) {
+    const int gp = g * P + p;
+    if (!a.s_valid[gp]) {       // delta masked to 0
+      if (r == 0) out[(size_t)p * a.E_g] = T(0);
+      continue;
+    }
+    const int mlen = a.s_mlen[gp], nst = a.s_nst[gp];
+    const int nfill = clampi(min(startind + mlen + 6, nst) - startind, 0, K);
+    const int Lf = startind + nfill;
+    const int refind_used = min(start + mlen + 1, max(Lf, startind));
+    const int k_star = refind_used - startind - 1;   // -1: copied column
+    if (r < Ws) { Mc[r] = T(0); selM[r] = T(0); selS[r] = T(0); }
+    int sa = wi0 + a.RS;
+    T sbest = wbest, cbest = wbest;
+    __syncthreads();
+
+    for (int k = 0; k < K; ++k) {
+      // a slot stays active for a prefix of the steps
+      if (!(k < mlen + 6 && startind + 1 + k <= nst && k < nfill)) break;
+      const int q = clampi(st0 + 1 + k, 0, C1 - 1);
+      const int qw = clampi(st0 + 1 + k, 0, a.Q1 - 1);
+      const int i0c = i0r_e[q], i1c = i1r_e[q];
+      const int st_k = a.s_win[(size_t)gp * K + k];
+      const int stc = clampi(st_k, 0, 1023);
+      const int i = i0c + r;
+      const bool in_band = i <= i1c;
+      const bool live = r < Ws && in_band && st_k >= 0;
+      T eo = T(0);
+      if (r < Ws) {
+        const size_t wi = ((size_t)qw * E + e) * Ws + r;
+        const T em = emission<T>(wm[wi], wsd[wi], wl[wi], mdl[0][stc],
+                                 mdl[1][stc], mdl[2][stc], mdl[3][stc],
+                                 mdl[4][stc], mdl[5][stc], off);
+        eo = live ? em : T(0);
+      }
+      T pm_i, pm_im1;
+      int p0, p1;
+      if (k == 0) {
+        // wide copy of the forward column through the seam offset
+        const int s = i0c - wi0 - 1;
+        const bool inr = s >= FSMIN - 1 && s <= FSMAX;
+        pm_im1 = inr ? at_or_zero(Mw, r + s, W) : T(0);
+        pm_i = inr ? at_or_zero(Mw, r + s + 1, W) : T(0);
+        p0 = wi0;
+        p1 = wi1;
+      } else {
+        // narrow carry: shifts d in [0, DMAX] (and d-1), else zeros
+        const int ci0 = cik[k];
+        const int d = i0c - ci0;
+        const bool okd = d >= 0 && d <= DMAX;
+        pm_i = okd ? at_or_zero(Mc, r + d, Ws) : T(0);
+        pm_im1 = okd ? at_or_zero(Mc, r + d - 1, Ws) : T(0);
+        p0 = ci0;
+        p1 = ci0 + Ws - 1;
+      }
+      const bool valid_i = i >= p0 && i <= p1;
+      const bool valid_ul = i > p0 && i <= p1;
+      const T skip_c = (valid_i ? pm_i : T(0)) + lsk;
+      const T match_c = (valid_ul ? pm_im1 : T(0)) + eo;
+      const T ignore_c = valid_ul ? pm_im1 + lin : T(0);
+      const T D = mx(mx(T(0), skip_c), mx(match_c, ignore_c));
+      const T a_stay = eo + lst, a_ext = eo + lex;
+      const bool cut = r == 0;
+      T v[6] = {cut ? NB : mx(lin, a_stay), cut ? NB : a_ext,
+                cut ? NB : a_stay, cut ? NB : a_ext, D, cut ? NB : T(0)};
+      mp_scan<T>(v, scan, r, Ws, false);      // Mc reads are done after it
+      const T Mn = live ? v[4] : T(0);
+      const T Sn = live ? v[5] : T(0);
+      const T cmax = block_max(live ? Mn : NB, red);
+      const T bestn = mx(cmax, cbest);
+      if (r < Ws) Mc[r] = Mn;
+      cbest = bestn;
+      if (k == k_star) {
+        if (r < Ws) { selM[r] = Mn; selS[r] = Sn; }
+        sa = i0c;
+        sbest = bestn;
+      }
+      __syncthreads();
+    }
+
+    // new score: the selected refill column (or the copied column) vs the
+    // back column at rab = nst - refind_used + 1
+    const int rab_new = clampi(nst - refind_used + 1, 0, sS);
+    const int q_b = clampi(sS - rab_new + 1, 0, C1 - 1);
+    const size_t bb = ((size_t)q_b * E + e) * W;
+    const int ba = i0f_e[q_b];
+    const T bbest = bpb[(size_t)q_b * E + e];
+    const bool use_sel = k_star >= 0;
+    const int fa = use_sel ? sa : wi0;
+    const T fbest = use_sel ? sbest : wbest;
+    const int s = fa - ba;
+    const bool inr = use_sel ? (s >= JMIN && s <= JMAX)
+                             : (s >= CMIN && s <= CMAX);
+    T m = T(0);
+    for (int rr = r; rr < W; rr += nt) {
+      const T FM = use_sel ? (rr < Ws ? selM[rr] : T(0)) : Mw[rr];
+      const T FS = use_sel ? (rr < Ws ? selS[rr] : T(0)) : Sw[rr];
+      if (fa + rr >= 1 && fa + rr <= n0e) {
+        const T BMs = inr ? at_or_zero(Mb + bb, rr + s, W) : T(0);
+        const T BSs = inr ? at_or_zero(Sb + bb, rr + s, W) : T(0);
+        m = mx(m, mx(mx(FM + BMs, FS + BSs), mx(FM, FS)));
+      }
+      if (ba + rr >= 1 && ba + rr <= n0e)
+        m = mx(m, mx(Mb[bb + rr], Sb[bb + rr]));
+    }
+    m = block_max(m, red);
+    const T newv = mx(mx(mx(m, T(0)), fbest), bbest);
+    if (r == 0) out[(size_t)p * a.E_g] = newv - old;
+  }
+}
+
+// totals[g, p] = sum over e of deltas[g, p, e], in order e = 0..E_g-1
+template <typename T>
+__global__ void sum_rows_kernel(const T* deltas, T* totals, int GP, int E_g) {
+  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= GP) return;
+  T acc = T(0);
+  for (int el = 0; el < E_g; ++el) acc = acc + deltas[(size_t)idx * E_g + el];
+  totals[idx] = acc;
+}
+
+template <typename T>
+static int launch(const MutArgs* a, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int threads = max(((a->Ws + 31) / 32) * 32, 128);
+  const size_t smem = (size_t)(9 * a->Ws + 32) * sizeof(T) +
+                      (size_t)(32 + a->K) * sizeof(int);
+  cudaError_t err = cudaFuncSetAttribute(
+      group_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const long long blocks = (long long)a->G * a->E_g;
+  if (blocks > 0) {
+    group_kernel<T><<<(unsigned)blocks, threads, smem, st>>>(*a);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  const int GP = a->G * a->P;
+  if (GP > 0)
+    sum_rows_kernel<T><<<(GP + 255) / 256, 256, 0, st>>>(
+        static_cast<const T*>(a->deltas), static_cast<T*>(a->totals), GP,
+        a->E_g);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int psq_mutscore_f32(const MutArgs* a, void* stream) {
+  return launch<float>(a, stream);
+}
+
+extern "C" int psq_mutscore_f64(const MutArgs* a, void* stream) {
+  return launch<double>(a, stream);
+}

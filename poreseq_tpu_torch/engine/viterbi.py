@@ -1,0 +1,336 @@
+"""1024-state Viterbi candidate generator (ViterbiMutate) in torch ops.
+
+Counterpart of ``poreseq_tpu/engine/tpu/viterbi.py`` (spec
+poreseq cpp/Viterbi.cpp:239-426).  The per-position transition max
+over 1/2/3-base steps decomposes into grouped maxes of the 1024-state
+vector (the predecessors of s after j steps are {(s>>2j) + k<<(10-2j)}), so
+a position costs O(1024) work.  The sweep and the stochastic backtrace are
+Python loops over positions, batched over regions (and candidates); a hand
+kernel for them is queued in ROADMAP.md.
+
+Randomness: a torch.Generator on the engine's device, re-seeded with the
+engine's seed on every call (the JAX package re-derives PRNGKey(seed) per
+call).  torch cannot reproduce JAX's threefry bits, so sampled candidates
+differ from the JAX package's; the deterministic path (nkeep=0) matches.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from poreseq_tpu.core.events import getrefstates, update_refs
+from poreseq_tpu.core.sequence import next_state, state_base
+
+from .dp import emission
+
+# ---------------------------------------------------------------- host side
+
+
+def _position_stats(events):
+    """Per-(reference position, event) observation statistics, behavior-equal
+    to walking getrefstates per position (Viterbi.cpp:269-349).  Returns
+    (lvl [R, E], sd [R, E], valid [R, E]) for the retained positions."""
+    E = len(events)
+    infos = [update_refs(ev.ref_align) for ev in events]
+    rmin = min(i[1] for i in infos)
+
+    # bound the position range by the largest integral ref_index any event
+    # can hit (NaN ref_index values of single-anchor events never match)
+    def _ri_max(ri, re):
+        m = ri[np.isfinite(ri)]
+        return int(np.floor(m.max())) if len(m) else re
+
+    rmax = max(max(i[2], _ri_max(i[0], i[2])) for i in infos)
+    n_r = rmax - rmin + 1
+
+    lvl = np.zeros((n_r, E))
+    sd = np.zeros((n_r, E))
+    valid = np.zeros((n_r, E), dtype=bool)
+    spans = np.zeros((n_r, E), dtype=bool)
+
+    for e, ev in enumerate(events):
+        ri, rs, re = infos[e]
+        ra = ev.ref_align
+        spans[rs - rmin : re - rmin + 1, e] = True
+
+        pos = np.nonzero(ra > 0)[0]
+        vals = ra[pos].astype(np.int64)
+        if len(vals) and not np.all(np.diff(vals) >= 0):
+            # non-monotone seed alignment: the literal walk
+            for r in range(rmin, rmax + 1):
+                inds = getrefstates(ri, ra, r)
+                if len(inds):
+                    valid[r - rmin, e] = True
+                    lvl[r - rmin, e] = ev.mean[inds].mean()
+                    sd[r - rmin, e] = ev.stdv[inds].mean()
+            continue
+
+        intmask = np.nonzero((ri == np.floor(ri)) & (ri >= rmin)
+                             & (ri <= rmax))[0]
+        iv = ri[intmask].astype(np.int64) - rmin
+        first_hit = np.full(n_r, len(ra), dtype=np.int64)
+        np.minimum.at(first_hit, iv, intmask)
+        hit = first_hit < len(ra)
+        hr = np.nonzero(hit)[0]
+        if len(hr) == 0:
+            continue
+        i = first_hit[hr]
+        a = np.searchsorted(pos, i, side="right")
+        b = np.searchsorted(vals, hr + rmin, side="right")
+        b = np.maximum(a, b)
+        cm = np.concatenate([[0.0], np.cumsum(ev.mean[pos])])
+        cs = np.concatenate([[0.0], np.cumsum(ev.stdv[pos])])
+        cnt = 1 + (b - a)
+        lvl[hr, e] = (ev.mean[i] + cm[b] - cm[a]) / cnt
+        sd[hr, e] = (ev.stdv[i] + cs[b] - cs[a]) / cnt
+        valid[hr, e] = True
+
+    nalhere = spans.sum(axis=1)
+    nlik = valid.sum(axis=1)
+    gap = np.nonzero((nalhere == 0) & (nlik == 0))[0]
+    stop = int(gap[0]) if len(gap) else n_r
+    keep = np.nonzero(nlik[:stop] > 0.2 * nalhere[:stop])[0]
+    return lvl[keep], sd[keep], valid[keep]
+
+
+def _build_T(skip_prob, stay_prob):
+    """Dense transition matrix (Viterbi.cpp:134-169, nskip=4)."""
+    T = np.zeros((1024, 1024))
+    for curst in range(1024):
+        sp = 0.25
+        for j in range(1, 5):
+            n = 1 << (2 * j)
+            prev = (curst >> (2 * j)) + (np.arange(n) << (10 - 2 * j))
+            np.add.at(T[curst], prev, sp)
+            sp = sp * 0.25 * skip_prob
+    T[np.arange(1024), np.arange(1024)] = stay_prob
+    return T
+
+
+def _states_to_seq(states: np.ndarray) -> str:
+    """State path -> base string (Viterbi.cpp:171-237)."""
+    seq = [state_base(int(states[0]), 0)]
+    cur = int(states[0])
+    for s in states[1:]:
+        s = int(s)
+        if s == cur:
+            continue
+        found = False
+        for nskips in range(1, 5):
+            shifted = (cur << (2 * nskips)) & 1023
+            ind = s - shifted
+            if (0 <= ind < (1 << (2 * nskips))
+                    and next_state(cur, ind, nskips) == s):
+                for j in range(1, nskips + 1):
+                    seq.append(state_base(cur, j))
+                cur = s
+                found = True
+                break
+        if not found:
+            cur = s
+            seq.append(state_base(cur, 0))
+    for j in range(1, 5):
+        seq.append(state_base(cur, j))
+    return "".join(seq)
+
+
+def _b_bucket(b: int) -> int:
+    for p in (1, 2, 4, 8, 16):
+        if b <= p:
+            return p
+    return ((b + 15) // 16) * 16
+
+
+# ------------------------------------------------------------ device side
+
+
+def obs_multi(lvl, sd, valid, tabs):
+    """Per-state trimmed-mean observation log-likelihoods [B, R, 1024]
+    (the emission + worst-25% trim of Viterbi.cpp:300-349).  lvl/sd/valid
+    [B, R, E]; tabs [B, 6, E, 1024] model tables."""
+    lm, ls, ll, sm, lam, llam = (tabs[:, t][:, None] for t in range(6))
+    sdc = torch.clamp(sd[..., None], min=1e-30)
+    per = emission(lvl[..., None], sdc, torch.log(sdc), lm, ls, ll, sm, lam,
+                   llam, 0.0)                             # [B, R, E, 1024]
+    E = per.shape[2]
+    nlik = valid.sum(dim=2)                               # [B, R]
+    nskip = torch.floor(nlik * 0.25).long()
+    nskip = torch.where((nskip > nlik - 2) | (nlik <= 1), 0, nskip)
+    per = torch.where(valid[..., None], per, -torch.inf)
+    per = torch.sort(per, dim=2).values
+    start = (E - nlik + nskip)[..., None, None]
+    sel = torch.arange(E, device=per.device)[None, None, :, None] >= start
+    tot = torch.where(sel, per, 0.0).sum(dim=2)
+    den = torch.clamp(nlik - nskip, min=1)[..., None]
+    return tot / den
+
+
+def _group(V, j, op):
+    """Reduce the 1024-state axis over j-step predecessor groups, repeated
+    back to 1024 states: out[s] = op over k of V[(s >> 2j) + (k << 10-2j)]."""
+    n = 1 << (2 * j)
+    g = op(V.reshape(V.shape[0], n, 1024 >> (2 * j)), dim=1)
+    return torch.repeat_interleave(g, n, dim=1)
+
+
+def _group_argmax(V, j):
+    """Predecessor state (first max) within each state's j-step group."""
+    n = 1 << (2 * j)
+    karg = torch.argmax(V.reshape(V.shape[0], n, 1024 >> (2 * j)), dim=1)
+    base = torch.arange(1024, device=V.device) >> (2 * j)
+    return base + (karg[:, base] << (10 - 2 * j))
+
+
+def viterbi_sweep(obs, n_real, skip_prob, stay_prob, need_bp=False):
+    """The 1024-state recursion over positions, batched over regions:
+    obs [B, R, 1024], n_real [B] (rows past a region's end pass the carry).
+    Returns (liks [B, 1024] at each region's last real row,
+    fwds [B, R, 1024] normalized forward probabilities, bps [B, R, 1024] or
+    None) — backpointers with the reference's priority j=1 < 2 < 3 < stay."""
+    B, R, _ = obs.shape
+    dev, dt = obs.device, obs.dtype
+    skip_lik = float(np.log(skip_prob))
+    stay_lik = float(np.log(stay_prob))
+    l25 = float(np.log(0.25))
+    lsp = (l25, l25 + l25 + skip_lik, l25 + l25 + skip_lik + l25 + skip_lik)
+    sp1 = 0.25
+    sp2 = 0.25 * 0.25 * skip_prob
+    sp3 = sp2 * 0.25 * skip_prob
+    liks = torch.zeros((B, 1024), dtype=dt, device=dev)
+    fwd = torch.full((B, 1024), 1.0 / 1024.0, dtype=dt, device=dev)
+    fwds = torch.empty((B, R, 1024), dtype=dt, device=dev)
+    bps = (torch.empty((B, R, 1024), dtype=torch.long, device=dev)
+           if need_bp else None)
+    states = torch.arange(1024, device=dev)
+    valid = torch.arange(R, device=dev)[None, :] < n_real[:, None]
+    for t in range(R):
+        ob = obs[:, t]
+        m = [_group(liks, j, lambda x, dim: x.amax(dim=dim)) + lsp[j - 1]
+             for j in (1, 2, 3)]
+        mstay = liks + stay_lik
+        best = torch.maximum(torch.maximum(m[0], m[1]),
+                             torch.maximum(m[2], mstay))
+        newlik = ob + best
+        if need_bp:
+            bp = _group_argmax(liks, 1)
+            cur = m[0]
+            for j in (2, 3):
+                upd = m[j - 1] > cur
+                bp = torch.where(upd, _group_argmax(liks, j), bp)
+                cur = torch.where(upd, m[j - 1], cur)
+            bps[:, t] = torch.where(mstay > cur, states, bp)
+        gsum = lambda j: _group(fwd, j, lambda x, dim: x.sum(dim=dim))
+        f = sp1 * gsum(1) + sp2 * gsum(2) + sp3 * gsum(3) + stay_prob * fwd
+        f = f * torch.exp(ob)
+        f = f / f.sum(dim=1, keepdim=True)
+        v = valid[:, t][:, None]
+        liks = torch.where(v, newlik, liks)
+        fwd = torch.where(v, f, fwd)
+        fwds[:, t] = fwd
+    return liks, fwds, bps
+
+
+def sample_paths(T, fwds, valid_rows, startst, attens, gen):
+    """Stochastic backtraces (Viterbi.cpp:403-423): for every region b and
+    candidate k, path[R-1] = startst[b] and path[i-1] is drawn with
+    probability proportional to T[path[i]] * fwds[b, i]^atten[k] (Gumbel-max
+    over log-probabilities, the form jax.random.categorical takes).  Rows
+    past a region's end keep the start state.  Returns [B, nkeep, R]."""
+    B, R, _ = fwds.shape
+    nk = attens.shape[0]
+    dev, dt = fwds.device, fwds.dtype
+    cur = startst[:, None].expand(B, nk).clone()
+    paths = torch.empty((B, nk, R), dtype=torch.long, device=dev)
+    for i in range(R - 1, -1, -1):
+        paths[:, :, i] = cur
+        f = fwds[:, i][:, None, :] ** attens[None, :, None]
+        probs = T[cur] * f
+        probs = probs / probs.sum(dim=2, keepdim=True)
+        u = torch.rand((B, nk, 1024), generator=gen, dtype=dt, device=dev)
+        gumbel = -torch.log(-torch.log(u))
+        nxt = torch.argmax(torch.log(probs + 1e-300) + gumbel, dim=2)
+        cur = torch.where(valid_rows[:, i][:, None], nxt, cur)
+    return paths
+
+
+def _model_tabs(evs, E_pad):
+    """[6, E_pad, 1024] model tables; padded events keep finite emissions."""
+    tabs = np.zeros((6, E_pad, 1024))
+    tabs[1] = tabs[3] = tabs[4] = 1.0
+    for e, ev in enumerate(evs):
+        m, d = ev.model, ev.model.derived()
+        tabs[:, e] = (m.level_mean, m.level_stdv, d["log_lev"], m.sd_mean,
+                      d["sd_lambda"], d["log_lambda"])
+    return tabs
+
+
+def viterbi_mutate_multi(events_lists, nkeep, skip_prob, stay_prob, mut_min,
+                         mut_max, device, dtype, gen, seed: int = 0):
+    """ViterbiMutate for R regions in one batched sweep: per region, nkeep
+    candidate strings (nkeep=0: the one deterministic Viterbi path).
+    Regions with no events get []; nkeep=0 runs each region on its own, as
+    the JAX package does, so padding never enters its observations."""
+    B = len(events_lists)
+    if nkeep == 0 and B > 1:
+        return [viterbi_mutate_multi([evs], 0, skip_prob, stay_prob, mut_min,
+                                     mut_max, device, dtype, gen, seed)[0]
+                for evs in events_lists]
+    stats = []
+    for evs in events_lists:
+        st = _position_stats(evs) if evs else None
+        stats.append((*st, evs) if st is not None and len(st[0]) else None)
+    act = [b for b in range(B) if stats[b] is not None]
+    out = [[] for _ in range(B)]
+    if not act:
+        return out
+
+    R_pad = max(((len(stats[b][0]) + 63) // 64) * 64 for b in act)
+    E_pad = max(len(stats[b][3]) for b in act)
+    Bp = _b_bucket(len(act))
+    lvl_a = np.zeros((Bp, R_pad, E_pad))
+    sd_a = np.zeros((Bp, R_pad, E_pad))
+    valid_a = np.zeros((Bp, R_pad, E_pad), dtype=bool)
+    tabs_a = np.stack([_model_tabs([], E_pad)] * Bp)
+    n_real = np.zeros(Bp, dtype=np.int64)
+    for bp, b in enumerate(act):
+        lvl, sd, valid, evs = stats[b]
+        R_b, E_b = lvl.shape
+        lvl_a[bp, :R_b, :E_b] = lvl
+        sd_a[bp, :R_b, :E_b] = sd
+        valid_a[bp, :R_b, :E_b] = valid
+        n_real[bp] = R_b
+        tabs_a[bp] = _model_tabs(evs, E_pad)
+
+    t = lambda x, d=dtype: torch.as_tensor(x, dtype=d, device=device)
+    obs = obs_multi(t(lvl_a), t(sd_a), t(valid_a, torch.bool), t(tabs_a))
+    n_real_d = t(n_real, torch.long)
+    liks, fwds, bps = viterbi_sweep(obs, n_real_d, skip_prob, stay_prob,
+                                    need_bp=nkeep == 0)
+    startst = torch.argmax(liks, dim=1)
+
+    if nkeep == 0:
+        bps_h = bps.cpu().numpy()
+        start_h = startst.cpu().numpy()
+        for bp, b in enumerate(act):
+            n = int(n_real[bp])
+            states = np.zeros(n, dtype=np.int64)
+            cur = int(start_h[bp])
+            for i in range(n - 1, -1, -1):
+                states[i] = cur
+                cur = int(bps_h[bp, i, cur])
+            out[b] = [_states_to_seq(states)]
+        return out
+
+    gen.manual_seed(seed)
+    attens = t([mut_min + (mut_max - mut_min) * k / float(nkeep)
+                for k in range(nkeep)])
+    valid_rows = torch.arange(R_pad, device=device)[None, :] < n_real_d[:, None]
+    # rows past a region's end carry 1/1024 forward probabilities
+    fwds = torch.where(valid_rows[..., None], fwds, 1.0 / 1024.0)
+    paths = sample_paths(t(_build_T(skip_prob, stay_prob)), fwds, valid_rows,
+                         startst, attens, gen).cpu().numpy()
+    for bp, b in enumerate(act):
+        R_b = int(n_real[bp])
+        out[b] = [_states_to_seq(paths[bp, k, :R_b]) for k in range(nkeep)]
+    return out
