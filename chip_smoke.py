@@ -13,20 +13,42 @@ non-zero, nothing runs on the CPU instead):
                 group of an 8-region lockstep batch, in f64 (semantics) and
                 f32 (the production type), with the kernel's and the twin's
                 times;
+  2b. viterbi — the sampler's counter hash on the card equals its pinned
+                values bit for bit, and in f64 each of the 8 regions of
+                phase 2's batch gets the same candidates inside the batch
+                as alone (f32: the count that do is printed);
   3. e2e      — the port's CLI `consensus --region-batch 8 --device cuda` on a
                 synthetic run (8 x 1 kb regions at 10X, widths 300/100/20,
                 -i 4), checking the output count, the mean accuracy against
-                the truth and that every kernel of the path was launched.
-The line before the last is a JSON object with one entry per kernel; the
-last line is {"ok": true, "device": {...}}.
+                the truth and that every kernel of the path was launched;
+  4. variant  — `variant -m/-a/-f` on a 5 kb run with 10 planted
+                substitutions: reverting mutations score > 0 and corrupting
+                ones < 0, -a prints one line per point mutation of a 1 kb
+                region, the truth outscores a 5 %-mutated copy;
+  5. train    — `train -i 1` on a 1 kb region at 10X: 16 candidates of 10
+                reps, train_best.conf written, best accuracy >= 98 %;
+                phases 4 and 5 also hold the largest forward fill, backward
+                fill and group-scorer launch of their own run to the twins
+                (phase 2's tolerances), train's fill carrying 16 candidates'
+                transition operands;
+  6. multihost — two processes on the card run `consensus --coordinator`
+                over 4 regions; each OUTPUT.pN equals, byte for byte, a
+                single-process run of its regions (--shard-index).
+Phases 2b-6 reset the kernels' launch counters before they start and report
+them after.  The line before the last is a JSON object with one entry per
+kernel; the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
 import json
 import os
+import random
 import shutil
+import socket
 import subprocess
 import sys
 import tempfile
@@ -169,45 +191,63 @@ def _fill_inputs(engine, data):
             t(fi["is_pad"]), float(data.params.lik_offset))
 
 
-def check_fill(engine, data, f64: bool, report: dict):
+FILL_OUTPUTS = ("M", "S", "steps_m", "steps_s", "cmax", "carg")
+
+
+def _tolerance(f64: bool):
+    return (1e-11, 1e-9) if f64 else (2e-5, 2e-4)
+
+
+def hold_fill(args, where: str) -> float:
+    """One fill launch (fill_cuda's arguments) against its plain twin on the
+    same operands: M, S and cmax within the tolerance, step bytes equal
+    (f64) or >= 99.95 % equal (f32), first argmaxes and best coordinates
+    equal.  Returns the max |diff|."""
     import torch
 
+    from poreseq_tpu_torch.engine.dp import fill_reference, finish_fill
+    from poreseq_tpu_torch.engine.fill import fill_cuda
+
+    batch, states, i0, i1, pad, off, backward, W, need_steps = args
+    f64 = batch.mean.dtype == torch.float64
+    rtol, atol = _tolerance(f64)
+    got = fill_cuda(*args)
+    ref = fill_reference(*args)
+    torch.cuda.synchronize()
+    what = f"{where} fill (f64={f64}, backward={backward})"
+    err = 0.0
+    for n, a, b in zip(FILL_OUTPUTS, got, ref):
+        if a.shape != b.shape:
+            fail(f"{what}: {n} shape {tuple(a.shape)} != {tuple(b.shape)}")
+        if n.startswith("steps"):
+            agree = (a == b).double().mean().item() if a.numel() else 1.0
+            if (f64 and agree < 1.0) or agree < 0.9995:
+                fail(f"{what}: {n} agreement {agree}")
+        elif n == "carg":
+            if not torch.equal(a, b):
+                fail(f"{what}: carg differs")
+        else:
+            d = (a - b).abs()
+            if not bool((d <= atol + rtol * b.abs()).all()):
+                fail(f"{what}: {n} max |diff| {d.max().item()}")
+            err = max(err, d.max().item())
+    rg = finish_fill(*got, i0, i1, backward)
+    rr = finish_fill(*ref, i0, i1, backward)
+    if not (torch.equal(rg.best_i, rr.best_i)
+            and torch.equal(rg.best_j, rr.best_j)):
+        fail(f"{what}: best_i/best_j differ")
+    return err
+
+
+def check_fill(engine, data, f64: bool, report: dict):
     from poreseq_tpu_torch.engine.dp import fill_reference
     from poreseq_tpu_torch.engine.fill import fill_cuda
 
     W = 2 * data.params.realign_width + 1
     batch, states, i0, i1, pad, off = _fill_inputs(engine, data)
-    rtol, atol = (1e-11, 1e-9) if f64 else (2e-5, 2e-4)
-    err = 0.0
-    for backward in (False, True):
-        args = (batch, states, i0, i1, pad, off, backward, W, True)
-        got = fill_cuda(*args)
-        ref = fill_reference(*args)
-        torch.cuda.synchronize()
-        names = ("M", "S", "steps_m", "steps_s", "cmax", "carg")
-        for n, a, b in zip(names, got, ref):
-            if n.startswith("steps"):
-                agree = (a == b).double().mean().item()
-                if (f64 and agree < 1.0) or agree < 0.9995:
-                    fail(f"fill {n} agreement {agree} (f64={f64}, "
-                         f"backward={backward})")
-            elif n == "carg":
-                if not torch.equal(a, b):
-                    fail(f"fill carg differs (f64={f64})")
-            else:
-                d = (a - b).abs()
-                if not bool((d <= atol + rtol * b.abs()).all()):
-                    fail(f"fill {n}: max |diff| {d.max().item()} "
-                         f"(f64={f64}, backward={backward})")
-                err = max(err, d.max().item())
-        from poreseq_tpu_torch.engine.dp import finish_fill
-
-        rg = finish_fill(*got, i0, i1, backward)
-        rr = finish_fill(*ref, i0, i1, backward)
-        if not (torch.equal(rg.best_i, rr.best_i)
-                and torch.equal(rg.best_j, rr.best_j)):
-            fail(f"fill best_i/best_j differ (f64={f64}, "
-                 f"backward={backward})")
+    rtol, atol = _tolerance(f64)
+    err = max(hold_fill((batch, states, i0, i1, pad, off, backward, W, True),
+                        "kernels") for backward in (False, True))
     line = dict(max_abs_err=err)
     if not f64:
         args = (batch, states, i0, i1, pad, off, False, W, True)
@@ -239,7 +279,7 @@ def check_backtrace(engine, data, f64: bool, report: dict):
     torch.cuda.synchronize()
     if not torch.equal(ral_k, ral_r):
         fail(f"backtrace ref_align differs (f64={f64})")
-    rtol, atol = (1e-11, 1e-9) if f64 else (2e-5, 2e-4)
+    rtol, atol = _tolerance(f64)
     d = (rlk_k - rlk_r).abs()
     if not bool((d <= atol + rtol * rlk_r.abs()).all()):
         fail(f"backtrace ref_like max |diff| {d.max().item()}")
@@ -321,17 +361,37 @@ def _twin_totals(args):
     return torch.cat(out)
 
 
+def hold_mutscore(args, where: str) -> float:
+    """One group-scorer launch (group_totals_cuda's arguments) against its
+    plain twin on every group: totals within 1e-8 (f64) or 3e-3 + 2e-4 |x|
+    (f32), and no accept-sign flip.  Returns the max |diff|."""
+    import torch
+
+    from poreseq_tpu_torch.engine.mutscore import group_totals_cuda
+
+    f64 = args[1].dtype == torch.float64
+    tot_k, _ = group_totals_cuda(*args)
+    tot_r = _twin_totals(args)
+    torch.cuda.synchronize()
+    d = (tot_k - tot_r).abs()
+    bound = 1e-8 if f64 else 3e-3 + 2e-4 * tot_r.abs()
+    what = f"{where} mutscore K={args[18]} D={args[20]} (f64={f64})"
+    if not bool((d <= bound).all()):
+        fail(f"{what}: max |diff| {d.max().item()}")
+    valid = args[13]["s_valid"].bool()
+    flips = ((tot_k - 1e-6 > 0) != (tot_r - 1e-6 > 0)) & valid
+    if bool(flips.any()):
+        fail(f"{what}: {int(flips.sum())} accept-sign flips")
+    return d.max().item()
+
+
 def check_mutscore(engine, calls, f64: bool, report: dict):
     """Group scorer (one launch per (K, D) class over all groups of the
     8-region batch, as the main path launches it) against its twin on every
     group."""
-    import torch
-
     from poreseq_tpu_torch.engine.mutscore import (group_launches,
                                                    group_totals_cuda)
 
-    tol = (lambda a, b: (a - b).abs() <= 1e-8) if f64 else (
-        lambda a, b: (a - b).abs() <= 3e-3 + 2e-4 * b.abs())
     err, ms, plain_ms, n_groups, clamped = 0.0, [], [], {}, 0
     for name, (datas, mlists) in calls.items():
         n_groups[name] = 0
@@ -340,17 +400,7 @@ def check_mutscore(engine, calls, f64: bool, report: dict):
             E, E_g, G = args[1].shape[1], args[21], gp["G"]
             clamped += int((gp["g_evoff"][:G] > E - E_g).sum())
             n_groups[name] += G
-            tot_k, _ = group_totals_cuda(*args)
-            tot_r = _twin_totals(args)
-            torch.cuda.synchronize()
-            if not bool(tol(tot_k, tot_r).all()):
-                fail(f"mutscore {name} K={args[18]} D={args[20]}: max "
-                     f"|diff| {(tot_k - tot_r).abs().max().item()}")
-            valid = args[13]["s_valid"].bool()
-            flips = ((tot_k - 1e-6 > 0) != (tot_r - 1e-6 > 0)) & valid
-            if bool(flips.any()):
-                fail(f"mutscore {name}: {int(flips.sum())} accept-sign flips")
-            err = max(err, (tot_k - tot_r).abs().max().item())
+            err = max(err, hold_mutscore(args, f"kernels {name}"))
             if not f64 and name == "refine":
                 ms.append(cuda_ms(lambda: group_totals_cuda(*args)))
                 plain_ms.append(cuda_ms(lambda: _twin_totals(args), reps=2))
@@ -384,50 +434,224 @@ def phase_kernels(seed: int):
     return report
 
 
+def _kernels():
+    from poreseq_tpu_torch.engine.align import BACKTRACE
+    from poreseq_tpu_torch.engine.fill import FILL
+    from poreseq_tpu_torch.engine.mutscore import MUTSCORE
+
+    return FILL, MUTSCORE, BACKTRACE
+
+
+def _reset_launches():
+    import torch
+
+    torch.cuda.synchronize()
+    for k in _kernels():
+        k.launches = 0
+
+
+def _launches() -> dict:
+    return {k.name: k.launches for k in _kernels()}
+
+
+def _need_launches(phase: str, launches: dict, names=None):
+    for name in names or launches:
+        if launches[name] <= 0:
+            fail(f"{phase}: kernel {name} was never launched")
+
+
+def _copied(x):
+    """x with every tensor in it cloned (tuples, named tuples, lists and
+    dicts rebuilt around the clones)."""
+    import torch
+
+    if isinstance(x, torch.Tensor):
+        return x.clone()
+    if isinstance(x, dict):
+        return {k: _copied(v) for k, v in x.items()}
+    if isinstance(x, tuple) and hasattr(x, "_fields"):
+        return type(x)(*map(_copied, x))
+    if isinstance(x, (tuple, list)):
+        return type(x)(map(_copied, x))
+    return x
+
+
+@contextlib.contextmanager
+def largest_launches():
+    """Inside the block, keep a copy of the operands of the largest forward
+    fill, the largest backward fill (C x E cells) and the largest group-scorer
+    launch (G x C x E) that the path makes, the first of equals, under the
+    keys "fill fwd", "fill bwd" and "mutscore".  They are held to their twins
+    after the path's launch counts are read."""
+    import inspect
+
+    from poreseq_tpu_torch.engine import fill, mutscore
+
+    kept, sizes = {}, {}
+    real = fill.fill_cuda, mutscore.group_totals_cuda
+
+    def keeper(fn, key_size):
+        sig = inspect.signature(fn)
+
+        def wrapped(*a, **kw):
+            b = sig.bind(*a, **kw)
+            b.apply_defaults()
+            key, size = key_size(b.arguments)
+            if size > sizes.get(key, 0):
+                kept[key] = _copied(tuple(b.arguments.values()))
+                sizes[key] = size
+            return fn(*a, **kw)
+        return wrapped
+
+    fill.fill_cuda = keeper(real[0], lambda a: (
+        "fill bwd" if a["backward"] else "fill fwd", a["states"].numel()))
+    mutscore.group_totals_cuda = keeper(real[1], lambda a: (
+        "mutscore", a["gp"]["g_start"].shape[0] * a["Mf"].shape[0]
+        * a["Mf"].shape[1]))
+    try:
+        yield kept
+    finally:
+        fill.fill_cuda, mutscore.group_totals_cuda = real
+
+
+def hold_path_launches(kept: dict, phase: str) -> str:
+    """Hold the launches kept by largest_launches to their twins; returns a
+    line of what was held."""
+    for key in ("fill fwd", "fill bwd", "mutscore"):
+        if key not in kept:
+            fail(f"{phase}: no {key} launch was kept to hold to its twin")
+    t0 = time.perf_counter()
+    errs = {k: hold_fill(kept[k], phase) for k in ("fill fwd", "fill bwd")}
+    errs["mutscore"] = hold_mutscore(kept["mutscore"], phase)
+    batch, states = kept["fill fwd"][:2]
+    mf, gp = kept["mutscore"][1], kept["mutscore"][13]
+    return (f"held to the twins: fill fwd/bwd C={states.shape[0]} "
+            f"E={states.shape[1]} max |diff| {errs['fill fwd']:.3e}/"
+            f"{errs['fill bwd']:.3e}, mutscore G={gp['g_start'].shape[0]} "
+            f"C={mf.shape[0]} E={mf.shape[1]} max |diff| "
+            f"{errs['mutscore']:.3e}, {time.perf_counter() - t0:.2f} s")
+
+
+def _transition_sets(batch) -> int:
+    """Distinct per-event transition operands among a batch's active rows."""
+    import torch
+
+    lik = torch.stack([batch.lik_skip, batch.lik_stay, batch.lik_extend,
+                       batch.lik_insert], 1)[batch.active.bool()]
+    return int(torch.unique(lik, dim=0).shape[0])
+
+
+def _fast5_io() -> str:
+    """Let the package's fast5 reader and writer run where h5py is missing
+    (the card's machine): an npz stand-in takes its place."""
+    try:
+        import h5py  # noqa: F401
+        return "h5py"
+    except ImportError:
+        sys.modules["h5py"] = _NpzH5
+        return "npz stand-in for h5py"
+
+
+CONF_WIDTHS = ("realign_width = 300\nscoring_width = 100\npoint_width = 20\n"
+               "min_coverage = 0\nmax_coverage = 30\nmin_overlap = 300\n"
+               "max_length = 10000\nlik_offset = 4.5\n")
+
+
+def _e2e_run(d: str, seed: int):
+    """Phase 3's synthetic run: 8 x 1 kb regions at 10X, 2 % draft error."""
+    from poreseq_tpu.sim import write_run
+
+    R, L, cov = E2E_REGIONS, 1000, 10
+    truth, _, reads_dir, bam, fasta = write_run(
+        d, np.random.default_rng(seed), ref_len=R * L,
+        n_reads=(cov // 2) * R, read_len=L + 200, draft_error=0.02)
+    conf = os.path.join(d, "params.conf")
+    with open(conf, "w") as f:
+        f.write(CONF_WIDTHS)
+    regions = ["synthref:{}:{}".format(r * L, (r + 1) * L) for r in range(R)]
+    return truth, fasta, bam, reads_dir, conf, regions
+
+
+def _write_lines(path: str, lines) -> str:
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    return path
+
+
+def phase_viterbi(seed: int):
+    """2b: the counter hash on the card, and each region's Viterbi
+    candidates inside an 8-region batch against its solo call."""
+    import torch
+
+    from poreseq_tpu_torch.engine import TorchEngine
+    from poreseq_tpu_torch.engine.viterbi import (counter_hash,
+                                                  counter_uniforms)
+
+    _reset_launches()
+    t0 = time.perf_counter()
+    t = lambda v: torch.tensor(v, dtype=torch.int64, device="cuda")
+    for (sd, k, i, w), h in PINNED_HASH:
+        got = int(counter_hash(sd, t([k]), t([i]), t([w]))[0])
+        if got != h:
+            fail(f"viterbi: counter_hash{(sd, k, i, w)} = {got} on the card, "
+                 f"pinned {h}")
+    rows = torch.arange(0, 4096, 7, dtype=torch.int64)
+    for dt in (torch.float32, torch.float64):
+        u_card = counter_uniforms(seed, 16, rows.cuda(), dt).cpu()
+        if not torch.equal(u_card, counter_uniforms(seed, 16, rows, dt)):
+            fail(f"viterbi: {dt} uniforms differ between the card and the "
+                 "CPU")
+    events = [d.events for d in _mut_regions(seed)["refine"][0]]
+    matches, walls = {}, {}
+    for dt in (torch.float64, torch.float32):
+        eng = TorchEngine("cuda", dt, seed=seed)
+        run = lambda evs: eng.viterbi_mutate_multi(evs, 16, 0.05, 0.01,
+                                                   0.33, 0.75)
+        tb = time.perf_counter()
+        batch = run(events)
+        walls[dt] = time.perf_counter() - tb
+        solo = [run([evs])[0] for evs in events]
+        matches[dt] = sum(b == s for b, s in zip(batch, solo))
+        if any(len(s) != 16 for s in solo):
+            fail("viterbi: a region got fewer than 16 candidates")
+    wall = time.perf_counter() - t0
+    launches = _launches()
+    print(f"[viterbi] counter hash on the card = pinned values, uniforms "
+          f"bit-equal to the CPU's; {len(events)} regions (10-14X, 1 kb) "
+          f"batched vs solo, 16 candidates each: f64 "
+          f"{matches[torch.float64]}/{len(events)} equal, f32 "
+          f"{matches[torch.float32]}/{len(events)} equal; batched call f64 "
+          f"{walls[torch.float64]:.2f} s, f32 {walls[torch.float32]:.2f} s; "
+          f"phase wall {wall:.2f} s, launches {launches} | {gpu_line()}",
+          flush=True)
+    if matches[torch.float64] != len(events):
+        fail(f"viterbi: only {matches[torch.float64]} of {len(events)} "
+             "regions got their solo candidates inside the f64 batch")
+    return launches
+
+
 def phase_e2e(seed: int):
     import torch
 
     from poreseq_tpu.api import swalign
     from poreseq_tpu.io.fasta import read_fasta
-    from poreseq_tpu.sim import write_run
     from poreseq_tpu_torch import cli
-    from poreseq_tpu_torch.engine.align import BACKTRACE
-    from poreseq_tpu_torch.engine.fill import FILL
-    from poreseq_tpu_torch.engine.mutscore import MUTSCORE
 
-    try:
-        import h5py  # noqa: F401
-        fast5_io = "h5py"
-    except ImportError:
-        sys.modules["h5py"] = _NpzH5
-        fast5_io = "npz stand-in for h5py"
-    R, L, cov = E2E_REGIONS, 1000, 10
+    fast5_io = _fast5_io()
+    R, cov = E2E_REGIONS, 10
     d = tempfile.mkdtemp(prefix="psq_smoke_")
     try:
-        truth, _, reads_dir, bam, fasta = write_run(
-            d, np.random.default_rng(seed), ref_len=R * L,
-            n_reads=(cov // 2) * R, read_len=L + 200, draft_error=0.02)
-        conf = os.path.join(d, "params.conf")
-        with open(conf, "w") as f:
-            f.write("realign_width = 300\nscoring_width = 100\n"
-                    "point_width = 20\nmin_coverage = 0\nmax_coverage = 30\n"
-                    "min_overlap = 300\nmax_length = 10000\n"
-                    "lik_offset = 4.5\n")
-        rf = os.path.join(d, "regions.txt")
-        with open(rf, "w") as f:
-            f.write("\n".join("synthref:{}:{}".format(r * L, (r + 1) * L)
-                              for r in range(R)) + "\n")
+        truth, fasta, bam, reads_dir, conf, regions = _e2e_run(d, seed)
+        rf = _write_lines(os.path.join(d, "regions.txt"), regions)
         out = os.path.join(d, "out.fasta")
-        for k in (FILL, MUTSCORE, BACKTRACE):
-            k.launches = 0
-        torch.cuda.synchronize()
+        _reset_launches()
         t0 = time.perf_counter()
         cli.main(["consensus", fasta, bam, reads_dir, "-R", rf, "-p", conf,
                   "-o", out, "-i", "4", "--region-batch", "8",
                   "--device", "cuda"])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = {k.name: k.launches for k in (FILL, MUTSCORE, BACKTRACE)}
+        launches = _launches()
         seqs = read_fasta(out)
         # regions are draft coordinates: widen the truth window so draft
         # indel drift does not push a region out of it
@@ -446,10 +670,272 @@ def phase_e2e(seed: int):
           f"{fast5_io} | {gpu_line()}", flush=True)
     if acc < 99.0:
         fail(f"e2e mean accuracy {acc:.3f}% < 99.0%")
-    for name, n in launches.items():
-        if n <= 0:
-            fail(f"e2e: kernel {name} was never launched")
+    _need_launches("e2e", launches)
     return launches
+
+
+def _captured(argv):
+    """Run the port's CLI in this process; returns (wall s, stdout)."""
+    import torch
+
+    from poreseq_tpu_torch import cli
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        cli.main(argv)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, buf.getvalue()
+
+
+def phase_variant(seed: int):
+    """4: variant -m / -a / -f on a 5 kb run (BASELINE.json config 2:
+    about 10 point mutations, 5 kb, 10X) at widths 300/100/20."""
+    from poreseq_tpu.core.regions import RegionInfo
+    from poreseq_tpu.engine.driver import find_point_mutations
+    from poreseq_tpu.engine.types import AlignData
+    from poreseq_tpu.io.fasta import write_fasta
+    from poreseq_tpu.io.load import load_aligned_events
+    from poreseq_tpu.sim import mutate_seq, write_run
+
+    _fast5_io()
+    rng = np.random.default_rng(seed + 4)
+    d = tempfile.mkdtemp(prefix="psq_smoke_var_")
+    try:
+        truth, _, reads, bam, fasta = write_run(
+            d, np.random.default_rng(seed + 40), ref_len=5000, n_reads=25,
+            read_len=1200, draft_error=0.0)
+        conf = _write_lines(os.path.join(d, "params.conf"),
+                            [CONF_WIDTHS.strip()])
+        # 10 planted substitutions and 10 corrupting positions, 300 b or
+        # more from either end and 40 b or more from each other
+        pos = rng.choice(np.arange(300, 4700, 40), 20, replace=False)
+        pos = pos + rng.integers(0, 10, 20)
+        planted_pos, corrupt_pos = sorted(pos[:10]), sorted(pos[10:])
+        other = lambda b: "ACGT"[("ACGT".index(b) + 1 + int(rng.integers(
+            0, 3))) % 4]
+        planted = list(truth)
+        for p in planted_pos:
+            planted[p] = other(truth[p])
+        planted = "".join(planted)
+        ref2 = os.path.join(d, "planted.fasta")
+        write_fasta(ref2, {"synthref": planted})
+        muts = sorted([(int(p), planted[p], truth[p]) for p in planted_pos]
+                      + [(int(p), planted[p], other(planted[p]))
+                         for p in corrupt_pos])
+        mf = _write_lines(os.path.join(d, "muts.txt"),
+                          ["{} {} {}".format(*m) for m in muts])
+        vf = os.path.join(d, "variants.fasta")
+        write_fasta(vf, {"truth": truth,
+                         "mutated5": mutate_seq(rng, truth, 0.05)})
+        dev = ["-p", conf, "--device", "cuda"]
+
+        _reset_launches()
+        region_a = "synthref:2000:3000"
+        with largest_launches() as kept:
+            wall_m, out_m = _captured(["variant", ref2, bam, reads, "-m",
+                                       mf, "-r", "synthref:0:5000", *dev])
+            wall_a, out_a = _captured(["variant", fasta, bam, reads, "-a",
+                                       "-r", region_a, *dev])
+            wall_f, out_f = _captured(["variant", ref2, bam, reads, "-f",
+                                       vf, "-r", "synthref:0:5000", *dev])
+        launches = _launches()
+        held = hold_path_launches(kept, "variant")
+
+        from poreseq_tpu.core.params import load_params
+
+        params = load_params(conf)
+        pa = load_aligned_events(fasta, bam, reads, RegionInfo(region_a),
+                                 dict(params, verbose=0))
+        data = AlignData.from_session(pa)
+        data.params.scoring_width = int(params["point_width"])
+        n_points = len(find_point_mutations(data))
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+
+    scores = {}
+    for line in out_m.splitlines():
+        start, orig, mut, score = line.split("\t")
+        scores[(int(start), orig, mut)] = float(score)
+    if sorted(scores) != muts:
+        fail(f"variant -m: {len(scores)} score lines for {len(muts)} "
+             "mutations")
+    revert = [scores[k] for k in scores if k[0] in planted_pos]
+    corrupt = [scores[k] for k in scores if k[0] in corrupt_pos]
+    lines_a = [l for l in out_a.splitlines() if l.strip()]
+    fscores = dict((vid, float(sc)) for vid, sc in
+                   (l.rsplit(", ", 1) for l in out_f.splitlines()))
+    print(f"[variant] 5 kb, 25 reads of 1.2 kb, widths 300/100/20: -m "
+          f"{len(muts)} "
+          f"mutations {wall_m:.2f} s (reverting min {min(revert):.3f}, "
+          f"corrupting max {max(corrupt):.3f}); -a {region_a} "
+          f"{len(lines_a)} lines for {n_points} point mutations "
+          f"{wall_a:.2f} s; -f truth {fscores.get('truth')} vs 5 %-mutated "
+          f"{fscores.get('mutated5')} {wall_f:.2f} s; launches {launches}; "
+          f"{held} | {gpu_line()}", flush=True)
+    if min(revert) <= 0 or max(corrupt) >= 0:
+        fail("variant -m: a reverting mutation scored <= 0 or a corrupting "
+             "one >= 0")
+    if len(lines_a) != n_points:
+        fail(f"variant -a: {len(lines_a)} lines, {n_points} point mutations")
+    if not fscores.get("truth", -np.inf) > fscores.get("mutated5", np.inf):
+        fail(f"variant -f: scores {fscores}")
+    _need_launches("variant", launches)
+    return launches
+
+
+def phase_train(seed: int):
+    """5: `train -i 1` on one 1 kb region at 10X: 16 candidates of 10
+    reps in one lockstep batch."""
+    import inspect
+
+    from poreseq_tpu import pipeline
+    from poreseq_tpu.core.params import PACKAGED_DEFAULTS, load_params
+    from poreseq_tpu.sim import write_run
+    from poreseq_tpu_torch import cli
+
+    _fast5_io()
+    d = tempfile.mkdtemp(prefix="psq_smoke_train_")
+    cwd = os.getcwd()
+    real = pipeline.train_candidates
+    default_reps = inspect.signature(real).parameters["reps"].default
+    batches = []
+
+    def recorded(*a, **kw):
+        batches.append((len(a[4]), kw.get("reps", default_reps)))
+        return real(*a, **kw)
+
+    try:
+        _, _, reads, bam, fasta = write_run(
+            d, np.random.default_rng(seed + 5), ref_len=1000, n_reads=5,
+            draft_error=0.0)
+        conf = _write_lines(os.path.join(d, "train.conf"), [
+            CONF_WIDTHS.strip()] + ["{} = {}".format(k, v) for k, v in
+                                    PACKAGED_DEFAULTS.items()
+                                    if k[-2:] in ("_t", "_c")])
+        random.seed(seed)
+        pipeline.train_candidates = recorded
+        os.chdir(d)
+        err = io.StringIO()
+        _reset_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stderr(err), largest_launches() as kept:
+            cli.main(["train", fasta, bam, reads, "-i", "1", "-p", conf,
+                      "-r", "synthref:0:1000", "--device", "cuda"])
+        wall = time.perf_counter() - t0
+        launches = _launches()
+        held = hold_path_launches(kept, "train")
+        n_trans = _transition_sets(kept["fill fwd"][0])
+        best = (load_params("train_best.conf")
+                if os.path.isfile("train_best.conf") else {})
+    finally:
+        pipeline.train_candidates = real
+        os.chdir(cwd)
+        shutil.rmtree(d, ignore_errors=True)
+    acc = [float(l.split(":")[1]) for l in err.getvalue().splitlines()
+           if l.startswith("Best at iter 1:")]
+    print(f"[train] train -i 1, 1 kb at 10X, widths 300/100/20: candidate "
+          f"batches (count, reps) {batches}, best accuracy "
+          f"{acc[0] if acc else None}%, wall {wall:.2f} s, launches "
+          f"{launches}; {held}, the fill's rows carry {n_trans} transition "
+          f"sets | {gpu_line()}", flush=True)
+    if n_trans < 16:
+        fail(f"train: the held fill carries {n_trans} transition sets, "
+             "not the 16 candidates'")
+    if batches != [(16, 10)]:
+        fail(f"train: candidate batches {batches}, expected [(16, 10)]")
+    tc = {k: v for k, v in best.items() if k[-2:] in ("_t", "_c")}
+    if len(tc) != 8 or min(tc.values()) <= 0:
+        fail(f"train: train_best.conf holds {best}")
+    if not acc or acc[0] < 98.0:
+        fail(f"train: best accuracy {acc} < 98.0%")
+    _need_launches("train", launches)
+    return launches
+
+
+_CHILD = """
+import json, sys
+import chip_smoke
+chip_smoke._fast5_io()
+from poreseq_tpu_torch import cli
+cli.main(sys.argv[1:])
+print(json.dumps(chip_smoke._launches()))
+"""
+
+
+def phase_multihost(seed: int):
+    """6: two processes on the one card deal 4 regions through
+    `consensus --coordinator`; each shard equals a single-process run of
+    its regions."""
+    import torch
+
+    from poreseq_tpu_torch import cli
+
+    _fast5_io()
+    root = os.path.dirname(os.path.abspath(__file__))
+    d = tempfile.mkdtemp(prefix="psq_smoke_mh_")
+    procs = []
+    try:
+        _, fasta, bam, reads, conf, regions = _e2e_run(d, seed)
+        rf = _write_lines(os.path.join(d, "regions.txt"), regions[:4])
+        args = ["consensus", fasta, bam, reads, "-R", rf, "-p", conf, "-i",
+                "4", "--region-batch", "2", "--device", "cuda"]
+        s = socket.socket()
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+        s.close()
+        multi = os.path.join(d, "multi.fasta")
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, "-c", _CHILD, *args, "-o", multi,
+             "--coordinator", "127.0.0.1:{}".format(port),
+             "--num-processes", "2", "--process-id", str(p)],
+            cwd=root, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True) for p in range(2)]
+        outs = [p.communicate(timeout=600) for p in procs]
+        wall_mh = time.perf_counter() - t0
+        for p, (out, err) in zip(procs, outs):
+            if p.returncode != 0:
+                fail(f"multihost: a process exited {p.returncode}:\n"
+                     f"{err[-3000:]}")
+        child = [json.loads(out.strip().splitlines()[-1]) for out, _ in outs]
+        launches = {k: sum(c[k] for c in child) for k in child[0]}
+        walls, same = [], []
+        for p in range(2):
+            single = os.path.join(d, "single{}.fasta".format(p))
+            t0 = time.perf_counter()
+            cli.main([*args, "-o", single, "--shard-index", str(p),
+                      "--num-shards", "2"])
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            with open(single, "rb") as a, open(f"{multi}.p{p}", "rb") as b:
+                sa, sb = a.read(), b.read()
+            same.append(sa == sb and sa.count(b">") == 2)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(d, ignore_errors=True)
+    print(f"[multihost] consensus --coordinator, 2 processes on one card, "
+          f"4 x 1 kb at 10X, --region-batch 2 -i 4: wall {wall_mh:.2f} s "
+          f"(processes started to both done); single-process shard runs "
+          f"{walls[0]:.2f} s, {walls[1]:.2f} s; OUTPUT.pN byte-equal to "
+          f"its shard run: {same}; launches in the two processes "
+          f"{[c for c in child]} | {gpu_line()}", flush=True)
+    if not all(same):
+        fail(f"multihost: OUTPUT.pN equal to the single-process runs: {same}")
+    for c in child:
+        _need_launches("multihost", c)
+    return launches
+
+
+# (seed, k, i, w) -> h, as tests/test_torch_viterbi.py pins them on the CPU
+PINNED_HASH = [((0, 0, 0, 0), 1106484830), ((7, 0, 0, 0), 993596527),
+               ((7, 15, 1234, 1023), 3231325825),
+               ((7, 3, 99999, 1541), 3294090134),
+               ((2 ** 32 + 7, 3, 99999, 1541), 3294090134),
+               ((123456789, 1, 7, 2047), 767034526)]
 
 
 def main():
@@ -467,19 +953,26 @@ def main():
 
     kernels = phase_build()
     report = phase_kernels(args.seed)
-    launches = phase_e2e(args.seed)
+    phase_viterbi(args.seed)
+    by_phase = {"e2e": phase_e2e(args.seed),
+                "variant": phase_variant(args.seed),
+                "train": phase_train(args.seed),
+                "multihost": phase_multihost(args.seed)}
 
     entries = []
     for k in kernels:
         line = report[(k.name, False)]
-        entries.append(dict(name=k.name, route="cuda", source=k.source,
-                            replaces=k.replaces, launches=launches[k.name],
-                            max_abs_err=line["max_abs_err"], ms=line["ms"],
-                            plain_ms=line["plain_ms"]))
+        entries.append(dict(
+            name=k.name, route="cuda", source=k.source, replaces=k.replaces,
+            launches=sum(n[k.name] for n in by_phase.values()),
+            launches_by_phase={p: n[k.name] for p, n in by_phase.items()},
+            max_abs_err=line["max_abs_err"], ms=line["ms"],
+            plain_ms=line["plain_ms"]))
     print(json.dumps({"kernels": entries}), flush=True)
+    # the run used one card (phase 6 puts both processes on cuda:0)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}), flush=True)
+        "count": 1}}), flush=True)
 
 
 if __name__ == "__main__":

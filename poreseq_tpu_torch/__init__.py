@@ -17,9 +17,9 @@ from __future__ import annotations
 
 import torch
 
-from .engine import TorchEngine
+from .engine import EngineError, TorchEngine
 
-__all__ = ["TorchEngine", "register_engine"]
+__all__ = ["EngineError", "TorchEngine", "register_engine"]
 
 
 def register_engine(device="cuda", dtype=torch.float32,

@@ -1,13 +1,31 @@
-"""Command line of the PyTorch / CUDA port: ``consensus``.
+"""Command line of the PyTorch / CUDA port.
 
-The ``consensus`` subcommand takes the JAX CLI's positional arguments and
-its -r/-R/-i/-p/-v/-o/-T/--resume/--region-batch flags, plus --device, and
-runs ``pipeline.mutate_many`` on a registered TorchEngine: regions are
-corrected in lockstep batches of --region-batch, the next batch's loads are
-prefetched on a thread, and a batch that runs out of memory is retried at
-half its width (width 1 skips the region); every other failure raises.
+Subcommands, with the JAX CLI's flags plus ``--device`` (cuda, cuda:N or
+cpu) on those that run the engine:
 
-    python -m poreseq_tpu_torch.cli consensus ref.fasta reads.bam fast5/ \
+- ``consensus``: ``pipeline.mutate_many`` on a registered TorchEngine:
+  regions are corrected in lockstep batches of --region-batch, the next
+  batch's loads are prefetched on a thread, and a batch that runs out of
+  memory is retried at half its width (width 1 skips the region).
+  --shard-index/--num-shards deal the regions round-robin by hand,
+  --coordinator/--num-processes/--process-id do it for a multi-process run
+  (each process writes OUTPUT.pN), --profile DIR writes a torch.profiler
+  Chrome trace.
+- ``variant``: ``pipeline.variant`` per region (-f variant sequences,
+  -m a mutation file, -a every point mutation); scores go to stdout.
+- ``train``: hill-climbs the transition parameters: every iteration's 16
+  proposals run as one lockstep batch (``pipeline.train_candidates``) and
+  the best goes to ./train_best.conf.  -n/--threads is accepted and
+  unused: a fork pool cannot share a CUDA context.
+- ``split``, ``merge``, ``extract``: the JAX CLI's own (jax-free) functions.
+
+Failure units: a region that fails to load (or, in ``variant``, to realign
+to a variant) prints ``Skipping <region>: <error>`` and the run goes on;
+running out of memory shrinks the batch, then skips the region; a failure
+inside the engine (``EngineError``: a build, a refused launch, a device
+fault) ends the run with a non-zero exit.
+
+    python -m poreseq_tpu_torch.cli consensus ref.fasta reads.bam fast5/ \\
         -R regions.txt -p params.conf -o out.fasta --region-batch 8
 """
 
@@ -16,17 +34,26 @@ from __future__ import annotations
 import argparse
 import gc
 import os
+import random
 import sys
 from concurrent.futures import ThreadPoolExecutor
 
+import numpy as np
 import torch
+from torch.profiler import record_function
 
-from poreseq_tpu.cli import parse_regions
-from poreseq_tpu.core.params import load_params
+from poreseq_tpu import pipeline
+from poreseq_tpu.cli import extract, merge, parse_regions, split
+from poreseq_tpu.core.params import load_params, save_params, vary_params
+from poreseq_tpu.core.regions import MutationInfo, RegionInfo
 from poreseq_tpu.io.fasta import read_fasta
-from poreseq_tpu.pipeline import load_many, mutate_many
 
 from . import register_engine
+from .engine import EngineError
+from .parallel.distributed import (allgather_round_robin, finish_multihost,
+                                   init_multihost, shard_regions)
+
+OUT_OF_MEMORY = (torch.cuda.OutOfMemoryError, MemoryError)
 
 
 def main(argv=None):
@@ -35,9 +62,7 @@ def main(argv=None):
                                        "(PyTorch / CUDA engine)")
     p = subparsers.add_parser(
         "consensus", help="run consensus algorithm using alignment")
-    p.add_argument("ref", help="reference fasta file")
-    p.add_argument("bam", help="input BAM file")
-    p.add_argument("dir", help="root fast5 directory")
+    _add_inputs(p)
     group = p.add_mutually_exclusive_group(required=False)
     group.add_argument("-r", "--region", default=None,
                        help="region to correct (eg. 1000:3000 or "
@@ -56,11 +81,71 @@ def main(argv=None):
                    "as well")
     p.add_argument("--resume", action="store_true", default=False,
                    help="skip regions already present in the output fasta")
+    p.add_argument("--shard-index", type=int, default=0,
+                   help="this worker's index for manual region sharding")
+    p.add_argument("--num-shards", type=int, default=1,
+                   help="total workers; regions are dealt round-robin")
     p.add_argument("--region-batch", type=int, default=1,
                    help="process this many regions per lockstep batch")
-    p.add_argument("--device", default="cuda",
-                   help="torch device of the engine (cuda, cuda:N or cpu)")
+    p.add_argument("--profile", default=None, metavar="DIR",
+                   help="write a torch.profiler Chrome trace of the run "
+                   "into DIR")
+    _add_multihost(p, "; regions are dealt round-robin across processes "
+                   "and each process writes OUTPUT.pN")
+    _add_device(p)
     p.set_defaults(func=consensus)
+
+    p = subparsers.add_parser("variant", help="call sequence variants")
+    _add_inputs(p)
+    group = p.add_mutually_exclusive_group(required=True)
+    group.add_argument("-f", "--fasta", default=None,
+                       help="fasta of variant sequences to test")
+    group.add_argument("-m", "--mut-file", default=None,
+                       help="file with mutations to test")
+    group.add_argument("-a", "--all", action="store_true", default=False,
+                       help="test all single-base mutations")
+    group = p.add_mutually_exclusive_group(required=False)
+    group.add_argument("-r", "--region", default=None)
+    group.add_argument("-R", "--region-file", default=None)
+    p.add_argument("-p", "--params", default=None)
+    p.add_argument("-v", "--verbose", action="count", default=0)
+    _add_multihost(p, "; regions are dealt round-robin across processes")
+    _add_device(p)
+    p.set_defaults(func=variant)
+
+    p = subparsers.add_parser("train", help="train model parameters on data")
+    _add_inputs(p)
+    p.add_argument("-i", "--iter", type=int, default=30)
+    p.add_argument("-n", "--threads", type=int, default=4,
+                   help="accepted and unused: the candidates run as one "
+                   "lockstep batch")
+    p.add_argument("-p", "--params", default=None)
+    p.add_argument("-r", "--region", default=None)
+    p.add_argument("-d", "--descend", action="store_true", default=False,
+                   help="Run consensus by descending from reference")
+    _add_multihost(p, "; each process evaluates a round-robin share of "
+                   "the proposals")
+    _add_device(p)
+    p.set_defaults(func=train)
+
+    p = subparsers.add_parser("split", help="split fasta files into chunks")
+    p.add_argument("fasta")
+    p.add_argument("-R", "--region-length", type=int, default=None)
+    group = p.add_mutually_exclusive_group(required=True)
+    group.add_argument("-n", "--num-files", type=int, default=None)
+    group.add_argument("-m", "--per-file", type=int, default=None)
+    p.set_defaults(func=split)
+
+    p = subparsers.add_parser("merge", help="merge corrected fasta files")
+    p.add_argument("fasta_out")
+    p.add_argument("fasta_in", nargs="+")
+    p.set_defaults(func=merge)
+
+    p = subparsers.add_parser("extract", help="extract fasta from fast5")
+    p.add_argument("dirs", nargs="+")
+    p.add_argument("fasta")
+    p.add_argument("-p", "--path", action="store_true", default=False)
+    p.set_defaults(func=extract)
 
     args = parser.parse_args(argv)
     if not hasattr(args, "func"):
@@ -69,10 +154,76 @@ def main(argv=None):
     args.func(args)
 
 
+def _add_inputs(p):
+    p.add_argument("ref", help="reference fasta file")
+    p.add_argument("bam", help="input BAM file")
+    p.add_argument("dir", help="root fast5 directory")
+
+
+def _add_multihost(p, what: str):
+    p.add_argument("--coordinator", default=None, metavar="HOST:PORT",
+                   help="address of the multi-process run's store, hosted "
+                   "by process 0 (or set PSQ_COORDINATOR)" + what)
+    p.add_argument("--num-processes", type=int, default=None,
+                   help="total processes in the multi-process run")
+    p.add_argument("--process-id", type=int, default=None,
+                   help="this process's index in the multi-process run")
+
+
+def _add_device(p):
+    p.add_argument("--device", default="cuda",
+                   help="torch device of the engine (cuda, cuda:N or cpu); "
+                   "in a multi-process run give each process its own")
+
+
+def _join(args) -> tuple:
+    return init_multihost(args.coordinator, args.num_processes,
+                          args.process_id)
+
+
+def _release(device: torch.device):
+    """Drop a failed batch's device buffers before a smaller retry."""
+    gc.collect()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+
+
 def consensus(args):
+    if not args.profile:
+        _consensus(args)
+        return
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.device(args.device).type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(args.profile, exist_ok=True)
+    prof = profile(activities=activities)
+    try:
+        with prof:
+            _consensus(args)
+    finally:
+        path = os.path.join(args.profile,
+                            "poreseq_torch.{}.trace.json".format(os.getpid()))
+        prof.export_chrome_trace(path)
+        sys.stderr.write("Profile written to {}\n".format(path))
+
+
+def _consensus(args):
     args.params = load_params(args.params)
     args.params["verbose"] = args.verbose
     regions = parse_regions(args)
+
+    pid, nproc, store = _join(args)
+    if nproc > 1:
+        regions = shard_regions(regions, pid, nproc)
+        if args.output is not None:
+            args.output = "{}.p{}".format(args.output, pid)
+        sys.stderr.write("Process {}/{}: {} regions -> {}\n".format(
+            pid, nproc, len(regions), args.output or "stdout"))
+    if args.num_shards > 1:
+        regions = shard_regions(regions, args.shard_index, args.num_shards)
+
     device = torch.device(args.device)
     register_engine(device=device)
 
@@ -95,8 +246,8 @@ def consensus(args):
         out.flush()
 
     def load_part(part):
-        return load_many(args.ref, args.bam, args.dir, part,
-                         params=args.params, backend="torch")
+        return pipeline.load_many(args.ref, args.bam, args.dir, part,
+                                  params=args.params, backend="torch")
 
     # one loader thread prefetches the NEXT chunk's BAM/fast5 loads while
     # the device computes the current chunk
@@ -116,21 +267,21 @@ def consensus(args):
                 fut = (loader.submit(load_part, parts[pi + 1])
                        if pi + 1 < len(parts) else None)
             try:
-                results = mutate_many(
-                    args.ref, args.bam, args.dir, part, params=args.params,
-                    test=args.test, verbose=args.verbose,
-                    reps=args.iterations, backend="torch", loaded=loaded)
-            except (torch.cuda.OutOfMemoryError, MemoryError) as e:
+                # a span per batch in --profile traces (free without one)
+                with record_function("poreseq.batch[{}]".format(len(part))):
+                    results = pipeline.mutate_many(
+                        args.ref, args.bam, args.dir, part,
+                        params=args.params, test=args.test,
+                        verbose=args.verbose, reps=args.iterations,
+                        backend="torch", loaded=loaded)
+            except OUT_OF_MEMORY as e:
                 if width == 1:
                     sys.stderr.write("Skipping {}: {}\n".format(part[0], e))
                     continue
                 sys.stderr.write(
                     "Batch of {} failed ({}), retrying at {}\n".format(
                         len(part), e, max(width // 2, 1)))
-                # release the failed batch's device buffers before retrying
-                gc.collect()
-                if device.type == "cuda":
-                    torch.cuda.empty_cache()
+                _release(device)
                 run_chunk(part, max(width // 2, 1))
                 continue
             for region, res in zip(part, results):
@@ -144,6 +295,110 @@ def consensus(args):
         loader.shutdown(wait=False, cancel_futures=True)
         if out is not sys.stdout:
             out.close()
+    finish_multihost(pid, nproc, store)
+
+
+def variant(args):
+    args.params = load_params(args.params)
+    regions = parse_regions(args)
+
+    # multi-process: regions dealt round-robin, scores go to each process's
+    # own stdout.  The mutation partitioning below still walks EVERY region
+    # in order (it consumes the list sequentially): sharding skips only the
+    # execution, not the bookkeeping.
+    pid, nproc, store = _join(args)
+    if nproc > 1:
+        sys.stderr.write("Process {}/{}: {} of {} regions\n".format(
+            pid, nproc, len(regions[pid::nproc]), len(regions)))
+    device = torch.device(args.device)
+    register_engine(device=device)
+
+    muts = []
+    if args.mut_file is not None:
+        for line in open(args.mut_file).readlines():
+            mi = MutationInfo(line)
+            if mi.start < 0:
+                continue
+            muts.append(mi)
+
+    if "end_trim" not in args.params:
+        args.params["end_trim"] = 0
+    for ri, region in enumerate(regions):
+        reginfo = RegionInfo(region)
+        curmuts = [x for x in muts
+                   if x.start < reginfo.end - args.params["end_trim"]]
+        muts = [x for x in muts
+                if x.start >= reginfo.end - args.params["end_trim"]]
+        # -m skips regions without mutations; -f and -a run every region
+        # (the JAX CLI's condition, `curmuts == [] and not args.all`, also
+        # skips every -f region, since -f reads no mutations)
+        if args.mut_file is not None and curmuts == []:
+            continue
+        if nproc > 1 and ri % nproc != pid:
+            continue
+        try:
+            pipeline.variant(args.ref, args.bam, args.dir, args.fasta,
+                             curmuts, region, args.params, args.verbose,
+                             backend="torch")
+        except OUT_OF_MEMORY as e:
+            sys.stderr.write("Skipping {}: {}\n".format(region, e))
+            _release(device)
+        except EngineError:
+            raise
+        except Exception as e:
+            # the region's own failure unit: its load (io/load.py) or its
+            # realignment to a variant sequence (PSAlign.RealignTo)
+            sys.stderr.write("Skipping {}: {}\n".format(region, e))
+    finish_multihost(pid, nproc, store)
+
+
+def _train_batch(args, cands, device):
+    """One iteration's candidates as one lockstep batch; a batch that runs
+    out of memory is split in halves (a region's results do not depend on
+    its batch).  A single candidate that does not fit raises."""
+    try:
+        return pipeline.train_candidates(args.ref, args.bam, args.dir,
+                                         args.region, cands,
+                                         descend=args.descend,
+                                         backend="torch")
+    except OUT_OF_MEMORY as e:
+        if len(cands) == 1:
+            raise
+        half = len(cands) // 2
+        sys.stderr.write("Batch of {} failed ({}), retrying at {}\n".format(
+            len(cands), e, half))
+        _release(device)
+        return (_train_batch(args, cands[:half], device)
+                + _train_batch(args, cands[half:], device))
+
+
+def train(args):
+    """Hill-climb on consensus accuracy (the JAX CLI's tpu path): every
+    iteration proposes 16 parameter sets and keeps the most accurate."""
+    pid, nproc, store = _join(args)
+    device = torch.device(args.device)
+    register_engine(device=device)
+
+    params = load_params(args.params)
+    for i in range(args.iter):
+        if nproc > 1:
+            # every process proposes the same list (its rng is seeded from
+            # the shared state), evaluates its round-robin share, and the
+            # accuracies are allgathered before the replicated argmax
+            rng = random.Random("{}|{}".format(i, sorted(params.items())))
+            paramlist = vary_params(params, rng=rng)
+            mine = paramlist[pid::nproc]
+        else:
+            paramlist = vary_params(params)
+            mine = paramlist
+        accs = [s[1] for s in _train_batch(args, mine, device)]
+        if nproc > 1:
+            accs = allgather_round_robin(accs, len(paramlist), pid, nproc,
+                                         store)
+        params = paramlist[int(np.argmax(accs))]
+        save_params("train_best.conf", params)
+        sys.stderr.write("Best at iter {}: {}\n".format(i + 1, max(accs)))
+    finish_multihost(pid, nproc, store)
 
 
 if __name__ == "__main__":

@@ -9,10 +9,16 @@ device batch, one fill program and one group-scorer launch per class.
 The device is explicit: every tensor is created on ``device``.  On
 ``device="cpu"`` the kernel wrappers run their plain PyTorch twins; on a
 CUDA device they launch the hand kernels of ``csrc/`` or raise.
+
+A failure inside an engine call (a build, a refused launch, a device fault,
+a bad operand) leaves it as ``EngineError``, so the CLI's per-region failure
+units can tell it from a region's own failure and let it end the run.
+Running out of memory leaves unchanged: the CLI retries smaller batches.
 """
 
 from __future__ import annotations
 
+import functools
 import sys
 
 import numpy as np
@@ -26,6 +32,27 @@ from poreseq_tpu.engine.types import AlignData
 from .align import fwd_dev, fwd_likes
 from .pack import (event_ref_indexes, fill_geometry, pack_events, place_full,
                    round_up, to_device_batch)
+
+
+class EngineError(RuntimeError):
+    """A TorchEngine call failed; the cause is chained (``__cause__``)."""
+
+
+def _engine_call(fn):
+    """Re-raise what escapes ``fn`` as EngineError, except running out of
+    memory."""
+
+    @functools.wraps(fn)
+    def call(*args, **kwargs):
+        try:
+            return fn(*args, **kwargs)
+        except (EngineError, torch.cuda.OutOfMemoryError, MemoryError):
+            raise
+        except Exception as e:
+            raise EngineError(f"{fn.__name__}: {type(e).__name__}: {e}") \
+                from e
+
+    return call
 
 
 class TorchEngine:
@@ -52,7 +79,6 @@ class TorchEngine:
                              "float64)")
         self.dtype = dtype
         self.seed = seed
-        self.gen = torch.Generator(device=self.device)
         # event level/model data is constant across engine calls (only
         # ref_align changes, host-side), so the batch upload happens once
         # per region set
@@ -148,6 +174,7 @@ class TorchEngine:
         if len({id(dev) for _, dev, _ in self._rlk_pending.values()}) > 4:
             self.flush_ref_likes()
 
+    @_engine_call
     def flush_ref_likes(self):
         """Materialize pending ref_like rows (one device read per distinct
         fill output).  Called at sync points (before AlignData.sync_back)."""
@@ -176,6 +203,7 @@ class TorchEngine:
     def score_alignments(self, data: AlignData, likes=None):
         return self.score_alignments_multi([data], [likes])[0]
 
+    @_engine_call
     def score_alignments_multi(self, datas: list[AlignData], likes_list=None,
                                participate=None, likes_only=False,
                                defer=False):
@@ -236,8 +264,9 @@ class TorchEngine:
                 out.append(scores)
             return out
 
-        return finish if defer else finish()
+        return _engine_call(finish) if defer else finish()
 
+    @_engine_call
     def map_alignments(self, data: AlignData, newseq: str):
         # host Smith-Waterman remap (the exact engine's C core)
         return _map_alignments(data, newseq)
@@ -245,6 +274,7 @@ class TorchEngine:
     def score_mutations(self, data: AlignData, muts):
         return self.score_mutations_multi([data], [muts])[0]
 
+    @_engine_call
     def score_mutations_multi(self, datas, muts_list):
         from .mutscore import score_mutations_multi
 
@@ -262,15 +292,17 @@ class TorchEngine:
                                          stay_prob, mut_min, mut_max,
                                          verbose)[0]
 
+    @_engine_call
     def viterbi_mutate_multi(self, events_lists, nkeep, skip_prob, stay_prob,
                              mut_min, mut_max, verbose=False):
-        """ViterbiMutate for R regions in one batched sweep; the generator
-        is re-seeded with the engine's seed on every call."""
+        """ViterbiMutate for R regions in one batched sweep; the draws are
+        counter-based on the engine's seed, so a region's candidates do not
+        depend on the other regions of the call."""
         from .viterbi import viterbi_mutate_multi
 
         return viterbi_mutate_multi(events_lists, nkeep, skip_prob,
                                     stay_prob, mut_min, mut_max, self.device,
-                                    self.dtype, self.gen, self.seed)
+                                    self.dtype, self.seed)
 
     @staticmethod
     def swalign(seq1: str, seq2: str):

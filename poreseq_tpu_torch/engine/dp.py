@@ -100,43 +100,36 @@ def emission(mean_v, stdv_v, logx_v, lm, ls, ll, sm, lam, llam, lik_offset):
 
 
 def _mp_combine(lhs, rhs):
-    """Max-plus combine for elements (a11,a12,a21,a22,u1,u2): rhs after lhs."""
-    l11, l12, l21, l22, lu1, lu2 = lhs
-    r11, r12, r21, r22, ru1, ru2 = rhs
-    a11 = torch.maximum(r11 + l11, r12 + l21)
-    a12 = torch.maximum(r11 + l12, r12 + l22)
-    a21 = torch.maximum(r21 + l11, r22 + l21)
-    a22 = torch.maximum(r21 + l12, r22 + l22)
-    u1 = torch.maximum(torch.maximum(r11 + lu1, r12 + lu2), ru1)
-    u2 = torch.maximum(torch.maximum(r21 + lu1, r22 + lu2), ru2)
-    return (a11, a12, a21, a22, u1, u2)
-
-
-def _interleave(a, b):
-    """out[..., 0::2] = a, out[..., 1::2] = b."""
-    out = torch.empty(a.shape[:-1] + (a.shape[-1] + b.shape[-1],),
-                      dtype=a.dtype, device=a.device)
-    out[..., 0::2] = a
-    out[..., 1::2] = b
-    return out
+    """Max-plus combine of stacked elements [6, ..., n], rows (a11, a12,
+    a21, a22, u1, u2): rhs after lhs, a = r (x) l, u = max(r (x) lu, ru).
+    Every entry is a max over the same sums as the element-wise form
+    (r11 + l11, r12 + l21, ...), and max is exact, so the order of the
+    maxima does not change a bit."""
+    sh = lhs.shape[1:]
+    lA = lhs[:4].reshape(2, 2, *sh)                    # [k, j]
+    rA = rhs[:4].reshape(2, 2, *sh)                    # [i, k]
+    A = (rA[:, :, None] + lA[None]).amax(dim=1)        # [i, j]
+    u = torch.maximum((rA + lhs[4:][None]).amax(dim=1), rhs[4:])
+    return torch.cat([A.reshape(4, *sh), u])
 
 
 def _assoc_scan(elems):
-    """Inclusive max-plus scan over the last axis with the combine tree of
-    jax.lax.associative_scan: combine adjacent pairs, scan the pairs
-    recursively, then fill in the even elements.  Using JAX's tree keeps
-    the rounding, and so the backpointer tie-breaks, identical to the JAX
-    package's fill in f64."""
-    n = elems[0].shape[-1]
+    """Inclusive max-plus scan over the last axis of stacked elements
+    [6, ..., n] with the combine tree of jax.lax.associative_scan: combine
+    adjacent pairs, scan the pairs recursively, then fill in the even
+    elements.  Using JAX's tree keeps the rounding, and so the backpointer
+    tie-breaks, identical to the JAX package's fill in f64."""
+    n = elems.shape[-1]
     if n < 2:
         return elems
-    odd = _assoc_scan(_mp_combine(tuple(e[..., 0:n - 1:2] for e in elems),
-                                  tuple(e[..., 1::2] for e in elems)))
-    lhs = tuple(o[..., :-1] for o in odd) if n % 2 == 0 else odd
-    even = _mp_combine(lhs, tuple(e[..., 2::2] for e in elems))
-    even = tuple(torch.cat([e[..., :1], x], dim=-1)
-                 for e, x in zip(elems, even))
-    return tuple(_interleave(a, b) for a, b in zip(even, odd))
+    odd = _assoc_scan(_mp_combine(elems[..., 0:n - 1:2], elems[..., 1::2]))
+    lhs = odd[..., :-1] if n % 2 == 0 else odd
+    even = torch.cat([elems[..., :1],
+                      _mp_combine(lhs, elems[..., 2::2])], dim=-1)
+    out = torch.empty_like(elems)
+    out[..., 0::2] = even
+    out[..., 1::2] = odd
+    return out
 
 
 def column_solve(D, a_stay, a_ext, lik_insert, floor0, cut, nb: float,
@@ -149,9 +142,10 @@ def column_solve(D, a_stay, a_ext, lik_insert, floor0, cut, nb: float,
     a12 = torch.where(cut, nb, a_ext)
     a21 = torch.where(cut, nb, a_stay)
     a22 = torch.where(cut, nb, a_ext)
-    elems = (a11, a12, a21, a22, D, floor0)
+    elems = torch.stack(torch.broadcast_tensors(a11, a12, a21, a22, D,
+                                                floor0))
     if reverse:
-        elems = tuple(torch.flip(x, [-1]) for x in elems)
+        elems = torch.flip(elems, [-1])
     res = _assoc_scan(elems)
     M, S = res[4], res[5]
     if reverse:

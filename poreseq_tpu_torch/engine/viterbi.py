@@ -8,10 +8,14 @@ a position costs O(1024) work.  The sweep and the stochastic backtrace are
 Python loops over positions, batched over regions (and candidates); a hand
 kernel for them is queued in ROADMAP.md.
 
-Randomness: a torch.Generator on the engine's device, re-seeded with the
-engine's seed on every call (the JAX package re-derives PRNGKey(seed) per
-call).  torch cannot reproduce JAX's threefry bits, so sampled candidates
-differ from the JAX package's; the deterministic path (nkeep=0) matches.
+Randomness: counter-based uniforms u = h(seed, k, i, s) for candidate k,
+real row i and state s (``counter_hash``), the torch form of the JAX
+package's ``fold_in(split(PRNGKey(seed))[k], i)`` keys.  Every region of a
+batch draws the same u[k, i, :], so a region's candidates do not depend on
+its batch (its slot, the batch bucket or the padded row count).  h is a
+pure 32-bit integer hash in int64 tensor ops, bit-equal on CPU and CUDA.
+torch cannot reproduce JAX's threefry bits, so sampled candidates differ
+from the JAX package's; the deterministic path (nkeep=0) matches.
 """
 
 from __future__ import annotations
@@ -231,25 +235,85 @@ def viterbi_sweep(obs, n_real, skip_prob, stay_prob, need_bp=False):
     return liks, fwds, bps
 
 
-def sample_paths(T, fwds, valid_rows, startst, attens, gen):
+_M32 = 0xFFFFFFFF
+# sample_paths makes the uniforms this many rows at a time
+_DRAW_ROWS = 64
+
+
+def _mul32(a, b: int):
+    """(a * b) mod 2^32 for a in [0, 2^32) and a 32-bit constant b, on
+    16-bit halves so that no int64 product overflows."""
+    a_lo, a_hi = a & 0xFFFF, a >> 16
+    b_lo, b_hi = b & 0xFFFF, b >> 16
+    return (a_lo * b_lo + (((a_hi * b_lo + a_lo * b_hi) & 0xFFFF) << 16)) \
+        & _M32
+
+
+def _mix32(x):
+    """A 32-bit integer finalizer (xor-shift-multiply, "lowbias32"), on
+    Python ints or int64 tensors holding values in [0, 2^32)."""
+    x = x ^ (x >> 16)
+    x = _mul32(x, 0x7FEB352D)
+    x = x ^ (x >> 15)
+    x = _mul32(x, 0x846CA68B)
+    return x ^ (x >> 16)
+
+
+def counter_hash(seed: int, k, i, w):
+    """h(seed, k, i, w) = mix(mix(mix(mix(seed ^ 0x9E3779B9) ^ k) ^ i) ^ w)
+    in [0, 2^32), seed taken mod 2^32: k the candidate, i the row,
+    w = s + 1024 * lane for state s (lane 1 supplies the low word of an f64
+    draw).  Broadcasts k, i, w (int64 tensors with values in [0, 2^32))
+    like any elementwise op."""
+    return _mix32(_mix32(_mix32(_mix32((seed & _M32) ^ 0x9E3779B9) ^ k) ^ i)
+                  ^ w)
+
+
+def counter_uniforms(seed: int, nkeep: int, rows, dtype):
+    """u[k, r, s] = (x + 0.5) / 2^n in the open interval (0, 1) for the
+    candidates 0..nkeep-1, the row indexes ``rows`` [n_rows] (int64) and
+    the 1024 states: x holds the hash's top n bits, n the float's fraction
+    width (23 for f32, 52 for f64), so x + 0.5 is exact and u never rounds
+    to 0 or 1.  Returns [nkeep, n_rows, 1024] of ``dtype``."""
+    dev = rows.device
+    k = torch.arange(nkeep, dtype=torch.int64, device=dev)[:, None, None]
+    s = torch.arange(1024, dtype=torch.int64, device=dev)
+    i = rows[None, :, None]
+    x = counter_hash(seed, k, i, s)
+    if dtype == torch.float64:
+        lo = counter_hash(seed, k, i, s + 1024)
+        x = ((x >> 12) << 32) | lo
+        return (x.to(dtype) + 0.5) * 2.0 ** -52
+    if dtype != torch.float32:
+        raise ValueError(f"counter_uniforms: dtype {dtype}")
+    return ((x >> 9).to(dtype) + 0.5) * 2.0 ** -23
+
+
+def sample_paths(T, fwds, valid_rows, startst, attens, seed: int):
     """Stochastic backtraces (Viterbi.cpp:403-423): for every region b and
     candidate k, path[R-1] = startst[b] and path[i-1] is drawn with
     probability proportional to T[path[i]] * fwds[b, i]^atten[k] (Gumbel-max
-    over log-probabilities, the form jax.random.categorical takes).  Rows
-    past a region's end keep the start state.  Returns [B, nkeep, R]."""
+    over log-probabilities, the form jax.random.categorical takes, with the
+    counter uniforms u[k, i] that every region shares).  Rows past a
+    region's end keep the start state.  Returns [B, nkeep, R]."""
     B, R, _ = fwds.shape
     nk = attens.shape[0]
     dev, dt = fwds.device, fwds.dtype
     cur = startst[:, None].expand(B, nk).clone()
     paths = torch.empty((B, nk, R), dtype=torch.long, device=dev)
+    gumbel = lo = None
     for i in range(R - 1, -1, -1):
+        if gumbel is None or i < lo:
+            lo = max(i + 1 - _DRAW_ROWS, 0)
+            u = counter_uniforms(seed, nk, torch.arange(
+                lo, i + 1, dtype=torch.int64, device=dev), dt)
+            gumbel = -torch.log(-torch.log(u))         # [nk, rows, 1024]
         paths[:, :, i] = cur
         f = fwds[:, i][:, None, :] ** attens[None, :, None]
         probs = T[cur] * f
         probs = probs / probs.sum(dim=2, keepdim=True)
-        u = torch.rand((B, nk, 1024), generator=gen, dtype=dt, device=dev)
-        gumbel = -torch.log(-torch.log(u))
-        nxt = torch.argmax(torch.log(probs + 1e-300) + gumbel, dim=2)
+        nxt = torch.argmax(torch.log(probs + 1e-300) + gumbel[None, :, i - lo],
+                           dim=2)
         cur = torch.where(valid_rows[:, i][:, None], nxt, cur)
     return paths
 
@@ -266,7 +330,7 @@ def _model_tabs(evs, E_pad):
 
 
 def viterbi_mutate_multi(events_lists, nkeep, skip_prob, stay_prob, mut_min,
-                         mut_max, device, dtype, gen, seed: int = 0):
+                         mut_max, device, dtype, seed: int = 0):
     """ViterbiMutate for R regions in one batched sweep: per region, nkeep
     candidate strings (nkeep=0: the one deterministic Viterbi path).
     Regions with no events get []; nkeep=0 runs each region on its own, as
@@ -274,7 +338,7 @@ def viterbi_mutate_multi(events_lists, nkeep, skip_prob, stay_prob, mut_min,
     B = len(events_lists)
     if nkeep == 0 and B > 1:
         return [viterbi_mutate_multi([evs], 0, skip_prob, stay_prob, mut_min,
-                                     mut_max, device, dtype, gen, seed)[0]
+                                     mut_max, device, dtype, seed)[0]
                 for evs in events_lists]
     stats = []
     for evs in events_lists:
@@ -322,14 +386,13 @@ def viterbi_mutate_multi(events_lists, nkeep, skip_prob, stay_prob, mut_min,
             out[b] = [_states_to_seq(states)]
         return out
 
-    gen.manual_seed(seed)
     attens = t([mut_min + (mut_max - mut_min) * k / float(nkeep)
                 for k in range(nkeep)])
     valid_rows = torch.arange(R_pad, device=device)[None, :] < n_real_d[:, None]
     # rows past a region's end carry 1/1024 forward probabilities
     fwds = torch.where(valid_rows[..., None], fwds, 1.0 / 1024.0)
     paths = sample_paths(t(_build_T(skip_prob, stay_prob)), fwds, valid_rows,
-                         startst, attens, gen).cpu().numpy()
+                         startst, attens, seed).cpu().numpy()
     for bp, b in enumerate(act):
         R_b = int(n_real[bp])
         out[b] = [_states_to_seq(paths[bp, k, :R_b]) for k in range(nkeep)]

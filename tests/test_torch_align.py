@@ -17,6 +17,10 @@ from poreseq_tpu.sim import simulate_session
 from poreseq_tpu_torch.engine.align import (backtrace, backtrace_reference,
                                             device_likes)
 
+# several pytest workers share the machine: one intra-op thread each keeps
+# torch's many small CPU ops from oversubscribing the cores
+torch.set_num_threads(1)
+
 
 @pytest.fixture(scope="module")
 def x64():

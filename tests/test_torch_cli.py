@@ -16,6 +16,10 @@ from poreseq_tpu.api import swalign
 from poreseq_tpu.io.fasta import read_fasta
 from poreseq_tpu.sim import write_run
 
+# several pytest workers share the machine: one intra-op thread each keeps
+# torch's many small CPU ops from oversubscribing the cores
+torch.set_num_threads(1)
+
 REPO = Path(__file__).resolve().parents[1]
 CONF = ("realign_width = 16\nscoring_width = 8\npoint_width = 6\n"
         "min_coverage = 0\nmax_coverage = 30\nmin_overlap = 50\n"
@@ -96,19 +100,33 @@ def test_cli_halves_batch_only_on_out_of_memory(tmp_path, capsys,
 
 
 def test_port_runs_consensus_without_jax(tmp_path):
+    """consensus, variant -a and split run in one process that never
+    imports jax."""
     regions = ["synthref:0:150"]
-    _, _, args = _run(tmp_path, 150, 4, None, regions, seed=1)
+    _, draft, args = _run(tmp_path, 150, 4, None, regions, seed=1)
     out = tmp_path / "out.fasta"
+    argvs = [["consensus", *args, "-o", str(out), "-i", "1", "--device",
+              "cpu"],
+             ["variant", *args[:3], "-a", "-r", "synthref:40:110", "-p",
+              args[-1], "--device", "cpu"],
+             ["split", args[0], "-R", "2000", "-n", "1"]]
     code = (
         "import json, sys\n"
         "import poreseq_tpu_torch\n"
         "from poreseq_tpu_torch import cli\n"
-        f"cli.main({json.dumps(['consensus', *args, '-o', str(out), '-i', '1', '--device', 'cpu'])})\n"
+        f"for argv in {json.dumps(argvs)}:\n"
+        "    cli.main(argv)\n"
         "print(json.dumps(sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.'))))\n")
-    env = dict(os.environ, PYTHONPATH=str(REPO))
+    env = dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="1")
     proc = subprocess.run([sys.executable, "-c", code], env=env,
                           capture_output=True, text=True, timeout=600,
                           cwd=str(tmp_path))
     assert proc.returncode == 0, proc.stderr
-    assert json.loads(proc.stdout.strip().splitlines()[-1]) == []
+    lines = proc.stdout.strip().splitlines()
+    assert json.loads(lines[-1]) == []
     assert list(read_fasta(str(out))) == regions
+    # one score line per point mutation of the 70 b region
+    assert len(lines) > 70 * 7
+    assert all(l.split("\t")[0].isdigit() for l in lines[:-1])
+    assert (tmp_path / "ref.1.region").read_text() == "synthref:0:{}\n".format(
+        len(draft))

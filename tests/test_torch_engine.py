@@ -16,6 +16,10 @@ from poreseq_tpu.sim import simulate_session
 from poreseq_tpu_torch import register_engine
 from poreseq_tpu_torch.engine import TorchEngine
 
+# several pytest workers share the machine: one intra-op thread each keeps
+# torch's many small CPU ops from oversubscribing the cores
+torch.set_num_threads(1)
+
 
 @pytest.fixture(scope="module")
 def x64():

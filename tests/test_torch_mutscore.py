@@ -23,6 +23,10 @@ from poreseq_tpu_torch.engine.mutscore import (GROUP_FIELDS, geom_body,
                                                group_launches, group_totals)
 from poreseq_tpu_torch.engine.pack import fill_geometry, limited_geometry
 
+# several pytest workers share the machine: one intra-op thread each keeps
+# torch's many small CPU ops from oversubscribing the cores
+torch.set_num_threads(1)
+
 
 @pytest.fixture(scope="module")
 def x64():

@@ -18,6 +18,10 @@ from poreseq_tpu_torch.engine import mutscore as tm
 from poreseq_tpu_torch.engine import pack as tp
 from poreseq_tpu_torch.engine import viterbi as tv
 
+# several pytest workers share the machine: one intra-op thread each keeps
+# torch's many small CPU ops from oversubscribing the cores
+torch.set_num_threads(1)
+
 
 def _events(seed=4, ref_len=150, coverage=4, trim=True):
     pa, _ = simulate_session(np.random.default_rng(seed), ref_len=ref_len,
