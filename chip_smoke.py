@@ -1,18 +1,25 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch / CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--seed N]
+    python3 chip_smoke.py [--seed N] [--profile DIR]
 
 Phases (each prints one line of what it measured; any failure exits
 non-zero, nothing runs on the CPU instead):
-  1. build    — nvcc builds the kernels of poreseq_tpu_torch/csrc/ for sm_90a;
+  1. build    — nvcc builds the kernels of poreseq_tpu_torch/csrc/ for sm_90a
+                (one process per source, together) and ptxas reports each
+                kernel instance's registers and spills;
   2. kernels  — each kernel against its plain PyTorch twin on the card at
                 main-path shapes (fill width 300, scoring width 100,
-                Refine point width 20): the fill and the backtrace on a
+                Refine point width 20): the fill (forward with steps,
+                backward with and without) at realign widths 300, 400, 100
+                and 20 (W = 601, 801, 201, 41: W = 801 runs the fill's
+                block without a spare warp) and the backtrace on a
                 simulated 1 kb region at 10X, the group scorer on every
-                group of an 8-region lockstep batch, in f64 (semantics) and
-                f32 (the production type), with the kernel's and the twin's
-                times;
+                group of an 8-region lockstep batch, in f64 (equal to the
+                twin) and f32
+                (the production type), with each kernel's device time (CUDA
+                events), its least time on the card (engine/roofline.py)
+                and the twin's time;
   2b. viterbi — the sampler's counter hash on the card equals its pinned
                 values bit for bit, and in f64 each of the 8 regions of
                 phase 2's batch gets the same candidates inside the batch
@@ -20,7 +27,10 @@ non-zero, nothing runs on the CPU instead):
   3. e2e      — the port's CLI `consensus --region-batch 8 --device cuda` on a
                 synthetic run (8 x 1 kb regions at 10X, widths 300/100/20,
                 -i 4), checking the output count, the mean accuracy against
-                the truth and that every kernel of the path was launched;
+                the truth and that every kernel of the path was launched
+                (with --profile DIR, under torch.profiler: the trace goes to
+                DIR and its summary, device time and launches per kernel
+                and the device-busy share, is printed);
   4. variant  — `variant -m/-a/-f` on a 5 kb run with 10 planted
                 substitutions: reverting mutations score > 0 and corrupting
                 ones < 0, -a prints one line per point mutation of a 1 kb
@@ -37,6 +47,9 @@ non-zero, nothing runs on the CPU instead):
 Phases 2b-6 reset the kernels' launch counters before they start and report
 them after.  The line before the last is a JSON object with one entry per
 kernel; the last line is {"ok": true, "device": {...}}.
+Kernel times are CUDA-event times of 20 launches after two warm-up
+launches, over 20; the twins' and the phases' are host walls closed by a
+synchronize.
 """
 
 from __future__ import annotations
@@ -72,6 +85,38 @@ def gpu_line() -> str:
         check=True).stdout.strip()
 
 
+def event_ms(fn, reps: int = 20) -> float:
+    """Device time of one call of fn in ms: CUDA events around reps calls,
+    after two warm-up calls."""
+    import torch
+
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def timed(ms: float, work, dtype) -> dict:
+    """A kernel's time beside its least time on the card for the same work
+    ((bytes, operations) from engine/roofline.py)."""
+    from poreseq_tpu_torch.engine.roofline import bound_ms
+
+    b_ms, by = bound_ms(*work, dtype)
+    return dict(ms=ms, bound_ms=b_ms, bound_by=by, share=b_ms / ms)
+
+
+def _timing(d: dict) -> str:
+    return (f"{d['ms']:.3f} ms (bound {d['bound_ms']:.4f} ms by "
+            f"{d['bound_by']}, share {d['share']:.4f})")
+
+
 def cuda_ms(fn, reps: int = 5) -> float:
     """Median wall time of fn() in ms, each run closed by a synchronize,
     after one warm-up run."""
@@ -89,11 +134,11 @@ def cuda_ms(fn, reps: int = 5) -> float:
 
 
 class _NpzH5:
-    """Stand-in for the slice of h5py's File API that poreseq_tpu/io/fast5.py
-    uses (groups by path, datasets, structured fields, attrs), stored as one
-    npz per file.  Installed only where h5py cannot be imported, so the
-    synthetic run's fast5 files are written and read through the package's
-    own write_fast5 / load_event unchanged."""
+    """Stand-in for the slice of h5py's File API that
+    poreseq_tpu_torch/io/fast5.py uses (groups by path, datasets, structured
+    fields, attrs), stored as one npz per file.  Installed only where h5py
+    cannot be imported, so the synthetic run's fast5 files are written and
+    read through the package's own write_fast5 / load_event unchanged."""
 
     class _Node:
         def __init__(self, store, path):
@@ -150,30 +195,52 @@ class _NpzH5:
                     np.savez(fh, **out)
 
 
-def phase_build():
-    from poreseq_tpu_torch.engine.align import BACKTRACE
-    from poreseq_tpu_torch.engine.fill import FILL
-    from poreseq_tpu_torch.engine.mutscore import MUTSCORE
+def ptxas_usage(log: str) -> list[str]:
+    """'kernel instance: registers, spill stores' lines from what nvcc
+    -Xptxas -v printed while building one csrc/ source (instances by their
+    mangled names: I<f|d> then the template flags Lb0/Lb1 in order)."""
+    import re
 
-    kernels = [FILL, MUTSCORE, BACKTRACE]
+    out, name, spill = [], None, "?"
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+        elif "spill stores" in line and name:
+            spill = re.search(r"(\d+) bytes spill stores", line).group(1)
+        elif "Used" in line and name:
+            regs = re.search(r"Used (\d+) registers", line).group(1)
+            out.append(f"{name}: {regs} registers, {spill} bytes spilled")
+            name, spill = None, "?"
+    return out
+
+
+def phase_build():
+    """Build the kernels, one nvcc per source, all started together; print
+    each kernel instance's registers and spills as ptxas reports them."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    kernels = list(_kernels())
     t0 = time.perf_counter()
-    for k in kernels:
-        k.lib()
+    with ThreadPoolExecutor(len(kernels)) as pool:
+        list(pool.map(lambda k: k.lib(), kernels))
     secs = {k.name: round(k.build_seconds, 3) for k in kernels}
-    print(f"[build] nvcc sm_90a: {secs} total "
+    print(f"[build] nvcc sm_90a: {secs} wall "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
+    for k in kernels:
+        for line in ptxas_usage(k.build_log):
+            print(f"[build] ptxas {k.name} {line}", flush=True)
     print(gpu_line(), flush=True)
     return kernels
 
 
-def _session(seed: int):
+def _session(seed: int, realign: int = P_WIDTHS["realign_width"]):
     """A simulated 1 kb region at 10X with a 2% draft error."""
-    from poreseq_tpu.engine.types import AlignData
-    from poreseq_tpu.sim import simulate_session
+    from poreseq_tpu_torch.engine.types import AlignData
+    from poreseq_tpu_torch.sim import simulate_session
 
     pa, _ = simulate_session(np.random.default_rng(seed), ref_len=1000,
                              coverage=10, draft_error=0.02)
-    pa.params.update(P_WIDTHS)
+    pa.params.update(P_WIDTHS, realign_width=realign)
     return AlignData.from_session(pa)
 
 
@@ -195,14 +262,15 @@ FILL_OUTPUTS = ("M", "S", "steps_m", "steps_s", "cmax", "carg")
 
 
 def _tolerance(f64: bool):
-    return (1e-11, 1e-9) if f64 else (2e-5, 2e-4)
+    """(rtol, atol): f64 must equal the twin."""
+    return (0.0, 0.0) if f64 else (2e-5, 2e-4)
 
 
 def hold_fill(args, where: str) -> float:
     """One fill launch (fill_cuda's arguments) against its plain twin on the
-    same operands: M, S and cmax within the tolerance, step bytes equal
-    (f64) or >= 99.95 % equal (f32), first argmaxes and best coordinates
-    equal.  Returns the max |diff|."""
+    same operands: M, S and cmax equal (f64) or within the tolerance (f32),
+    step bytes equal (f64) or >= 99.95 % equal (f32), first argmaxes and
+    best coordinates equal.  Returns the max |diff|."""
     import torch
 
     from poreseq_tpu_torch.engine.dp import fill_reference, finish_fill
@@ -239,26 +307,51 @@ def hold_fill(args, where: str) -> float:
     return err
 
 
-def check_fill(engine, data, f64: bool, report: dict):
+# realign widths: W = 601 (timed), 801 (the block without a spare warp,
+# W > 608), 201, 41
+FILL_WIDTHS = (300, 400, 100, 20)
+
+
+def check_fill(engine, seed: int, f64: bool, report: dict):
+    """The fill at every realign width of FILL_WIDTHS: forward with steps,
+    backward with and without (the main path's backward fill) held to the
+    twin; at width 300 in f32 the forward and the backward fill timed."""
     from poreseq_tpu_torch.engine.dp import fill_reference
     from poreseq_tpu_torch.engine.fill import fill_cuda
+    from poreseq_tpu_torch.engine.roofline import fill_work
 
-    W = 2 * data.params.realign_width + 1
-    batch, states, i0, i1, pad, off = _fill_inputs(engine, data)
     rtol, atol = _tolerance(f64)
-    err = max(hold_fill((batch, states, i0, i1, pad, off, backward, W, True),
-                        "kernels") for backward in (False, True))
-    line = dict(max_abs_err=err)
+    err, line = 0.0, {}
+    for width in FILL_WIDTHS:
+        W = 2 * width + 1
+        batch, states, i0, i1, pad, off = _fill_inputs(
+            engine, _session(seed, width))
+        runs = {"forward": (False, True), "backward": (True, False),
+                "backward, steps": (True, True)}
+        for name, (backward, steps) in runs.items():
+            args = (batch, states, i0, i1, pad, off, backward, W, steps)
+            err = max(err, hold_fill(args, f"kernels W={W}"))
+            if f64 or width != FILL_WIDTHS[0] or name == "backward, steps":
+                continue
+            t = timed(event_ms(lambda: fill_cuda(*args)),
+                      fill_work(batch, states, pad, W, steps),
+                      batch.mean.dtype)
+            t["plain_ms"] = cuda_ms(lambda: fill_reference(*args), reps=2)
+            line[name] = t
+        print(f"[kernels] fill f{'64' if f64 else '32'} "
+              f"E={batch.mean.shape[0]} C={states.shape[0]} W={W}: forward "
+              f"with steps, backward with "
+              f"and without held to the twin, max |diff| so far {err:.3e} "
+              f"(rtol {rtol}, atol {atol}); steps/best equal", flush=True)
     if not f64:
-        args = (batch, states, i0, i1, pad, off, False, W, True)
-        line["ms"] = cuda_ms(lambda: fill_cuda(*args))
-        line["plain_ms"] = cuda_ms(lambda: fill_reference(*args), reps=2)
-    report[("fill", f64)] = line
-    print(f"[kernels] fill f{'64' if f64 else '32'} E={batch.mean.shape[0]} "
-          f"C={states.shape[0]} W={W}: max |diff| {err:.3e} "
-          f"(rtol {rtol}, atol {atol}); steps/best equal"
-          + (f"; kernel {line['ms']:.3f} ms, twin {line['plain_ms']:.1f} ms"
-             if not f64 else ""), flush=True)
+        print(f"[kernels] fill f32 W={2 * FILL_WIDTHS[0] + 1}: forward "
+              f"{_timing(line['forward'])}"
+              f", twin {line['forward']['plain_ms']:.1f} ms; backward "
+              f"{_timing(line['backward'])}, twin "
+              f"{line['backward']['plain_ms']:.1f} ms | {gpu_line()}",
+              flush=True)
+        line = dict(line["forward"], backward=line["backward"])
+    report[("fill", f64)] = dict(line, max_abs_err=err)
 
 
 def check_backtrace(engine, data, f64: bool, report: dict):
@@ -285,13 +378,18 @@ def check_backtrace(engine, data, f64: bool, report: dict):
         fail(f"backtrace ref_like max |diff| {d.max().item()}")
     line = dict(max_abs_err=d.max().item())
     if not f64:
-        line["ms"] = cuda_ms(lambda: backtrace_cuda(*args))
+        from poreseq_tpu_torch.engine.roofline import backtrace_work
+
+        line.update(timed(event_ms(lambda: backtrace_cuda(*args)),
+                          backtrace_work(ral_k, r.best_i, batch.n0,
+                                         batch.mean.dtype),
+                          batch.mean.dtype))
         line["plain_ms"] = cuda_ms(lambda: backtrace_reference(*args),
                                    reps=2)
     report[("backtrace", f64)] = line
     print(f"[kernels] backtrace f{'64' if f64 else '32'}: ref_align equal, "
           f"ref_like max |diff| {line['max_abs_err']:.3e}"
-          + (f"; kernel {line['ms']:.3f} ms, twin {line['plain_ms']:.1f} ms"
+          + (f"; kernel {_timing(line)}, twin {line['plain_ms']:.1f} ms"
              if not f64 else ""), flush=True)
 
 
@@ -308,10 +406,10 @@ def _mut_regions(seed: int):
     regions in one lockstep batch, each as a Refine call sees it (point
     width 20, every point mutation) and as a Mutate round sees it (scoring
     width 100, 300 random indels and substitutions)."""
-    from poreseq_tpu.core.regions import MutationInfo
-    from poreseq_tpu.engine.driver import find_point_mutations
-    from poreseq_tpu.engine.types import AlignData
-    from poreseq_tpu.sim import simulate_session
+    from poreseq_tpu_torch.core.regions import MutationInfo
+    from poreseq_tpu_torch.engine.driver import find_point_mutations
+    from poreseq_tpu_torch.engine.types import AlignData
+    from poreseq_tpu_torch.sim import simulate_session
 
     rng = np.random.default_rng(seed + 1)
     refine, mutate = ([], []), ([], [])
@@ -363,7 +461,7 @@ def _twin_totals(args):
 
 def hold_mutscore(args, where: str) -> float:
     """One group-scorer launch (group_totals_cuda's arguments) against its
-    plain twin on every group: totals within 1e-8 (f64) or 3e-3 + 2e-4 |x|
+    plain twin on every group: totals equal (f64) or within 3e-3 + 2e-4 |x|
     (f32), and no accept-sign flip.  Returns the max |diff|."""
     import torch
 
@@ -374,7 +472,7 @@ def hold_mutscore(args, where: str) -> float:
     tot_r = _twin_totals(args)
     torch.cuda.synchronize()
     d = (tot_k - tot_r).abs()
-    bound = 1e-8 if f64 else 3e-3 + 2e-4 * tot_r.abs()
+    bound = 0.0 if f64 else 3e-3 + 2e-4 * tot_r.abs()
     what = f"{where} mutscore K={args[18]} D={args[20]} (f64={f64})"
     if not bool((d <= bound).all()):
         fail(f"{what}: max |diff| {d.max().item()}")
@@ -388,35 +486,46 @@ def hold_mutscore(args, where: str) -> float:
 def check_mutscore(engine, calls, f64: bool, report: dict):
     """Group scorer (one launch per (K, D) class over all groups of the
     8-region batch, as the main path launches it) against its twin on every
-    group."""
+    group; in f32 each call's launches timed (the Refine call is the
+    kernel's line, the Mutate call beside it)."""
     from poreseq_tpu_torch.engine.mutscore import (group_launches,
                                                    group_totals_cuda)
+    from poreseq_tpu_torch.engine.roofline import group_work
 
-    err, ms, plain_ms, n_groups, clamped = 0.0, [], [], {}, 0
+    err, n_groups, clamped, calls_t = 0.0, {}, 0, {}
     for name, (datas, mlists) in calls.items():
         n_groups[name] = 0
+        ms = plain_ms = nbytes = ops = 0.0
         for gp, _, args in group_launches(engine, datas, mlists,
                                           [True] * len(datas)):
             E, E_g, G = args[1].shape[1], args[21], gp["G"]
             clamped += int((gp["g_evoff"][:G] > E - E_g).sum())
             n_groups[name] += G
             err = max(err, hold_mutscore(args, f"kernels {name}"))
-            if not f64 and name == "refine":
-                ms.append(cuda_ms(lambda: group_totals_cuda(*args)))
-                plain_ms.append(cuda_ms(lambda: _twin_totals(args), reps=2))
+            if not f64:
+                ms += event_ms(lambda: group_totals_cuda(*args))
+                plain_ms += cuda_ms(lambda: _twin_totals(args), reps=2)
+                b, o = group_work(*args)
+                nbytes, ops = nbytes + b, ops + o
+        if not f64:
+            calls_t[name] = dict(timed(ms, (nbytes, ops), args[1].dtype),
+                                 plain_ms=plain_ms)
     if not clamped:
         fail("mutscore: no group's event slice was clamped to E - E_g")
     line = dict(max_abs_err=err)
     if not f64:
-        line["ms"] = float(sum(ms))
-        line["plain_ms"] = float(sum(plain_ms))
+        line.update(calls_t["refine"], mutate_call=calls_t["mutate"])
     report[("mutscore", f64)] = line
     print(f"[kernels] mutscore f{'64' if f64 else '32'}: "
           f"{len(MUT_COVERAGE)} regions, groups {n_groups} "
           f"({clamped} with a clamped event slice), every group held to the "
           f"twin: totals max |diff| {err:.3e}, 0 accept-sign flips"
-          + (f"; Refine call kernel {line['ms']:.3f} ms, twin "
-             f"{line['plain_ms']:.1f} ms" if not f64 else ""), flush=True)
+          + (f"; Refine call (Ws={2 * P_WIDTHS['point_width'] + 1}) "
+             f"{_timing(line)}, twin {line['plain_ms']:.1f} ms; Mutate call "
+             f"(Ws={2 * P_WIDTHS['scoring_width'] + 1}) "
+             f"{_timing(calls_t['mutate'])}, twin "
+             f"{calls_t['mutate']['plain_ms']:.1f} ms | {gpu_line()}"
+             if not f64 else ""), flush=True)
 
 
 def phase_kernels(seed: int):
@@ -427,9 +536,8 @@ def phase_kernels(seed: int):
     report = {}
     for f64 in (True, False):
         engine = TorchEngine("cuda", torch.float64 if f64 else torch.float32)
-        data = _session(seed)
-        check_fill(engine, data, f64, report)
-        check_backtrace(engine, data, f64, report)
+        check_fill(engine, seed, f64, report)
+        check_backtrace(engine, _session(seed), f64, report)
         check_mutscore(engine, _mut_regions(seed), f64, report)
     return report
 
@@ -514,22 +622,38 @@ def largest_launches():
         fill.fill_cuda, mutscore.group_totals_cuda = real
 
 
-def hold_path_launches(kept: dict, phase: str) -> str:
-    """Hold the launches kept by largest_launches to their twins; returns a
-    line of what was held."""
+def hold_path_launches(kept: dict, phase: str):
+    """Hold the launches kept by largest_launches to their twins and time
+    each on the card; returns (a line of what was held, {key: timing})."""
+    from poreseq_tpu_torch.engine.fill import fill_cuda
+    from poreseq_tpu_torch.engine.mutscore import group_totals_cuda
+    from poreseq_tpu_torch.engine.roofline import fill_work, group_work
+
     for key in ("fill fwd", "fill bwd", "mutscore"):
         if key not in kept:
             fail(f"{phase}: no {key} launch was kept to hold to its twin")
     t0 = time.perf_counter()
     errs = {k: hold_fill(kept[k], phase) for k in ("fill fwd", "fill bwd")}
     errs["mutscore"] = hold_mutscore(kept["mutscore"], phase)
+    secs = time.perf_counter() - t0
+    times = {}
+    for k in ("fill fwd", "fill bwd"):
+        a = kept[k]
+        times[k] = timed(event_ms(lambda: fill_cuda(*a)),
+                         fill_work(a[0], a[1], a[4], a[7], a[8]),
+                         a[0].mean.dtype)
+    a = kept["mutscore"]
+    times["mutscore"] = timed(event_ms(lambda: group_totals_cuda(*a)),
+                              group_work(*a), a[1].dtype)
     batch, states = kept["fill fwd"][:2]
     mf, gp = kept["mutscore"][1], kept["mutscore"][13]
-    return (f"held to the twins: fill fwd/bwd C={states.shape[0]} "
+    line = (f"held to the twins: fill fwd/bwd C={states.shape[0]} "
             f"E={states.shape[1]} max |diff| {errs['fill fwd']:.3e}/"
             f"{errs['fill bwd']:.3e}, mutscore G={gp['g_start'].shape[0]} "
             f"C={mf.shape[0]} E={mf.shape[1]} max |diff| "
-            f"{errs['mutscore']:.3e}, {time.perf_counter() - t0:.2f} s")
+            f"{errs['mutscore']:.3e}, {secs:.2f} s; timed: "
+            + "; ".join(f"{k} {_timing(v)}" for k, v in times.items()))
+    return line, times
 
 
 def _transition_sets(batch) -> int:
@@ -559,7 +683,7 @@ CONF_WIDTHS = ("realign_width = 300\nscoring_width = 100\npoint_width = 20\n"
 
 def _e2e_run(d: str, seed: int):
     """Phase 3's synthetic run: 8 x 1 kb regions at 10X, 2 % draft error."""
-    from poreseq_tpu.sim import write_run
+    from poreseq_tpu_torch.sim import write_run
 
     R, L, cov = E2E_REGIONS, 1000, 10
     truth, _, reads_dir, bam, fasta = write_run(
@@ -630,11 +754,13 @@ def phase_viterbi(seed: int):
     return launches
 
 
-def phase_e2e(seed: int):
+def phase_e2e(seed: int, profile: str | None = None):
+    import glob
+
     import torch
 
-    from poreseq_tpu.api import swalign
-    from poreseq_tpu.io.fasta import read_fasta
+    from poreseq_tpu_torch.api import swalign
+    from poreseq_tpu_torch.io.fasta import read_fasta
     from poreseq_tpu_torch import cli
 
     fast5_io = _fast5_io()
@@ -648,9 +774,16 @@ def phase_e2e(seed: int):
         t0 = time.perf_counter()
         cli.main(["consensus", fasta, bam, reads_dir, "-R", rf, "-p", conf,
                   "-o", out, "-i", "4", "--region-batch", "8",
-                  "--device", "cuda"])
+                  "--device", "cuda"]
+                 + (["--profile", profile] if profile else []))
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        if profile:
+            from poreseq_tpu_torch import trace_summary
+
+            for path in glob.glob(os.path.join(profile, "*.trace.json")):
+                print(f"[e2e] profile {path}:", flush=True)
+                trace_summary.main([path])
         launches = _launches()
         seqs = read_fasta(out)
         # regions are draft coordinates: widen the truth window so draft
@@ -691,12 +824,12 @@ def _captured(argv):
 def phase_variant(seed: int):
     """4: variant -m / -a / -f on a 5 kb run (BASELINE.json config 2:
     about 10 point mutations, 5 kb, 10X) at widths 300/100/20."""
-    from poreseq_tpu.core.regions import RegionInfo
-    from poreseq_tpu.engine.driver import find_point_mutations
-    from poreseq_tpu.engine.types import AlignData
-    from poreseq_tpu.io.fasta import write_fasta
-    from poreseq_tpu.io.load import load_aligned_events
-    from poreseq_tpu.sim import mutate_seq, write_run
+    from poreseq_tpu_torch.core.regions import RegionInfo
+    from poreseq_tpu_torch.engine.driver import find_point_mutations
+    from poreseq_tpu_torch.engine.types import AlignData
+    from poreseq_tpu_torch.io.fasta import write_fasta
+    from poreseq_tpu_torch.io.load import load_aligned_events
+    from poreseq_tpu_torch.sim import mutate_seq, write_run
 
     _fast5_io()
     rng = np.random.default_rng(seed + 4)
@@ -740,9 +873,9 @@ def phase_variant(seed: int):
             wall_f, out_f = _captured(["variant", ref2, bam, reads, "-f",
                                        vf, "-r", "synthref:0:5000", *dev])
         launches = _launches()
-        held = hold_path_launches(kept, "variant")
+        held, times = hold_path_launches(kept, "variant")
 
-        from poreseq_tpu.core.params import load_params
+        from poreseq_tpu_torch.core.params import load_params
 
         params = load_params(conf)
         pa = load_aligned_events(fasta, bam, reads, RegionInfo(region_a),
@@ -781,7 +914,7 @@ def phase_variant(seed: int):
     if not fscores.get("truth", -np.inf) > fscores.get("mutated5", np.inf):
         fail(f"variant -f: scores {fscores}")
     _need_launches("variant", launches)
-    return launches
+    return launches, times
 
 
 def phase_train(seed: int):
@@ -789,9 +922,9 @@ def phase_train(seed: int):
     reps in one lockstep batch."""
     import inspect
 
-    from poreseq_tpu import pipeline
-    from poreseq_tpu.core.params import PACKAGED_DEFAULTS, load_params
-    from poreseq_tpu.sim import write_run
+    from poreseq_tpu_torch import pipeline
+    from poreseq_tpu_torch.core.params import PACKAGED_DEFAULTS, load_params
+    from poreseq_tpu_torch.sim import write_run
     from poreseq_tpu_torch import cli
 
     _fast5_io()
@@ -824,7 +957,7 @@ def phase_train(seed: int):
                       "-r", "synthref:0:1000", "--device", "cuda"])
         wall = time.perf_counter() - t0
         launches = _launches()
-        held = hold_path_launches(kept, "train")
+        held, times = hold_path_launches(kept, "train")
         n_trans = _transition_sets(kept["fill fwd"][0])
         best = (load_params("train_best.conf")
                 if os.path.isfile("train_best.conf") else {})
@@ -850,7 +983,7 @@ def phase_train(seed: int):
     if not acc or acc[0] < 98.0:
         fail(f"train: best accuracy {acc} < 98.0%")
     _need_launches("train", launches)
-    return launches
+    return launches, times
 
 
 _CHILD = """
@@ -930,6 +1063,13 @@ def phase_multihost(seed: int):
     return launches
 
 
+# why each kernel's library_ms is null
+LIBRARY_NOTE = {
+    "fill": "no single PyTorch call computes a banded max-plus pair-HMM fill",
+    "mutscore": "no single PyTorch call computes a group refill and join",
+    "backtrace": "no single PyTorch call computes a best-path walk",
+}
+
 # (seed, k, i, w) -> h, as tests/test_torch_viterbi.py pins them on the CPU
 PINNED_HASH = [((0, 0, 0, 0), 1106484830), ((7, 0, 0, 0), 993596527),
                ((7, 15, 1234, 1023), 3231325825),
@@ -941,6 +1081,8 @@ PINNED_HASH = [((0, 0, 0, 0), 1106484830), ((7, 0, 0, 0), 993596527),
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--profile", default=None, metavar="DIR",
+                    help="run phase 3 under torch.profiler, trace into DIR")
     args = ap.parse_args()
 
     import torch
@@ -954,11 +1096,13 @@ def main():
     kernels = phase_build()
     report = phase_kernels(args.seed)
     phase_viterbi(args.seed)
-    by_phase = {"e2e": phase_e2e(args.seed),
-                "variant": phase_variant(args.seed),
-                "train": phase_train(args.seed),
-                "multihost": phase_multihost(args.seed)}
+    by_phase, held = {"e2e": phase_e2e(args.seed, args.profile)}, {}
+    by_phase["variant"], held["variant"] = phase_variant(args.seed)
+    by_phase["train"], held["train"] = phase_train(args.seed)
+    by_phase["multihost"] = phase_multihost(args.seed)
 
+    held_keys = {"fill": ("fill fwd", "fill bwd"), "mutscore": ("mutscore",),
+                 "backtrace": ()}
     entries = []
     for k in kernels:
         line = report[(k.name, False)]
@@ -966,8 +1110,12 @@ def main():
             name=k.name, route="cuda", source=k.source, replaces=k.replaces,
             launches=sum(n[k.name] for n in by_phase.values()),
             launches_by_phase={p: n[k.name] for p, n in by_phase.items()},
-            max_abs_err=line["max_abs_err"], ms=line["ms"],
-            plain_ms=line["plain_ms"]))
+            max_abs_err=max(line["max_abs_err"],
+                            report[(k.name, True)]["max_abs_err"]),
+            library_ms=None, library_note=LIBRARY_NOTE[k.name],
+            **{key: v for key, v in line.items() if key != "max_abs_err"},
+            held_launches={p: {hk: t[hk] for hk in held_keys[k.name]}
+                           for p, t in held.items()}))
     print(json.dumps({"kernels": entries}), flush=True)
     # the run used one card (phase 6 puts both processes on cuda:0)
     print(json.dumps({"ok": True, "device": {

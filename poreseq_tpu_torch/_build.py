@@ -1,16 +1,24 @@
-"""Build and load the hand-written CUDA kernels of ``csrc/``.
+"""Build and load the hand-written CUDA kernels and the host C++ core of
+``csrc/``.
 
 Each ``csrc/<name>.cu`` is compiled on first use with
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 --fmad=false
-         -shared -Xcompiler -fPIC
+         -shared -Xcompiler -fPIC -Xptxas -v
 
 into ``_build/lib<name>.so`` (listed in .gitignore) and loaded with ctypes.
 A library is rebuilt when its source or a shared ``csrc/*.cuh`` header is
 newer than it.  ``--fmad=false`` keeps every kernel on the expression tree of
 its plain PyTorch twin (no fused multiply-adds), so the twins can hold the
-kernels to tight tolerances.  A failed build raises with nvcc's stderr;
-nothing falls back to a twin.
+kernels to tight tolerances.  ``-Xptxas -v`` makes the build report each
+kernel instance's registers and spills (kept as ``Kernel.build_log``).  A
+failed build raises with the compiler's stderr; nothing falls back to a
+twin.
+
+``csrc/host_sw.cpp`` (the host Smith-Waterman core) is compiled the same way
+by ``build_host``, with g++ and the JAX package's flags for its exact core:
+``-O3 -std=c++17 -fPIC -shared -ffp-contract=off -fno-fast-math`` (no fused
+multiply-adds, so its results equal the original's bit for bit).
 """
 
 from __future__ import annotations
@@ -29,10 +37,10 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC"]
-
-_LOCK = threading.Lock()
-
+              "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v"]
+GXX_FLAGS = ["-O3", "-std=c++17", "-fPIC", "-shared", "-ffp-contract=off",
+             "-fno-fast-math"]
 
 def nvcc() -> str:
     """The CUDA compiler: $CUDA_HOME/bin/nvcc, else nvcc on PATH, else the
@@ -44,35 +52,52 @@ def nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
-def build(name: str) -> tuple[Path, float]:
-    """Compile csrc/<name>.cu if its library is missing or stale; returns
-    (library path, seconds spent compiling: 0 when up to date)."""
-    src = CSRC / f"{name}.cu"
-    lib = BUILD / f"lib{name}.so"
-    newest = max(p.stat().st_mtime for p in [src, *CSRC.glob("*.cuh")])
+def _compile(cmd: list[str], src: Path, deps: list[Path],
+             lib: Path) -> tuple[float, str]:
+    """Run ``cmd + [-o tmp, src]`` if lib is missing or older than src and
+    deps; returns the seconds spent compiling and the compiler's stderr
+    (0 and "" when up to date)."""
+    newest = max(p.stat().st_mtime for p in [src, *deps])
     if lib.exists() and lib.stat().st_mtime >= newest:
-        return lib, 0.0
+        return 0.0, ""
     BUILD.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD)
     os.close(fd)
     try:
-        proc = subprocess.run([nvcc(), *NVCC_FLAGS, "-I", str(CSRC),
-                               "-o", tmp, str(src)],
+        proc = subprocess.run([*cmd, "-o", tmp, str(src)],
                               capture_output=True, text=True)
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {src}:\n{proc.stderr}")
+            raise RuntimeError(f"{cmd[0]} failed for {src}:\n{proc.stderr}")
         os.replace(tmp, lib)      # atomic: concurrent builders never see
     finally:                      # a half-written library
         if os.path.exists(tmp):
             os.unlink(tmp)
-    return lib, time.perf_counter() - t0
+    return time.perf_counter() - t0, proc.stderr
+
+
+def build(name: str) -> tuple[Path, float, str]:
+    """Compile csrc/<name>.cu if its library is missing or stale; returns
+    (library path, seconds spent compiling, nvcc's stderr: 0 and "" when
+    up to date)."""
+    lib = BUILD / f"lib{name}.so"
+    secs, log = _compile([nvcc(), *NVCC_FLAGS, "-I", str(CSRC)],
+                         CSRC / f"{name}.cu", list(CSRC.glob("*.cuh")), lib)
+    return lib, secs, log
+
+
+def build_host(name: str) -> Path:
+    """Compile csrc/<name>.cpp with g++ if its library is missing or stale;
+    returns the library path."""
+    lib = BUILD / f"lib{name}.so"
+    _compile(["g++", *GXX_FLAGS], CSRC / f"{name}.cpp", [], lib)
+    return lib
 
 
 class Kernel:
     """One csrc/<name>.cu library: built and loaded on first use, with a
     plain-integer ``launches`` count that its wrapper bumps once per kernel
-    launch (never for a twin call)."""
+    launch (never for a twin call).  Distinct kernels build concurrently."""
 
     def __init__(self, name: str, replaces: str, signatures: dict):
         self.name = name
@@ -82,11 +107,13 @@ class Kernel:
         self._lib = None
         self.launches = 0
         self.build_seconds = 0.0
+        self.build_log = ""
+        self._lock = threading.Lock()
 
     def lib(self) -> ctypes.CDLL:
-        with _LOCK:
+        with self._lock:
             if self._lib is None:
-                path, self.build_seconds = build(self.name)
+                path, self.build_seconds, self.build_log = build(self.name)
                 lib = ctypes.CDLL(str(path))
                 for fn, argtypes in self._signatures.items():
                     getattr(lib, fn).argtypes = argtypes

@@ -3,7 +3,7 @@
 Subcommands, with the JAX CLI's flags plus ``--device`` (cuda, cuda:N or
 cpu) on those that run the engine:
 
-- ``consensus``: ``pipeline.mutate_many`` on a registered TorchEngine:
+- ``consensus``: ``pipeline.mutate_many`` on a TorchEngine:
   regions are corrected in lockstep batches of --region-batch, the next
   batch's loads are prefetched on a thread, and a batch that runs out of
   memory is retried at half its width (width 1 skips the region).
@@ -17,7 +17,7 @@ cpu) on those that run the engine:
   proposals run as one lockstep batch (``pipeline.train_candidates``) and
   the best goes to ./train_best.conf.  -n/--threads is accepted and
   unused: a fork pool cannot share a CUDA context.
-- ``split``, ``merge``, ``extract``: the JAX CLI's own (jax-free) functions.
+- ``split``, ``merge``, ``extract``: copies of the JAX CLI's.
 
 Failure units: a region that fails to load (or, in ``variant``, to realign
 to a variant) prints ``Skipping <region>: <error>`` and the run goes on;
@@ -33,6 +33,7 @@ from __future__ import annotations
 
 import argparse
 import gc
+import glob
 import os
 import random
 import sys
@@ -42,14 +43,13 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
-from poreseq_tpu import pipeline
-from poreseq_tpu.cli import extract, merge, parse_regions, split
-from poreseq_tpu.core.params import load_params, save_params, vary_params
-from poreseq_tpu.core.regions import MutationInfo, RegionInfo
-from poreseq_tpu.io.fasta import read_fasta
-
-from . import register_engine
-from .engine import EngineError
+from . import pipeline
+from .core.params import load_params, save_params, vary_params
+from .core.regions import MutationInfo, RegionInfo
+from .engine import EngineError, TorchEngine
+from .io.fasta import read_fasta
+from .io.regions_io import (extract_fasta, merge_fasta, split_fasta,
+                            split_regions)
 from .parallel.distributed import (allgather_round_robin, finish_multihost,
                                    init_multihost, shard_regions)
 
@@ -176,6 +176,24 @@ def _add_device(p):
                    "in a multi-process run give each process its own")
 
 
+def parse_regions(args):
+    """Region resolution (cmdline.py:127-165)."""
+    regions = []
+    if getattr(args, "region_file", None) is not None:
+        if os.path.isfile(args.region_file):
+            regions += [x.strip() for x in open(args.region_file).readlines()]
+    reginfo = RegionInfo(args.region)
+    if reginfo.start is not None:
+        regions.append(args.region)
+    if regions == []:
+        if "max_length" in args.params:
+            regions = split_regions(args.ref, args.params["max_length"],
+                                    userefs=args.region)
+        else:
+            regions = split_regions(args.ref, 10000, userefs=args.region)
+    return regions
+
+
 def _join(args) -> tuple:
     return init_multihost(args.coordinator, args.num_processes,
                           args.process_id)
@@ -225,7 +243,7 @@ def _consensus(args):
         regions = shard_regions(regions, args.shard_index, args.num_shards)
 
     device = torch.device(args.device)
-    register_engine(device=device)
+    engine = TorchEngine(device=device)
 
     # region-granular resume: output is flushed after every region
     done = set()
@@ -247,7 +265,7 @@ def _consensus(args):
 
     def load_part(part):
         return pipeline.load_many(args.ref, args.bam, args.dir, part,
-                                  params=args.params, backend="torch")
+                                  params=args.params, engine=engine)
 
     # one loader thread prefetches the NEXT chunk's BAM/fast5 loads while
     # the device computes the current chunk
@@ -273,7 +291,7 @@ def _consensus(args):
                         args.ref, args.bam, args.dir, part,
                         params=args.params, test=args.test,
                         verbose=args.verbose, reps=args.iterations,
-                        backend="torch", loaded=loaded)
+                        engine=engine, loaded=loaded)
             except OUT_OF_MEMORY as e:
                 if width == 1:
                     sys.stderr.write("Skipping {}: {}\n".format(part[0], e))
@@ -311,7 +329,7 @@ def variant(args):
         sys.stderr.write("Process {}/{}: {} of {} regions\n".format(
             pid, nproc, len(regions[pid::nproc]), len(regions)))
     device = torch.device(args.device)
-    register_engine(device=device)
+    engine = TorchEngine(device=device)
 
     muts = []
     if args.mut_file is not None:
@@ -339,7 +357,7 @@ def variant(args):
         try:
             pipeline.variant(args.ref, args.bam, args.dir, args.fasta,
                              curmuts, region, args.params, args.verbose,
-                             backend="torch")
+                             engine=engine)
         except OUT_OF_MEMORY as e:
             sys.stderr.write("Skipping {}: {}\n".format(region, e))
             _release(device)
@@ -352,7 +370,7 @@ def variant(args):
     finish_multihost(pid, nproc, store)
 
 
-def _train_batch(args, cands, device):
+def _train_batch(args, cands, engine):
     """One iteration's candidates as one lockstep batch; a batch that runs
     out of memory is split in halves (a region's results do not depend on
     its batch).  A single candidate that does not fit raises."""
@@ -360,24 +378,23 @@ def _train_batch(args, cands, device):
         return pipeline.train_candidates(args.ref, args.bam, args.dir,
                                          args.region, cands,
                                          descend=args.descend,
-                                         backend="torch")
+                                         engine=engine)
     except OUT_OF_MEMORY as e:
         if len(cands) == 1:
             raise
         half = len(cands) // 2
         sys.stderr.write("Batch of {} failed ({}), retrying at {}\n".format(
             len(cands), e, half))
-        _release(device)
-        return (_train_batch(args, cands[:half], device)
-                + _train_batch(args, cands[half:], device))
+        _release(engine.device)
+        return (_train_batch(args, cands[:half], engine)
+                + _train_batch(args, cands[half:], engine))
 
 
 def train(args):
     """Hill-climb on consensus accuracy (the JAX CLI's tpu path): every
     iteration proposes 16 parameter sets and keeps the most accurate."""
     pid, nproc, store = _join(args)
-    device = torch.device(args.device)
-    register_engine(device=device)
+    engine = TorchEngine(device=args.device)
 
     params = load_params(args.params)
     for i in range(args.iter):
@@ -391,7 +408,7 @@ def train(args):
         else:
             paramlist = vary_params(params)
             mine = paramlist
-        accs = [s[1] for s in _train_batch(args, mine, device)]
+        accs = [s[1] for s in _train_batch(args, mine, engine)]
         if nproc > 1:
             accs = allgather_round_robin(accs, len(paramlist), pid, nproc,
                                          store)
@@ -399,6 +416,25 @@ def train(args):
         save_params("train_best.conf", params)
         sys.stderr.write("Best at iter {}: {}\n".format(i + 1, max(accs)))
     finish_multihost(pid, nproc, store)
+
+
+def extract(args):
+    fast5files = []
+    for d in args.dirs:
+        fast5files += glob.glob(os.path.join(d, "*.fast5"))
+    extract_fasta(fast5files, args.fasta, args.path, False)
+
+
+def split(args):
+    if args.region_length is None:
+        split_fasta(args.fasta, args.num_files, args.per_file)
+    else:
+        split_regions(args.fasta, args.region_length, args.num_files,
+                      args.per_file)
+
+
+def merge(args):
+    merge_fasta(args.fasta_in, args.fasta_out)
 
 
 if __name__ == "__main__":

@@ -1,7 +1,7 @@
 // Device helpers shared by the port's kernels: sentinels, the emission
-// model, the max-plus column scan and block reductions.  Every helper
-// evaluates the expression tree of its PyTorch twin in engine/dp.py (the
-// kernels are built with --fmad=false, so no multiply-add is fused).
+// model, the max-plus column scan and warp-first block reductions.  Every
+// helper evaluates the expression tree of its PyTorch twin in engine/dp.py
+// (the kernels are built with --fmad=false, so no multiply-add is fused).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -11,6 +11,7 @@
 namespace psq {
 
 constexpr int DMAX = 8;
+constexpr unsigned FULL = 0xffffffffu;
 enum : uint8_t { SKIP = 0, MATCH = 1, INSERT = 2, IGNORE = 3, STAY = 4,
                  EXTEND = 5, IMPLICIT = 255 };
 
@@ -54,92 +55,177 @@ __device__ __forceinline__ void mp_combine(const T l[6], T v[6]) {
   v[0] = a11; v[1] = a12; v[2] = a21; v[3] = a22; v[4] = u1; v[5] = u2;
 }
 
-// one combine in place: x[d] <- x[d] applied after x[s]
+// the u part of mp_combine, all a down-sweep needs: a final prefix is only
+// ever the source (lhs) of later down-sweep combines, whose u reads the
+// lhs's u alone, so the A part of a down-sweep result is never read
 template <typename T>
-__device__ __forceinline__ void combine_at(T* x, int n, int s, int d) {
-  T l[6], v[6];
-#pragma unroll
-  for (int k = 0; k < 6; ++k) { l[k] = x[k * n + s]; v[k] = x[k * n + d]; }
-  mp_combine(l, v);
-#pragma unroll
-  for (int k = 0; k < 6; ++k) x[k * n + d] = v[k];
+__device__ __forceinline__ void mp_combine_u(T l4, T l5, T v[6]) {
+  T u1 = mx(mx(v[0] + l4, v[1] + l5), v[4]);
+  T u2 = mx(mx(v[2] + l4, v[3] + l5), v[5]);
+  v[4] = u1; v[5] = u2;
 }
 
-// dp.column_solve: inclusive max-plus scan over rows [0, n) with the
-// combine tree of jax.lax.associative_scan (the twin's _assoc_scan), in
-// place: an up-sweep combines adjacent pairs level by level (element k of
-// level L sits at position (k+1)*2^L - 1), a down-sweep fills in the even
-// elements.  reverse=True scans rows n-1 down to 0.  Thread r holds row r's
-// element in v; scratch holds 6*n values.  Every thread of the block must
-// call it.
+// the element 2^L positions below, from the lane 2^L below (lanes under
+// 2^L get their own); every lane of the warp must call it
 template <typename T>
-__device__ void mp_scan(T v[6], T* scratch, int r, int n, bool reverse) {
-  if (r < n) {
+__device__ __forceinline__ void shfl_up6(const T v[6], T s[6], int delta) {
 #pragma unroll
-    for (int k = 0; k < 6; ++k) scratch[k * n + r] = v[k];
-  }
-  __syncthreads();
-  int nl[12];
-  int levels = 0;
-  nl[0] = n;
-  while (nl[levels] >= 2) { nl[levels + 1] = nl[levels] >> 1; ++levels; }
-  auto phys = [&](int p) { return reverse ? n - 1 - p : p; };
-  for (int L = 0; L < levels; ++L) {
-    for (int k = threadIdx.x; k < nl[L + 1]; k += blockDim.x)
-      combine_at(scratch, n, phys(((2 * k + 1) << L) - 1),
-                 phys(((k + 1) << (L + 1)) - 1));
-    __syncthreads();
-  }
-  for (int L = levels - 1; L >= 0; --L) {
-    for (int m = threadIdx.x + 1; 2 * m < nl[L]; m += blockDim.x)
-      combine_at(scratch, n, phys(((2 * m) << L) - 1),
-                 phys(((2 * m + 1) << L) - 1));
-    __syncthreads();
-  }
-  if (r < n) {
-#pragma unroll
-    for (int k = 0; k < 6; ++k) v[k] = scratch[k * n + r];
-  }
-  __syncthreads();
+  for (int k = 0; k < 6; ++k) s[k] = __shfl_up_sync(FULL, v[k], delta);
 }
 
-// block-wide max with the FIRST index attaining it (ties -> smaller index);
-// red_v / red_i hold 32 entries.  Every thread must call it; all get the
-// result.
+// position p (< n) is the destination of an up-sweep combine at level L
+// (its source is p - 2^L): the tree's (k+1)*2^(L+1) - 1
+__device__ __forceinline__ bool up_dst(int p, int L, int n) {
+  return p < n && ((p + 1) & ((2 << L) - 1)) == 0;
+}
+
+// ... of a down-sweep combine at level L: the tree's (2m+1)*2^L - 1, m >= 1
+__device__ __forceinline__ bool down_dst(int p, int L, int n) {
+  const int q = (p + 1) >> L;
+  return p < n && ((p + 1) & ((1 << L) - 1)) == 0 && (q & 1) && q >= 3;
+}
+
+// dp.column_solve: inclusive max-plus scan over logical positions [0, n),
+// n <= 1024, with the combine tree of jax.lax.associative_scan (the twin's
+// _assoc_scan): the up-sweep combines position (k+1)*2^(L+1)-1 with
+// (2k+1)*2^L-1 at level L, the down-sweep (2m+1)*2^L-1 with 2m*2^L-1.
+// Thread t (< 32*ceil(n/32)) holds position t in v (a reversed scan is the
+// caller's mapping of rows to positions).  Levels L <= 4 pair positions
+// inside one aligned chunk of 32, so each warp runs them on its chunk in
+// registers with shuffles (scan_up, scan_down); every combine of a level
+// L >= 5 touches only the chunk tails (positions = 31 mod 32), which one
+// warp scans in registers between two block barriers (scan_tails).  In the
+// down-sweep the only source in another warp is the previous chunk's tail,
+// final by then.  The guards are exactly those of the tree (a destination
+// below n), so the same combines happen on the same operands and the result
+// is bit-equal to the twin's in its u part (M, S); the down-sweep computes
+// only that part (mp_combine_u), so a final A part is stale.  mp_scan runs
+// the three parts with warp 0 on the tails; a kernel with a warp to spare
+// calls them itself.
+
+// up-sweep levels 0-4 on this warp's chunk; its last lane writes the
+// chunk's tail to tails[k*32 + warp] (k < 6).  Every lane must call it.
 template <typename T>
-__device__ void block_argmax(T& val, int& idx, T* red_v, int* red_i) {
-  const unsigned full = 0xffffffffu;
+__device__ __forceinline__ void scan_up(T v[6], T* tails, int n) {
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  T s[6];
+#pragma unroll
+  for (int L = 0; L < 5; ++L) {
+    shfl_up6(v, s, 1 << L);
+    if (up_dst(t, L, n)) mp_combine(s, v);
+  }
+  if (lane == 31) {
+#pragma unroll
+    for (int k = 0; k < 6; ++k) tails[k * 32 + warp] = v[k];
+  }
+}
+
+// levels >= 5, up and down, on the full chunks' tails (lane q holds chunk
+// q's), in one warp, their u parts written back final; a level with no
+// destination below nt is skipped (a uniform branch)
+template <typename T>
+__device__ __forceinline__ void scan_tails(T* tails, int n) {
+  const int lane = threadIdx.x & 31, nt = n >> 5;
+  T x[6], s[6];
+#pragma unroll
+  for (int k = 0; k < 6; ++k) x[k] = lane < nt ? tails[k * 32 + lane] : T(0);
+#pragma unroll
+  for (int L = 0; L < 5; ++L) {
+    if ((2 << L) > nt) break;
+    shfl_up6(x, s, 1 << L);
+    if (up_dst(lane, L, nt)) mp_combine(s, x);
+  }
+#pragma unroll
+  for (int L = 4; L >= 0; --L) {
+    if ((3 << L) > nt) continue;
+    const T s4 = __shfl_up_sync(FULL, x[4], 1 << L);
+    const T s5 = __shfl_up_sync(FULL, x[5], 1 << L);
+    if (down_dst(lane, L, nt)) mp_combine_u(s4, s5, x);
+  }
+  if (lane < nt) {
+    tails[4 * 32 + lane] = x[4];
+    tails[5 * 32 + lane] = x[5];
+  }
+}
+
+// down-sweep levels 4-0 on this warp's chunk, after scan_tails (or right
+// after scan_up's barrier when n < 64: one tail, already final); the last
+// lane takes its final tail, lane 2^L - 1 reads the previous chunk's.
+// tails keeps the full chunks' final u parts (k = 4, 5) until the next
+// scan_up.
+template <typename T>
+__device__ __forceinline__ void scan_down(T v[6], const T* tails, int n) {
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  if (lane == 31 && warp < (n >> 5)) {
+    v[4] = tails[4 * 32 + warp];
+    v[5] = tails[5 * 32 + warp];
+  }
+#pragma unroll
+  for (int L = 4; L >= 0; --L) {
+    T s4 = __shfl_up_sync(FULL, v[4], 1 << L);
+    T s5 = __shfl_up_sync(FULL, v[5], 1 << L);
+    if (lane == (1 << L) - 1 && warp > 0) {   // source: the previous
+      s4 = tails[4 * 32 + warp - 1];           // chunk's final tail
+      s5 = tails[5 * 32 + warp - 1];
+    }
+    if (down_dst(t, L, n)) mp_combine_u(s4, s5, v);
+  }
+}
+
+// the whole scan: block barrier A after scan_up; with two or more full
+// chunks, warp 0 scans their tails and barrier B follows.  idle() runs once
+// in every warp: in the others while warp 0 scans, in warp 0 after.  Every
+// thread of the block (blockDim = 32 * ceil(n/32)) must call it.
+template <typename T, typename Idle>
+__device__ void mp_scan(T v[6], T* tails, int n, Idle idle) {
+  scan_up(v, tails, n);
+  __syncthreads();
+  if (n >= 64) {
+    const bool w0 = (threadIdx.x >> 5) == 0;
+    if (w0) scan_tails(tails, n);
+    else idle();
+    __syncthreads();
+    if (w0) idle();
+  } else {
+    idle();
+  }
+  scan_down(v, tails, n);
+}
+
+template <typename T>
+__device__ __forceinline__ T warp_max(T v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    v = mx(v, __shfl_xor_sync(FULL, v, off));
+  return v;
+}
+
+// warp-wide max with the FIRST index attaining it (ties -> smaller index);
+// every lane gets the result
+template <typename T>
+__device__ __forceinline__ void warp_argmax(T& val, int& idx) {
+#pragma unroll
   for (int off = 16; off > 0; off >>= 1) {
-    T ov = __shfl_down_sync(full, val, off);
-    int oi = __shfl_down_sync(full, idx, off);
+    T ov = __shfl_xor_sync(FULL, val, off);
+    int oi = __shfl_xor_sync(FULL, idx, off);
     if (ov > val || (ov == val && oi < idx)) { val = ov; idx = oi; }
   }
+}
+
+// block-wide max (exact in any order): each warp reduces by shuffles, warp
+// 0 reduces the warps' partials (red holds 32 values).  The result is valid
+// in warp 0 only.  Every thread must call it; red must not be written again
+// before the block's next barrier.
+template <typename T>
+__device__ T block_max(T val, T* red) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  if (lane == 0) { red_v[warp] = val; red_i[warp] = idx; }
+  val = warp_max(val);
+  if (lane == 0) red[warp] = val;
   __syncthreads();
   if (warp == 0) {
     const int nw = (blockDim.x + 31) >> 5;
-    val = lane < nw ? red_v[lane] : neg_big<T>();
-    idx = lane < nw ? red_i[lane] : INT_MAX;
-    for (int off = 16; off > 0; off >>= 1) {
-      T ov = __shfl_down_sync(full, val, off);
-      int oi = __shfl_down_sync(full, idx, off);
-      if (ov > val || (ov == val && oi < idx)) { val = ov; idx = oi; }
-    }
-    if (lane == 0) { red_v[0] = val; red_i[0] = idx; }
+    val = warp_max(lane < nw ? red[lane] : neg_big<T>());
   }
-  __syncthreads();
-  val = red_v[0];
-  idx = red_i[0];
-  __syncthreads();
-}
-
-// block-wide max (exact in any order)
-template <typename T>
-__device__ T block_max(T val, T* red_v) {
-  int idx = 0;
-  int* scratch_i = reinterpret_cast<int*>(red_v + 32);
-  block_argmax(val, idx, red_v, scratch_i);
   return val;
 }
 

@@ -20,13 +20,22 @@
 // these totals, and the fixed order makes them reproducible.
 //
 // What bounds it on this card: each refill step is one max-plus scan over
-// Ws rows (log2 Ws block barriers) and the K steps of a slot are sequential,
-// so barrier latency bounds a block; the joins stream 4 lattice columns of
-// W values from L2/DRAM per slot.  The design gives every (group, event row)
-// its own block (tens of thousands of blocks fill the card), keeps the
-// carried column and the selected column in shared memory, precomputes the
-// band anchor each step shifts from, and lets a slot stop at its last
-// active step.  Rows of other regions and invalid slots exit at once.
+// Ws rows and the K steps of a slot are sequential, so the latency of a
+// step bounds a block; the joins stream 4 lattice columns of W values from
+// L2/DRAM per slot.  The design gives every (group, event row) its own block
+// of ceil32(Ws) threads (tens of thousands of blocks fill the card), keeps
+// the carried column and the selected column in shared memory, precomputes
+// the band anchor each step shifts from, and lets a slot stop at its last
+// active step.  A step runs the warp-shuffle scan of common.cuh:mp_scan
+// (the fill's: two block barriers, one when Ws < 64) and one more barrier
+// after the carried column is written; its column max is reduced in each
+// warp and finished by warp 0 after that barrier.  The next step's state,
+// band, model values and data window are loaded while a step is solved
+// (the state one step earlier still), and its emissions are computed while
+// warp 0 scans the tails.  Rows of other regions and invalid slots exit at
+// once.  Shared memory per block: (3Ws + 6*32 + 64) T + K int; registers
+// (nvcc -Xptxas -v, sm_90a, held to 64 by the 1024-thread launch bound):
+// f32 spills 32 bytes, f64 188.
 //
 // Built with --fmad=false so the kernel evaluates the twin's expression
 // tree without fused multiply-adds.
@@ -59,19 +68,34 @@ __device__ __forceinline__ int clampi(int x, int lo, int hi) {
   return min(max(x, lo), hi);
 }
 
+// a refill step's band and mutated state
+struct Step {
+  int i0, i1, st;
+};
+
+// a step's loaded emission operands: model values at its state and the
+// row's data window
 template <typename T>
-__global__ void group_kernel(MutArgs a) {
+struct StepData {
+  T m[6];
+  T w[3];
+};
+
+template <typename T>
+__global__ void __launch_bounds__(1024) group_kernel(MutArgs a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int Ws = a.Ws, W = a.W, P = a.P, K = a.K, E = a.E, C1 = a.C1;
   T* Mc = reinterpret_cast<T*>(smem_raw);     // carried refill column
   T* selM = Mc + Ws;                          // selected column (k_star)
   T* selS = selM + Ws;
-  T* scan = selS + Ws;                        // 6 * Ws
-  T* red = scan + 6 * Ws;                     // 32 T + 32 int
-  int* cik = reinterpret_cast<int*>(red + 32) + 32;   // [K] anchor per step
+  T* tails = selS + Ws;                       // [6][32] mp_scan's
+  T* red_s = tails + 6 * 32;                  // [32] step column max
+  T* red_j = red_s + 32;                      // [32] joins
+  int* cik = reinterpret_cast<int*>(red_j + 32);   // [K] anchor per step
 
   const int g = blockIdx.x / a.E_g, el = blockIdx.x % a.E_g;
   const int r = threadIdx.x, nt = blockDim.x;
+  const int lane = r & 31, warp = r >> 5, nw = nt >> 5;
   T* out = static_cast<T*>(a.deltas) + (size_t)g * P * a.E_g + el;
   const int greg = a.g_region[g];
   const int e = clampi(a.g_evoff[g], 0, E - a.E_g) + el;
@@ -144,7 +168,7 @@ __global__ void group_kernel(MutArgs a) {
         m = mx(m, mx(Mf[base + rr] + Mb[base + rr],
                      Sf[base + rr] + Sb[base + rr]));
     }
-    m = block_max(m, red);
+    m = block_max(m, red_j);                  // valid in warp 0
     const size_t qe = (size_t)clampi(q_old, 0, C1 - 1) * E + e;
     old = mx(mx(mx(m, T(0)), bpf[qe]), bpb[qe]);
   }
@@ -163,28 +187,49 @@ __global__ void group_kernel(MutArgs a) {
     const int k_star = refind_used - startind - 1;   // -1: copied column
     if (r < Ws) { Mc[r] = T(0); selM[r] = T(0); selS[r] = T(0); }
     int sa = wi0 + a.RS;
-    T sbest = wbest, cbest = wbest;
+    T sbest = wbest, cbest = wbest;   // meaningful in warp 0
+
+    // step k's band and state, and its emission operands (indices past
+    // the last step are clamped; their values are never used)
+    auto step = [&](int k) {
+      const int q = clampi(st0 + 1 + k, 0, C1 - 1);
+      return Step{i0r_e[q], i1r_e[q],
+                  K > 0 ? a.s_win[(size_t)gp * K + clampi(k, 0, K - 1)]
+                        : -1};
+    };
+    auto load = [&](int k, const Step& s) {
+      StepData<T> d;
+      const int stc = clampi(s.st, 0, 1023);
+#pragma unroll
+      for (int j = 0; j < 6; ++j) d.m[j] = mdl[j][stc];
+      const int qw = clampi(st0 + 1 + k, 0, a.Q1 - 1);
+      const size_t wi = ((size_t)qw * E + e) * Ws + r;
+      d.w[0] = r < Ws ? wm[wi] : T(0);
+      d.w[1] = r < Ws ? wsd[wi] : T(1);
+      d.w[2] = r < Ws ? wl[wi] : T(0);
+      return d;
+    };
+    auto emit = [&](const StepData<T>& d, const Step& s) {
+      const T em = emission<T>(d.w[0], d.w[1], d.w[2], d.m[0], d.m[1],
+                               d.m[2], d.m[3], d.m[4], d.m[5], off);
+      return r < Ws && s.i0 + r <= s.i1 && s.st >= 0 ? em : T(0);
+    };
+    Step cur = step(0), nxt = step(1);
+    T eo = emit(load(0, cur), cur);
     __syncthreads();
 
     for (int k = 0; k < K; ++k) {
       // a slot stays active for a prefix of the steps
       if (!(k < mlen + 6 && startind + 1 + k <= nst && k < nfill)) break;
-      const int q = clampi(st0 + 1 + k, 0, C1 - 1);
-      const int qw = clampi(st0 + 1 + k, 0, a.Q1 - 1);
-      const int i0c = i0r_e[q], i1c = i1r_e[q];
-      const int st_k = a.s_win[(size_t)gp * K + k];
-      const int stc = clampi(st_k, 0, 1023);
+      // loads for the next two steps, in flight while this one is solved
+      const Step after = step(k + 2);
+      const StepData<T> dn = load(k + 1, nxt);
+      T eo_n;
+      auto next_emission = [&]() { eo_n = emit(dn, nxt); };
+
+      const int i0c = cur.i0, i1c = cur.i1;
       const int i = i0c + r;
-      const bool in_band = i <= i1c;
-      const bool live = r < Ws && in_band && st_k >= 0;
-      T eo = T(0);
-      if (r < Ws) {
-        const size_t wi = ((size_t)qw * E + e) * Ws + r;
-        const T em = emission<T>(wm[wi], wsd[wi], wl[wi], mdl[0][stc],
-                                 mdl[1][stc], mdl[2][stc], mdl[3][stc],
-                                 mdl[4][stc], mdl[5][stc], off);
-        eo = live ? em : T(0);
-      }
+      const bool live = r < Ws && i <= i1c && cur.st >= 0;
       T pm_i, pm_im1;
       int p0, p1;
       if (k == 0) {
@@ -215,19 +260,26 @@ __global__ void group_kernel(MutArgs a) {
       const bool cut = r == 0;
       T v[6] = {cut ? NB : mx(lin, a_stay), cut ? NB : a_ext,
                 cut ? NB : a_stay, cut ? NB : a_ext, D, cut ? NB : T(0)};
-      mp_scan<T>(v, scan, r, Ws, false);      // Mc reads are done after it
+      mp_scan<T>(v, tails, Ws, next_emission);
       const T Mn = live ? v[4] : T(0);
       const T Sn = live ? v[5] : T(0);
-      const T cmax = block_max(live ? Mn : NB, red);
-      const T bestn = mx(cmax, cbest);
-      if (r < Ws) Mc[r] = Mn;
-      cbest = bestn;
+      const T wmax = warp_max(live ? Mn : NB);
+      if (lane == 0) red_s[warp] = wmax;
+      if (r < Ws) Mc[r] = Mn;   // its readers passed barrier A
       if (k == k_star) {
         if (r < Ws) { selM[r] = Mn; selS[r] = Sn; }
         sa = i0c;
-        sbest = bestn;
       }
-      __syncthreads();
+      __syncthreads();          // Mc and the partial maxima visible
+      if (warp == 0) {
+        const T cmax = warp_max(lane < nw ? red_s[lane] : NB);
+        const T bestn = mx(cmax, cbest);
+        cbest = bestn;
+        if (k == k_star) sbest = bestn;
+      }
+      cur = nxt;
+      nxt = after;
+      eo = eo_n;
     }
 
     // new score: the selected refill column (or the copied column) vs the
@@ -255,7 +307,7 @@ __global__ void group_kernel(MutArgs a) {
       if (ba + rr >= 1 && ba + rr <= n0e)
         m = mx(m, mx(Mb[bb + rr], Sb[bb + rr]));
     }
-    m = block_max(m, red);
+    m = block_max(m, red_j);                  // valid in warp 0
     const T newv = mx(mx(mx(m, T(0)), fbest), bbest);
     if (r == 0) out[(size_t)p * a.E_g] = newv - old;
   }
@@ -274,9 +326,10 @@ __global__ void sum_rows_kernel(const T* deltas, T* totals, int GP, int E_g) {
 template <typename T>
 static int launch(const MutArgs* a, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int threads = max(((a->Ws + 31) / 32) * 32, 128);
-  const size_t smem = (size_t)(9 * a->Ws + 32) * sizeof(T) +
-                      (size_t)(32 + a->K) * sizeof(int);
+  if (a->Ws < 1 || a->Ws > 1024) return (int)cudaErrorInvalidValue;
+  const int threads = ((a->Ws + 31) / 32) * 32;
+  const size_t smem = (size_t)(3 * a->Ws + 6 * 32 + 64) * sizeof(T) +
+                      (size_t)a->K * sizeof(int);
   cudaError_t err = cudaFuncSetAttribute(
       group_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);

@@ -1,8 +1,9 @@
 """TorchEngine: the lockstep consensus engine on PyTorch and CUDA.
 
 Counterpart of ``poreseq_tpu/engine/tpu/__init__.py:TpuEngine`` with the
-same primitive surface, so the JAX package's host pipeline
-(``pipeline.mutate_many`` -> ``engine/multi.py``) drives it unchanged.
+same primitive surface, so the port's host pipeline (``pipeline.mutate_many``
+-> ``engine/multi.py``, copies of the JAX package's) drives it as the JAX
+one drives TpuEngine.
 Every entry point runs the multi-region path: events of R regions share one
 device batch, one fill program and one group-scorer launch per class.
 
@@ -24,14 +25,13 @@ import sys
 import numpy as np
 import torch
 
-from poreseq_tpu.core.sequence import seq_to_states
-from poreseq_tpu.engine.exact.sw import map_alignments as _map_alignments
-from poreseq_tpu.engine.exact.sw import swalign as _swalign
-from poreseq_tpu.engine.types import AlignData
-
+from ..core.sequence import seq_to_states
 from .align import fwd_dev, fwd_likes
 from .pack import (event_ref_indexes, fill_geometry, pack_events, place_full,
                    round_up, to_device_batch)
+from .sw import map_alignments as _map_alignments
+from .sw import swalign as _swalign
+from .types import AlignData
 
 
 class EngineError(RuntimeError):
@@ -56,8 +56,8 @@ def _engine_call(fn):
 
 
 class TorchEngine:
-    """Drop-in engine for ``poreseq_tpu.api.PSAlign`` and the lockstep
-    drivers.  dtype float32 is the production type; float64 is the parity
+    """Engine of the port's ``api.PSAlign`` and lockstep drivers (and a
+    drop-in for the JAX package's, which the tests use).  dtype float32 is the production type; float64 is the parity
     path held against the JAX engine and the exact oracle."""
 
     name = "torch"
@@ -268,7 +268,7 @@ class TorchEngine:
 
     @_engine_call
     def map_alignments(self, data: AlignData, newseq: str):
-        # host Smith-Waterman remap (the exact engine's C core)
+        # host Smith-Waterman remap (csrc/host_sw.cpp)
         return _map_alignments(data, newseq)
 
     def score_mutations(self, data: AlignData, muts):

@@ -24,16 +24,15 @@ import ctypes
 import numpy as np
 import torch
 
-from poreseq_tpu.core.sequence import (_POW4, apply_mutation, seq_to_codes,
-                                       seq_to_states)
-from poreseq_tpu.engine.types import make_mutscores
-
 from .._build import Kernel, check, dtype_suffix, route, stream
+from ..core.sequence import (_POW4, apply_mutation, seq_to_codes,
+                              seq_to_states)
 from .align import both_dev
 from .dp import (DMAX, MODEL_FIELDS, column_solve, emission,
                  level_windows, neg_big, window)
 from .pack import (event_ref_indexes, fill_geometry, limited_geometry,
                    place_full, round_up)
+from .types import make_mutscores
 
 P_SLOTS = 9
 

@@ -15,7 +15,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from poreseq_tpu.core.events import Event, update_refs
+from ..core.events import Event, update_refs
 
 from .dp import DMAX, EventBatch
 

@@ -1,0 +1,159 @@
+"""The least time each hand kernel could take on one H100 SXM: the bytes a
+launch must move and the operations it must do, counted from its operands,
+over the card's peak rates.
+
+Bytes count every input byte the launch needs read once and every output
+byte written once, whatever the kernel reads again; operations count the
+arithmetic the function needs on this launch's data (solved columns,
+refill steps that run, path cells), not the most the shapes allow.  Both
+count only the real work: the padding a launch carries (event rows and
+columns padded to a bucket, which the kernels fill with zeros) is left
+out.  The bound is the larger of bytes / 3.35e12 B/s and operations / the
+f32 or f64 rate of the CUDA cores (67e12 and 34e12 per second; none of
+these kernels can use the tensor cores), both NVIDIA's data-sheet peaks at
+700 W.
+"""
+
+from __future__ import annotations
+
+import torch
+
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {torch.float32: 67e12, torch.float64: 34e12}
+
+# operations per band cell, read off the twin's expressions (engine/dp.py)
+EMISSION_OPS = 18         # dp.emission
+CANDIDATE_OPS = 6         # skip, match, ignore and their max D
+ELEMENT_OPS = 3           # the cell's scan element (a_stay, a_ext, max)
+COMBINE_OPS = 20          # dp._mp_combine: 12 adds, 8 maxima
+STEP_OPS = 12             # the backpointer walk (forward fill with steps)
+MAX_OPS = 1               # the column max
+JOIN_OPS = 8              # a scorer join cell: 2 adds, 4 maxima, 2 tests
+WALK_OPS = 10             # a backtrace step's tests and updates
+
+
+def bound_ms(nbytes: float, ops: float, dtype: torch.dtype):
+    """(least time in ms, "bytes" or "operations": whichever bounds it)."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS_PER_S[dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def scan_combines(n: int) -> int:
+    """Combines of jax.lax.associative_scan's tree over n elements."""
+    nl = [n]
+    while nl[-1] >= 2:
+        nl.append(nl[-1] >> 1)
+    up = sum(nl[1:])
+    down = sum((m - 1) // 2 for m in nl[:-1])
+    return up + down
+
+
+def _size(dtype: torch.dtype) -> int:
+    return torch.empty((), dtype=dtype).element_size()
+
+
+def fill_work(batch, states, is_pad, W: int, need_steps: bool):
+    """(bytes, operations) of one fill launch (engine/fill.py fill_cuda's
+    operands).  Work is the (column, event) pairs the fill solves: columns
+    that are not padding, of events with a seed alignment.  The zeros the
+    launch writes for padded columns and inactive events (the event axis is
+    padded to a bucket) are not counted."""
+    b = _size(batch.mean.dtype)
+    active = batch.active.bool()
+    solved = int((~is_pad.bool() & active[None, :]).sum())
+    n_active = int(active.sum())
+    levels = int(batch.n0.long()[active].sum())
+    st = states.long()
+    used = (st >= 0) & active[None, :]
+    ev = torch.arange(st.shape[1], device=st.device).expand_as(st)
+    n_model = int(torch.unique((ev * 1024 + st)[used]).numel())
+    nbytes = (3 * levels * b              # mean, stdv, log-stdv
+              + 6 * n_model * b           # model values at visited states
+              + n_active * (4 * b + 5)    # transitions, n0, active
+              + solved * (5 + 8)          # state, is_pad, band start, end
+              + solved * 2 * W * b        # M, S
+              + (solved * 2 * W if need_steps else 0)
+              + solved * (b + 4))         # column max and argmax
+    per_cell = (EMISSION_OPS + CANDIDATE_OPS + ELEMENT_OPS + MAX_OPS
+                + (STEP_OPS if need_steps else 0))
+    ops = solved * (W * per_cell + COMBINE_OPS * scan_combines(W))
+    return nbytes, ops
+
+
+def group_work(batch, Mf, Sf, Mb, Sb, i0f, i1f, i0r, i1r, win, bpf, bpb,
+               ev_region, gp, lik_offset, W, Ws, RS, K, P, DM, E_g):
+    """(bytes, operations) of one group-scorer launch (engine/mutscore.py
+    group_totals_cuda's operands): the lattice columns and window columns
+    its groups' event rows touch, and the refill steps its valid slots
+    run."""
+    C1, E, _ = Mf.shape
+    Q1 = win[0].shape[0]
+    b = _size(Mf.dtype)
+    dev = Mf.device
+    G = gp["g_start"].shape[0]
+    start, startind, S = (gp[k].long() for k in ("g_start", "g_startind",
+                                                 "g_S"))
+    e_idx = (gp["g_evoff"].long().clamp(0, E - E_g)[:, None]
+             + torch.arange(E_g, device=dev))                    # [G, E_g]
+    rows = (batch.active.bool()[e_idx]
+            & (ev_region.long()[e_idx] == gp["g_region"].long()[:, None]))
+    st0 = startind.clamp(0, C1 - 1)
+    q_old = torch.clamp(start - 3, min=1).clamp(max=S).clamp(0, C1 - 1)
+    mlen, nst = gp["s_mlen"].long(), gp["s_nst"].long()
+    valid = gp["s_valid"].bool()
+    nfill = (torch.minimum(startind[:, None] + mlen + 6, nst)
+             - startind[:, None]).clamp(0, K)
+    refind = torch.minimum(start[:, None] + mlen + 1,
+                           torch.maximum(startind[:, None] + nfill,
+                                         startind[:, None]))
+    rab = (nst - refind + 1).clamp(min=0)
+    rab = torch.minimum(rab, S[:, None])
+    q_b = (S[:, None] - rab + 1).clamp(0, C1 - 1)                # [G, P]
+    steps = torch.minimum(torch.minimum(mlen + 6, nst - startind[:, None]),
+                          nfill).clamp(0, K) * valid
+
+    def columns(q, e, keep):
+        return int(torch.unique((q * E + e)[keep]).numel())
+
+    fwd = columns(torch.stack([st0, q_old], 1)[:, :, None].expand(G, 2, E_g),
+                  e_idx[:, None, :].expand(G, 2, E_g),
+                  rows[:, None, :].expand(G, 2, E_g))
+    qb = torch.cat([q_old[:, None], q_b], 1)                     # [G, 1+P]
+    keep_b = torch.cat([torch.ones_like(valid[:, :1]), valid], 1)
+    bwd = columns(qb[:, :, None].expand(G, P + 1, E_g),
+                  e_idx[:, None, :].expand(G, P + 1, E_g),
+                  keep_b[:, :, None] & rows[:, None, :])
+    kmax = steps.max(dim=1).values                               # [G]
+    ks = torch.arange(max(K, 1), device=dev)
+    qw = (st0[:, None, None] + 1 + ks[None, :, None]).clamp(0, Q1 - 1)
+    n_win = columns(qw.expand(G, len(ks), E_g),
+                    e_idx[:, None, :].expand(G, len(ks), E_g),
+                    (ks[None, :, None] < kmax[:, None, None])
+                    & rows[:, None, :])
+    n_rows = rows.sum(dim=1)                                     # [G]
+    nbytes = ((2 * fwd + 2 * bwd) * W * b       # M and S lattice columns
+              + (fwd + bwd) * (b + 8)           # best prefix, band rows
+              + 3 * n_win * Ws * b              # data windows
+              + G * (5 * 4 + P * (9 + 4 * K))   # groups and slots
+              + (int(n_rows.sum()) + G) * P * b)  # the rows' deltas, totals
+    step_ops = (Ws * (EMISSION_OPS + CANDIDATE_OPS + ELEMENT_OPS + MAX_OPS)
+                + COMBINE_OPS * scan_combines(Ws))
+    slot_ops = steps * step_ops + valid * W * JOIN_OPS           # [G, P]
+    ops = int((n_rows * (slot_ops.sum(dim=1) + W * JOIN_OPS // 2)).sum())
+    return nbytes, ops
+
+
+def backtrace_work(ral, best_i, n0, dtype: torch.dtype):
+    """(bytes, operations) of one backtrace launch from its output ref_align
+    [E, T], best_i and the events' level counts n0: the outputs of the
+    events it walks (best_i > 0) over their levels, and one path cell (a
+    lattice value, a step byte and its column's band) per emitted level; the
+    zeros written for padding and the walk's non-emitting steps are not
+    counted, so this bounds it from below."""
+    b = _size(dtype)
+    walked = best_i > 0
+    levels = int(n0.long()[walked].sum())
+    cells = int((ral != 0).sum())
+    return (2 * levels * b + cells * (b + 9) + 8 * int(walked.sum()),
+            cells * WALK_OPS)

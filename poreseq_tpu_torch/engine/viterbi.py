@@ -23,8 +23,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from poreseq_tpu.core.events import getrefstates, update_refs
-from poreseq_tpu.core.sequence import next_state, state_base
+from ..core.events import getrefstates, update_refs
+from ..core.sequence import next_state, state_base
 
 from .dp import emission
 

@@ -101,7 +101,7 @@ def test_cli_halves_batch_only_on_out_of_memory(tmp_path, capsys,
 
 def test_port_runs_consensus_without_jax(tmp_path):
     """consensus, variant -a and split run in one process that never
-    imports jax."""
+    imports jax, nor any module of the JAX package poreseq_tpu."""
     regions = ["synthref:0:150"]
     _, draft, args = _run(tmp_path, 150, 4, None, regions, seed=1)
     out = tmp_path / "out.fasta"
@@ -116,7 +116,8 @@ def test_port_runs_consensus_without_jax(tmp_path):
         "from poreseq_tpu_torch import cli\n"
         f"for argv in {json.dumps(argvs)}:\n"
         "    cli.main(argv)\n"
-        "print(json.dumps(sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.'))))\n")
+        "print(json.dumps(sorted(m for m in sys.modules if m.split('.')[0] "
+        "in ('jax', 'jaxlib', 'poreseq_tpu'))))\n")
     env = dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="1")
     proc = subprocess.run([sys.executable, "-c", code], env=env,
                           capture_output=True, text=True, timeout=600,

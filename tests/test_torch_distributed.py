@@ -108,6 +108,30 @@ def test_profile_writes_a_chrome_trace(tmp_path):
     assert list(read_fasta(str(tmp_path / "out.fasta"))) == ["synthref:0:100"]
 
 
+def test_trace_summary_counts_kernels_and_busy_time(tmp_path, capsys):
+    """trace_summary on a synthetic trace: overlapping device intervals
+    count once toward busy time, host events only toward the wall."""
+    from poreseq_tpu_torch import trace_summary
+
+    ev = lambda cat, name, ts, dur: dict(ph="X", cat=cat, name=name, ts=ts,
+                                          dur=dur)
+    path = tmp_path / "t.trace.json"
+    path.write_text(json.dumps({"traceEvents": [
+        ev("cpu_op", "host", 0, 1000),
+        ev("kernel", "fill_kernel", 100, 200),
+        ev("kernel", "group_kernel", 250, 100),     # overlaps: +50 busy
+        ev("gpu_memcpy", "Memcpy HtoD", 500, 50),
+        ev("kernel", "fill_kernel", 900, 300),      # runs past the host
+        {"ph": "i", "name": "marker", "ts": 5}]}))
+    out = trace_summary.summarize(str(path))
+    assert out["wall_ms"] == 1.2 and out["busy_ms"] == 0.6
+    assert out["kernels"] == {
+        "fill_kernel": {"launches": 2, "device_ms": 0.5},
+        "group_kernel": {"launches": 1, "device_ms": 0.1}}
+    trace_summary.main([str(path)])
+    assert json.loads(capsys.readouterr().out.splitlines()[-1]) == out
+
+
 def test_allgather_round_robin_over_a_tcp_store():
     """Two members over one TCPStore (process 0 hosts it): two rounds of
     round-robin values gather into the same full lists, then the exit

@@ -13,7 +13,6 @@ from poreseq_tpu.engine.exact import ExactEngine
 from poreseq_tpu.engine.multi import mutate_datas
 from poreseq_tpu.engine.types import AlignData
 from poreseq_tpu.sim import simulate_session
-from poreseq_tpu_torch import register_engine
 from poreseq_tpu_torch.engine import TorchEngine
 
 # several pytest workers share the machine: one intra-op thread each keeps
@@ -83,23 +82,27 @@ def test_mutate_round_matches_jax_f64(x64):
     assert out["torch"][0] != [pa.sequence for pa in pas]
 
 
-def test_engine_guards_and_registration():
+def test_engine_guards_and_registration(monkeypatch):
+    """The engine's guards, and how a session finds its engine: the one it
+    is given, else the shared default TorchEngine("cuda"), which needs a
+    card.  (The port has no engine table; the JAX package's takes a
+    TorchEngine like any backend.)"""
     if torch.cuda.is_available():
         pytest.skip("checks the no-CUDA guard")
     with pytest.raises(RuntimeError, match="CUDA"):
         TorchEngine(device="cuda")
     with pytest.raises(ValueError):
         TorchEngine(device="cpu", dtype=torch.float16)
-    from poreseq_tpu import api
+    from poreseq_tpu import api as jax_api
+    from poreseq_tpu_torch import api
 
-    saved = api._ENGINES.pop("torch", None)
-    try:
-        eng = register_engine(device="cpu", dtype=torch.float64, seed=3)
-        assert api.get_engine("torch") is eng and eng.seed == 3
-    finally:
-        api._ENGINES.pop("torch", None)
-        if saved is not None:
-            api._ENGINES["torch"] = saved
+    eng = TorchEngine(device="cpu", dtype=torch.float64, seed=3)
+    assert api.PSAlign(engine=eng).engine is eng and eng.seed == 3
+    assert api.PSAlign(engine=eng).Copy().engine is eng
+    with pytest.raises(RuntimeError, match="CUDA"):
+        api.PSAlign().engine
+    monkeypatch.setitem(jax_api._ENGINES, "torch", eng)
+    assert jax_api.PSAlign(backend="torch").engine is eng
 
 
 def test_deferred_ref_likes_are_bounded():

@@ -1,18 +1,25 @@
 """Each hand kernel of the port against its plain PyTorch twin on the GPU
-(small shapes; chip_smoke.py repeats this at main-path shapes).  Marked
-`cuda`: they skip where torch sees no GPU.  Run them on the card with
+(small regions at the main path's band widths; chip_smoke.py repeats this
+at main-path shapes).  The fill runs at W = 41, 201, 601 and 801 (one or
+two warps of scan, a ragged last warp, the realign width, and a band wide
+enough for the block without a spare warp), forward with steps and
+backward with and without, the group scorer at
+Ws = 41 and 201 (Refine's point width and Mutate's scoring width): f64 must
+equal the twin exactly, f32 within tolerances, with the step bytes, best
+coordinates and accept signs held.  Marked `cuda`: they skip where torch
+sees no GPU.  Run them on the card with
 
-    python -m pytest -m cuda tests/test_torch_kernels_cuda.py
+    PSQ_TPU_TESTS=1 python -m pytest -m cuda tests/test_torch_kernels_cuda.py
 """
 
 import numpy as np
 import pytest
 import torch
 
-from poreseq_tpu.core.regions import MutationInfo
-from poreseq_tpu.engine.driver import find_point_mutations
-from poreseq_tpu.engine.types import AlignData
-from poreseq_tpu.sim import simulate_session
+from poreseq_tpu_torch.core.regions import MutationInfo
+from poreseq_tpu_torch.engine.driver import find_point_mutations
+from poreseq_tpu_torch.engine.types import AlignData
+from poreseq_tpu_torch.sim import simulate_session
 
 pytestmark = pytest.mark.cuda
 
@@ -28,14 +35,14 @@ def engine(request):
     return TorchEngine("cuda", request.param)
 
 
-def _data(realign=24, scoring=12, seed=0, coverage=6):
-    pa, _ = simulate_session(np.random.default_rng(seed), ref_len=240,
+def _data(realign=24, scoring=12, seed=0, coverage=6, ref_len=240):
+    pa, _ = simulate_session(np.random.default_rng(seed), ref_len=ref_len,
                              coverage=coverage, draft_error=0.03)
     pa.params.update(realign_width=realign, scoring_width=scoring)
     return AlignData.from_session(pa)
 
 
-def _fill_args(engine, data, backward):
+def _fill_args(engine, data, backward, steps=True):
     from poreseq_tpu_torch.engine.pack import fill_geometry
 
     ctx = engine._prepare_multi([data])
@@ -44,7 +51,7 @@ def _fill_args(engine, data, backward):
     t = lambda x: torch.as_tensor(x, device="cuda")
     return (ctx["batch"], t(ctx["states2"]), t(fi["i0"]), t(fi["i1"]),
             t(fi["is_pad"]), 4.5, backward, 2 * data.params.realign_width + 1,
-            True)
+            steps)
 
 
 def _tols(dtype):
@@ -52,22 +59,34 @@ def _tols(dtype):
 
 
 @pytest.mark.parametrize("engine", DTYPES, indirect=True)
-@pytest.mark.parametrize("backward", [False, True])
-def test_fill_kernel_matches_twin(engine, backward):
-    from poreseq_tpu_torch.engine.dp import fill_reference
+@pytest.mark.parametrize("backward,steps",
+                         [(False, True), (True, False), (True, True)])
+@pytest.mark.parametrize("realign", [20, 100, 300, 400])
+def test_fill_kernel_matches_twin(engine, backward, steps, realign):
+    from poreseq_tpu_torch.engine.dp import fill_reference, finish_fill
     from poreseq_tpu_torch.engine.fill import FILL, fill_cuda
 
-    args = _fill_args(engine, _data(), backward)
+    data = _data(realign=realign, ref_len=max(240, 2 * realign))
+    args = _fill_args(engine, data, backward, steps)
     n = FILL.launches
     got = fill_cuda(*args)
     assert FILL.launches == n + 1
     ref = fill_reference(*args)
+    if engine.dtype == torch.float64:
+        for a, b in zip(got, ref):
+            assert torch.equal(a, b)
+        return
     rtol, atol = _tols(engine.dtype)
     for a, b in zip(got, ref):
         if a.dtype in (torch.float32, torch.float64):
             torch.testing.assert_close(a, b, rtol=rtol, atol=atol)
-        else:
+        elif a.numel():                          # step bytes, when asked for
             assert (a == b).double().mean().item() > 0.9995
+    i0, i1 = args[2], args[3]
+    rg, rr = finish_fill(*got, i0, i1, backward), finish_fill(*ref, i0, i1,
+                                                              backward)
+    assert torch.equal(rg.best_i, rr.best_i)
+    assert torch.equal(rg.best_j, rr.best_j)
 
 
 @pytest.mark.parametrize("engine", DTYPES, indirect=True)
@@ -91,7 +110,8 @@ def test_backtrace_kernel_matches_twin(engine):
 
 @pytest.mark.parametrize("engine", DTYPES, indirect=True)
 @pytest.mark.parametrize("coverages", [(6,), (24, 22, 18)])
-def test_group_kernel_matches_twin(engine, coverages):
+@pytest.mark.parametrize("scoring", [20, 100])
+def test_group_kernel_matches_twin(engine, coverages, scoring):
     # (24, 22, 18): three regions fill the 64-row event bucket, so the last
     # region's row slice overruns it and is clamped to E - E_g
     from poreseq_tpu_torch.engine.mutscore import (group_deltas_reference,
@@ -101,7 +121,8 @@ def test_group_kernel_matches_twin(engine, coverages):
 
     datas, mlists = [], []
     for r, cov in enumerate(coverages):
-        data = _data(scoring=6, seed=r, coverage=cov)
+        data = _data(realign=scoring + 50, scoring=scoring, seed=r,
+                     coverage=cov)
         tail = MutationInfo()
         tail.start, tail.orig, tail.mut = len(data.sequence), "", "ACGTACGTA"
         datas.append(data)
@@ -115,7 +136,7 @@ def test_group_kernel_matches_twin(engine, coverages):
         d_r = group_deltas_reference(*args)
         tot_r = sum_rows_reference(d_r)
         if engine.dtype == torch.float64:
-            torch.testing.assert_close(tot_k, tot_r, rtol=0, atol=1e-8)
+            assert torch.equal(tot_k, tot_r)
         else:
             torch.testing.assert_close(tot_k, tot_r, rtol=2e-4, atol=3e-3)
             valid = args[13]["s_valid"].bool()

@@ -9,7 +9,6 @@ import torch
 from poreseq_tpu import api
 from poreseq_tpu.engine.types import AlignData
 from poreseq_tpu.sim import simulate_session, write_run
-from poreseq_tpu_torch import register_engine
 from poreseq_tpu_torch.engine import TorchEngine
 
 # several pytest workers share the machine: one intra-op thread each keeps
@@ -19,11 +18,11 @@ torch.set_num_threads(1)
 
 @pytest.fixture
 def torch_backend(monkeypatch):
-    """A CPU f64 TorchEngine registered as backend "torch" for one test."""
-    monkeypatch.delitem(api._ENGINES, "torch", raising=False)
-    eng = register_engine(device="cpu", dtype=torch.float64)
-    yield eng
-    api._ENGINES.pop("torch", None)
+    """A CPU f64 TorchEngine registered as the JAX package's backend
+    "torch" for one test."""
+    eng = TorchEngine(device="cpu", dtype=torch.float64)
+    monkeypatch.setitem(api._ENGINES, "torch", eng)
+    return eng
 
 
 def test_lockstep_mutate_refine_matches_sequential():

@@ -1,0 +1,79 @@
+"""The least-time counts of engine/roofline.py count the work a launch's data
+needs: padding the launch carries (event rows without a seed alignment,
+padded columns, padded levels) changes neither the bytes nor the
+operations of a fill or a backtrace launch."""
+
+import numpy as np
+import pytest
+import torch
+
+from poreseq_tpu_torch.engine import TorchEngine
+from poreseq_tpu_torch.engine.align import backtrace
+from poreseq_tpu_torch.engine.fill import get_fill
+from poreseq_tpu_torch.engine.pack import fill_geometry
+from poreseq_tpu_torch.engine.roofline import backtrace_work, fill_work
+from poreseq_tpu_torch.engine.types import AlignData
+from poreseq_tpu_torch.sim import simulate_session
+
+torch.set_num_threads(1)
+
+WIDTH = 8
+
+
+def _fill_inputs():
+    pa, _ = simulate_session(np.random.default_rng(0), ref_len=120,
+                             coverage=3, draft_error=0.03)
+    pa.params.update(realign_width=WIDTH)
+    data = AlignData.from_session(pa)
+    ctx = TorchEngine("cpu", torch.float32)._prepare_multi([data])
+    fi = fill_geometry(ctx["arrays"], ctx["ref_indexes"], ctx["S_e"],
+                       ctx["C"], WIDTH)
+    t = torch.as_tensor
+    return (ctx["batch"], t(ctx["states2"]), t(fi["i0"]), t(fi["i1"]),
+            t(fi["is_pad"]))
+
+
+def _padded(batch, states, is_pad, rows=5, cols=7, levels=64):
+    """The same launch with `rows` inactive event rows, `cols` padded
+    columns and `levels` more padded levels."""
+    def grow(x):
+        x = torch.cat([x, torch.zeros_like(x[:1]).expand(rows, *x.shape[1:])])
+        if x.dim() == 2 and x.shape[1] == batch.mean.shape[1]:
+            x = torch.cat([x, torch.zeros(x.shape[0], levels, dtype=x.dtype)],
+                          1)
+        return x
+
+    big = type(batch)(*(grow(x) for x in batch))
+    C, E = states.shape
+    st = torch.full((C + cols, E + rows), -1, dtype=states.dtype)
+    st[:C, :E] = states
+    pad = torch.ones((C + cols, E + rows), dtype=is_pad.dtype)
+    pad[:C, :E] = is_pad
+    return big, st, pad
+
+
+@pytest.mark.parametrize("kernel", ["fill", "fill with steps", "backtrace"])
+def test_work_counts_leave_out_padding(kernel):
+    batch, states, i0, i1, is_pad = _fill_inputs()
+    big, st, pad = _padded(batch, states, is_pad)
+    assert not bool(big.active[batch.active.shape[0]:].any())
+    W = 2 * WIDTH + 1
+    if kernel.startswith("fill"):
+        steps = kernel.endswith("steps")
+        work = fill_work(batch, states, is_pad, W, steps)
+        assert work == fill_work(big, st, pad, W, steps)
+        assert work[0] > 0 and work[1] > 0
+        return
+    r = get_fill(WIDTH)(batch, states, i0, i1, is_pad, 4.5, False)
+    T = batch.mean.shape[1]
+    ral, _ = backtrace(r.M, r.S, r.steps_m, r.steps_s, r.i0, r.i1, r.best_i,
+                       r.best_j, T, states.shape[0] + 2 * T + 8)
+    work = backtrace_work(ral, r.best_i, batch.n0, batch.mean.dtype)
+    E, rows, levels = ral.shape[0], 5, 64
+    big_ral = torch.zeros((E + rows, T + levels), dtype=ral.dtype)
+    big_ral[:E, :T] = ral
+    big_best = torch.cat([r.best_i, torch.zeros(rows, dtype=r.best_i.dtype)])
+    big_n0 = torch.cat([batch.n0, torch.ones(rows, dtype=batch.n0.dtype)])
+    assert work == backtrace_work(big_ral, big_best, big_n0,
+                                  batch.mean.dtype)
+    assert work[0] > 0 and work[1] > 0

@@ -60,13 +60,13 @@ def run(tmp_path_factory):
 
 @pytest.fixture
 def f64_cli(monkeypatch):
-    """The port's CLI with its engine registered in float64 on the CPU."""
-    from poreseq_tpu_torch import cli, register_engine
+    """The port's CLI with its engine made in float64 on the CPU."""
+    from poreseq_tpu_torch import cli
+    from poreseq_tpu_torch.engine import TorchEngine
 
-    monkeypatch.setattr(cli, "register_engine", lambda device: register_engine(
+    monkeypatch.setattr(cli, "TorchEngine", lambda device: TorchEngine(
         device=device, dtype=torch.float64))
-    yield cli
-    api._ENGINES.pop("torch", None)
+    return cli
 
 
 def _mode_args(run, mode):
@@ -151,7 +151,7 @@ def test_variant_all_matches_tpu_engine_f64(run, f64_cli, capsys,
 def _two_candidates(monkeypatch, cli):
     """train with 2 proposals of 1 rep each (the CLI path, not the
     numerics: tests/test_torch_lockstep.py holds those)."""
-    from poreseq_tpu import pipeline
+    from poreseq_tpu_torch import pipeline
 
     real = pipeline.train_candidates
     monkeypatch.setattr(pipeline, "train_candidates",
