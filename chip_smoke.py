@@ -15,19 +15,25 @@ non-zero, nothing runs on the CPU instead):
                 and 20 (W = 601, 801, 201, 41: W = 801 runs the fill's
                 block without a spare warp) and the backtrace on a
                 simulated 1 kb region at 10X, the group scorer on every
-                group of an 8-region lockstep batch, in f64 (equal to the
+                group of an 8-region lockstep batch, the Viterbi sweep
+                (with and without backpointers) and sampler (16
+                candidates) on that batch's 8 regions, in f64 (equal to the
                 twin) and f32
-                (the production type), with each kernel's device time (CUDA
+                (the production type; the backtrace and the Viterbi kernels
+                equal too), with each kernel's device time (CUDA
                 events), its least time on the card (engine/roofline.py)
                 and the twin's time;
   2b. viterbi — the sampler's counter hash on the card equals its pinned
                 values bit for bit, and in f64 each of the 8 regions of
                 phase 2's batch gets the same candidates inside the batch
-                as alone (f32: the count that do is printed);
+                as alone (f32: the count that do is printed), through the
+                sweep and sampler kernels;
   3. e2e      — the port's CLI `consensus --region-batch 8 --device cuda` on a
                 synthetic run (8 x 1 kb regions at 10X, widths 300/100/20,
                 -i 4), checking the output count, the mean accuracy against
-                the truth and that every kernel of the path was launched
+                the truth and that every kernel of the path was launched,
+                with the calls and summed host walls of each TorchEngine
+                method the pipeline reaches
                 (with --profile DIR, under torch.profiler: the trace goes to
                 DIR and its summary, device time and launches per kernel
                 and the device-busy share, is printed);
@@ -372,10 +378,9 @@ def check_backtrace(engine, data, f64: bool, report: dict):
     torch.cuda.synchronize()
     if not torch.equal(ral_k, ral_r):
         fail(f"backtrace ref_align differs (f64={f64})")
-    rtol, atol = _tolerance(f64)
     d = (rlk_k - rlk_r).abs()
-    if not bool((d <= atol + rtol * rlk_r.abs()).all()):
-        fail(f"backtrace ref_like max |diff| {d.max().item()}")
+    if not torch.equal(rlk_k, rlk_r):
+        fail(f"backtrace ref_like max |diff| {d.max().item()} (f64={f64})")
     line = dict(max_abs_err=d.max().item())
     if not f64:
         from poreseq_tpu_torch.engine.roofline import backtrace_work
@@ -387,8 +392,9 @@ def check_backtrace(engine, data, f64: bool, report: dict):
         line["plain_ms"] = cuda_ms(lambda: backtrace_reference(*args),
                                    reps=2)
     report[("backtrace", f64)] = line
-    print(f"[kernels] backtrace f{'64' if f64 else '32'}: ref_align equal, "
-          f"ref_like max |diff| {line['max_abs_err']:.3e}"
+    print(f"[kernels] backtrace f{'64' if f64 else '32'} E={r.M.shape[1]} "
+          f"(walked {int((r.best_i > 0).sum())}) C={r.M.shape[0]} T={T}: "
+          f"ref_align and ref_like equal"
           + (f"; kernel {_timing(line)}, twin {line['plain_ms']:.1f} ms"
              if not f64 else ""), flush=True)
 
@@ -528,17 +534,93 @@ def check_mutscore(engine, calls, f64: bool, report: dict):
              if not f64 else ""), flush=True)
 
 
+VITERBI_ARGS = (0.05, 0.01)                    # skip_prob, stay_prob
+SAMPLE_ARGS = (16, 0.05, 0.01, 0.33, 0.75)      # nkeep, ..., mut_min, max
+
+
+def _differs(name: str, a, b) -> str:
+    """How two tensors that should be equal differ."""
+    line = f"{name}: {int((a != b).sum())} of {a.numel()} differ"
+    if a.is_floating_point():
+        line += f", max |diff| {(a - b).abs().max().item()}"
+    return line
+
+
+def check_viterbi(engine, events, seed: int, f64: bool, report: dict):
+    """The sweep (with and without backpointers) and the sampler (16
+    candidates) on the 8 regions of the group scorer's batch, as
+    viterbi_mutate_multi builds their operands, each equal to its twin;
+    in f32 each timed."""
+    import torch
+
+    from poreseq_tpu_torch.engine.roofline import (viterbi_sample_work,
+                                                   viterbi_sweep_work)
+    from poreseq_tpu_torch.engine.viterbi import (
+        sample_inputs, sample_paths_cuda, sample_paths_reference,
+        sweep_inputs, viterbi_sweep_cuda, viterbi_sweep_reference)
+
+    dt = engine.dtype
+    _, obs, n_real = sweep_inputs(events, engine.device, dt)
+    for bp in (False, True):
+        got = viterbi_sweep_cuda(obs, n_real, *VITERBI_ARGS, bp)
+        ref = viterbi_sweep_reference(obs, n_real, *VITERBI_ARGS, bp)
+        torch.cuda.synchronize()
+        for name, a, b in zip(("liks", "fwds", "bps"), got, ref):
+            if a is not None and not torch.equal(a, b):
+                fail(f"viterbi_sweep (f64={f64}, backpointers={bp}) "
+                     + _differs(name, a, b))
+    liks, fwds, _ = got
+    args = sample_inputs(liks, fwds, n_real, *SAMPLE_ARGS)
+    paths = sample_paths_cuda(*args, seed)
+    ref = sample_paths_reference(*args, seed)
+    torch.cuda.synchronize()
+    if not torch.equal(paths, ref):
+        fail(f"viterbi_sample (f64={f64}) " + _differs("paths", paths, ref))
+    sweep, sample = dict(max_abs_err=0.0), dict(max_abs_err=0.0)
+    if not f64:
+        sweep.update(timed(
+            event_ms(lambda: viterbi_sweep_cuda(obs, n_real, *VITERBI_ARGS)),
+            viterbi_sweep_work(obs, n_real, False), dt))
+        sweep["plain_ms"] = cuda_ms(
+            lambda: viterbi_sweep_reference(obs, n_real, *VITERBI_ARGS),
+            reps=2)
+        sweep["backpointers"] = timed(event_ms(
+            lambda: viterbi_sweep_cuda(obs, n_real, *VITERBI_ARGS, True)),
+            viterbi_sweep_work(obs, n_real, True), dt)
+        sample.update(timed(event_ms(lambda: sample_paths_cuda(*args, seed)),
+                            viterbi_sample_work(args[1], args[2], args[4]),
+                            dt))
+        sample["plain_ms"] = cuda_ms(
+            lambda: sample_paths_reference(*args, seed), reps=2)
+    report[("viterbi_sweep", f64)] = sweep
+    report[("viterbi_sample", f64)] = sample
+    B, R, _ = obs.shape
+    print(f"[kernels] viterbi f{'64' if f64 else '32'}: {len(events)} regions "
+          f"(bucket {B}, rows {n_real.tolist()} of {R}), 16 candidates: "
+          f"sweep liks/fwds equal, with backpointers liks/fwds/bps equal, "
+          f"sampler paths of {paths.shape[0] * paths.shape[1]} chains equal"
+          + (f"; sweep {_timing(sweep)}, twin {sweep['plain_ms']:.1f} ms; "
+             f"with backpointers {_timing(sweep['backpointers'])}; sampler "
+             f"{_timing(sample)}, twin {sample['plain_ms']:.1f} ms | "
+             f"{gpu_line()}" if not f64 else ""), flush=True)
+
+
 def phase_kernels(seed: int):
     import torch
 
     from poreseq_tpu_torch.engine import TorchEngine
 
     report = {}
+    regions = _mut_regions(seed)
+    # the Viterbi kernels' regions as phase 2b has them: the group scorer's
+    # check realigns its regions' events in place
+    events = [d.events for d in _mut_regions(seed)["refine"][0]]
     for f64 in (True, False):
         engine = TorchEngine("cuda", torch.float64 if f64 else torch.float32)
         check_fill(engine, seed, f64, report)
         check_backtrace(engine, _session(seed), f64, report)
-        check_mutscore(engine, _mut_regions(seed), f64, report)
+        check_mutscore(engine, regions, f64, report)
+        check_viterbi(engine, events, seed, f64, report)
     return report
 
 
@@ -546,8 +628,14 @@ def _kernels():
     from poreseq_tpu_torch.engine.align import BACKTRACE
     from poreseq_tpu_torch.engine.fill import FILL
     from poreseq_tpu_torch.engine.mutscore import MUTSCORE
+    from poreseq_tpu_torch.engine.viterbi import VITERBI_SAMPLE, VITERBI_SWEEP
 
-    return FILL, MUTSCORE, BACKTRACE
+    return FILL, MUTSCORE, BACKTRACE, VITERBI_SWEEP, VITERBI_SAMPLE
+
+
+# the kernels a phase that runs no Viterbi (variant) must launch
+ALIGN_KERNELS = ("fill", "mutscore", "backtrace")
+VITERBI_KERNELS = ("viterbi_sweep", "viterbi_sample")
 
 
 def _reset_launches():
@@ -751,7 +839,45 @@ def phase_viterbi(seed: int):
     if matches[torch.float64] != len(events):
         fail(f"viterbi: only {matches[torch.float64]} of {len(events)} "
              "regions got their solo candidates inside the f64 batch")
+    _need_launches("viterbi", launches, VITERBI_KERNELS)
     return launches
+
+
+ENGINE_METHODS = ("score_alignments_multi", "score_mutations_multi",
+                  "viterbi_mutate_multi", "map_alignments", "flush_ref_likes")
+
+
+@contextlib.contextmanager
+def engine_seconds():
+    """Inside the block, count the calls of TorchEngine's methods the
+    pipeline reaches and sum their host walls (a call nested in another is
+    counted in both; map_alignments runs on several threads at once, so its
+    sum can exceed the wall).  Yields {method: [calls, seconds]}."""
+    import threading
+
+    from poreseq_tpu_torch.engine import TorchEngine
+
+    out, lock = {m: [0, 0.0] for m in ENGINE_METHODS}, threading.Lock()
+    real = {m: getattr(TorchEngine, m) for m in ENGINE_METHODS}
+
+    def timed_method(name, fn):
+        def wrapped(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                with lock:
+                    out[name][0] += 1
+                    out[name][1] += time.perf_counter() - t0
+        return wrapped
+
+    for m, fn in real.items():
+        setattr(TorchEngine, m, timed_method(m, fn))
+    try:
+        yield out
+    finally:
+        for m, fn in real.items():
+            setattr(TorchEngine, m, fn)
 
 
 def phase_e2e(seed: int, profile: str | None = None):
@@ -772,11 +898,12 @@ def phase_e2e(seed: int, profile: str | None = None):
         out = os.path.join(d, "out.fasta")
         _reset_launches()
         t0 = time.perf_counter()
-        cli.main(["consensus", fasta, bam, reads_dir, "-R", rf, "-p", conf,
-                  "-o", out, "-i", "4", "--region-batch", "8",
-                  "--device", "cuda"]
-                 + (["--profile", profile] if profile else []))
-        torch.cuda.synchronize()
+        with engine_seconds() as secs:
+            cli.main(["consensus", fasta, bam, reads_dir, "-R", rf, "-p",
+                      conf, "-o", out, "-i", "4", "--region-batch", "8",
+                      "--device", "cuda"]
+                     + (["--profile", profile] if profile else []))
+            torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         if profile:
             from poreseq_tpu_torch import trace_summary
@@ -799,8 +926,10 @@ def phase_e2e(seed: int, profile: str | None = None):
     print(f"[e2e] consensus {R} x 1 kb at {cov}X, widths 300/100/20, "
           f"-i 4 --region-batch 8: wall {wall:.2f} s, "
           f"{wall / R:.2f} s/region, mean accuracy {acc:.3f}% "
-          f"(min {min(accs):.3f}%), launches {launches}, fast5 via "
-          f"{fast5_io} | {gpu_line()}", flush=True)
+          f"(min {min(accs):.3f}%), launches {launches}, engine host "
+          f"seconds (calls, s) "
+          f"{ {m: (n, round(t, 3)) for m, (n, t) in secs.items()} }, "
+          f"fast5 via {fast5_io} | {gpu_line()}", flush=True)
     if acc < 99.0:
         fail(f"e2e mean accuracy {acc:.3f}% < 99.0%")
     _need_launches("e2e", launches)
@@ -913,7 +1042,7 @@ def phase_variant(seed: int):
         fail(f"variant -a: {len(lines_a)} lines, {n_points} point mutations")
     if not fscores.get("truth", -np.inf) > fscores.get("mutated5", np.inf):
         fail(f"variant -f: scores {fscores}")
-    _need_launches("variant", launches)
+    _need_launches("variant", launches, ALIGN_KERNELS)
     return launches, times
 
 
@@ -1068,6 +1197,10 @@ LIBRARY_NOTE = {
     "fill": "no single PyTorch call computes a banded max-plus pair-HMM fill",
     "mutscore": "no single PyTorch call computes a group refill and join",
     "backtrace": "no single PyTorch call computes a best-path walk",
+    "viterbi_sweep": "no single PyTorch call computes a recursion over "
+                     "positions (a max-plus and a sum-product step per row)",
+    "viterbi_sample": "no single PyTorch call computes a chain of "
+                      "categorical draws, each conditioned on the last",
 }
 
 # (seed, k, i, w) -> h, as tests/test_torch_viterbi.py pins them on the CPU
@@ -1102,7 +1235,7 @@ def main():
     by_phase["multihost"] = phase_multihost(args.seed)
 
     held_keys = {"fill": ("fill fwd", "fill bwd"), "mutscore": ("mutscore",),
-                 "backtrace": ()}
+                 "backtrace": (), "viterbi_sweep": (), "viterbi_sample": ()}
     entries = []
     for k in kernels:
         line = report[(k.name, False)]

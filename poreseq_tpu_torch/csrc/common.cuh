@@ -212,6 +212,42 @@ __device__ __forceinline__ void warp_argmax(T& val, int& idx) {
   }
 }
 
+// (v, s) takes (ov, os) if it comes first in torch.argmax's order: NaN
+// above every number, then the larger value, then the smaller index
+template <typename T>
+__device__ __forceinline__ void first_max(T& v, int& s, T ov, int os) {
+  const bool vn = v != v, on = ov != ov;
+  if (vn || on) {
+    if (on && (!vn || os < s)) { v = ov; s = os; }
+  } else if (ov > v || (ov == v && os < s)) {
+    v = ov;
+    s = os;
+  }
+}
+
+// The halving tree over 1024 states (engine/viterbi.py:halving_levels),
+// level L: x[c] <- x[c] op x[c + 1024 >> L].  With thread t of 256 holding
+// states t + 256q, levels 1-2 are in-thread and leave level-2 value t;
+// tree_level4 takes levels 3-4 at c (< 64) from the 256 level-2 values in
+// shared memory: l4[c] = (x[c] op x[c+128]) op (x[c+64] op x[c+192]).
+template <typename T, typename Op>
+__device__ __forceinline__ T tree_level4(const T* x, int c, Op op) {
+  return op(op(x[c], x[c + 128]), op(x[c + 64], x[c + 192]));
+}
+
+// levels 3-10 of the tree's sum, in one warp, from the 256 level-2 values:
+// level 5 in-thread, 6-10 as shuffles (strides 16 to 1).  Every lane of
+// the warp must call it; lane 0 gets the total.
+template <typename T>
+__device__ __forceinline__ T tree_total(const T* x) {
+  const int lane = threadIdx.x & 31;
+  const auto add = [](T a, T b) { return a + b; };
+  T v = tree_level4(x, lane, add) + tree_level4(x, lane + 32, add);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v = v + __shfl_down_sync(FULL, v, off);
+  return v;
+}
+
 // block-wide max (exact in any order): each warp reduces by shuffles, warp
 // 0 reduces the warps' partials (red holds 32 values).  The result is valid
 // in warp 0 only.  Every thread must call it; red must not be written again

@@ -30,6 +30,16 @@ STEP_OPS = 12             # the backpointer walk (forward fill with steps)
 MAX_OPS = 1               # the column max
 JOIN_OPS = 8              # a scorer join cell: 2 adds, 4 maxima, 2 tests
 WALK_OPS = 10             # a backtrace step's tests and updates
+# per (row, state) of the Viterbi sweep (engine/viterbi.py): the group-max
+# and group-sum trees and the total (1 each), m1-m3 and the stay move (4
+# adds), best (3 maxima), newlik (1), f (3 adds, 2 products), exp, the
+# product by it and the divide (3)
+SWEEP_OPS = 18
+SWEEP_BP_OPS = 8          # the argmax tree and the priority tests/selects
+# per (chain, row, state) of the sampler: pow, product, tree sum, divide,
+# log (+ eps), the Gumbel (two logs, two negations), its add, the argmax
+SAMPLE_OPS = 12
+HASH_OPS = 9              # one lowbias32 round and its xor (f64 draws two)
 
 
 def bound_ms(nbytes: float, ops: float, dtype: torch.dtype):
@@ -157,3 +167,36 @@ def backtrace_work(ral, best_i, n0, dtype: torch.dtype):
     cells = int((ral != 0).sum())
     return (2 * levels * b + cells * (b + 9) + 8 * int(walked.sum()),
             cells * WALK_OPS)
+
+
+def viterbi_sweep_work(obs, n_real, need_bp: bool):
+    """(bytes, operations) of one sweep launch (engine/viterbi.py
+    viterbi_sweep_cuda's operands) over the real rows of the real regions:
+    obs read and fwds written once per real row, liks once per region, the
+    backpointers when asked for; padded rows and regions (n_real = 0) pass
+    a carry and are not counted."""
+    b = _size(obs.dtype)
+    n = n_real.long()
+    rows, regions = int(n.sum()), int((n > 0).sum())
+    nbytes = (rows * 1024 * (2 * b + (8 if need_bp else 0))
+              + regions * (1024 * b + 8))
+    ops = rows * 1024 * (SWEEP_OPS + (SWEEP_BP_OPS if need_bp else 0))
+    return nbytes, ops
+
+
+def viterbi_sample_work(fwds, valid_rows, attens):
+    """(bytes, operations) of one sampler launch (engine/viterbi.py
+    sample_paths_cuda's operands): the real rows of fwds and the transition
+    matrix read once, every chain's path over real rows written, and per
+    chain, real row with a draw (rows 1..n-1) and state the arithmetic of
+    SAMPLE_OPS and the counter hash; padded rows and regions are not
+    counted."""
+    b = _size(fwds.dtype)
+    nk = attens.shape[0]
+    n = valid_rows.long().sum(dim=1)
+    rows, regions = int(n.sum()), int((n > 0).sum())
+    draws = int((n - 1).clamp(min=0).sum()) * nk
+    hash_ops = HASH_OPS * (2 if fwds.dtype == torch.float64 else 1)
+    nbytes = (rows * (1024 * b + 1) + 1024 * 1024 * b + nk * b
+              + regions * 8 + rows * nk * 8)
+    return nbytes, draws * 1024 * (SAMPLE_OPS + hash_ops)

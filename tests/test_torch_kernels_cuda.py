@@ -6,7 +6,9 @@ enough for the block without a spare warp), forward with steps and
 backward with and without, the group scorer at
 Ws = 41 and 201 (Refine's point width and Mutate's scoring width): f64 must
 equal the twin exactly, f32 within tolerances, with the step bytes, best
-coordinates and accept signs held.  Marked `cuda`: they skip where torch
+coordinates and accept signs held.  The backtrace, the Viterbi sweep (with
+and without backpointers) and the sampler must equal their twins exactly in
+f64 and f32.  Marked `cuda`: they skip where torch
 sees no GPU.  Run them on the card with
 
     PSQ_TPU_TESTS=1 python -m pytest -m cuda tests/test_torch_kernels_cuda.py
@@ -103,9 +105,49 @@ def test_backtrace_kernel_matches_twin(engine):
             T, states.shape[0] + 2 * T + 8)
     ral_k, rlk_k = backtrace_cuda(*args)
     ral_r, rlk_r = backtrace_reference(*args)
-    torch.testing.assert_close(ral_k, ral_r, rtol=0, atol=0)
-    rtol, atol = _tols(engine.dtype)
-    torch.testing.assert_close(rlk_k, rlk_r, rtol=rtol, atol=atol)
+    assert torch.equal(ral_k, ral_r)
+    assert torch.equal(rlk_k, rlk_r)
+
+
+def _viterbi_events():
+    """Three simulated regions of 110-200 b, of different lengths."""
+    return [simulate_session(np.random.default_rng(s), ref_len=n,
+                             coverage=c)[0].events
+            for s, n, c in ((3, 150, 6), (9, 110, 4), (4, 200, 5))]
+
+
+@pytest.mark.parametrize("engine", DTYPES, indirect=True)
+@pytest.mark.parametrize("need_bp", [False, True])
+def test_viterbi_sweep_kernel_matches_twin(engine, need_bp):
+    from poreseq_tpu_torch.engine.viterbi import (VITERBI_SWEEP, sweep_inputs,
+                                                  viterbi_sweep_cuda,
+                                                  viterbi_sweep_reference)
+
+    # 3 regions in a bucket of 4: one padded region, and padded rows
+    _, obs, n_real = sweep_inputs(_viterbi_events(), "cuda", engine.dtype)
+    n = VITERBI_SWEEP.launches
+    got = viterbi_sweep_cuda(obs, n_real, 0.05, 0.01, need_bp)
+    assert VITERBI_SWEEP.launches == n + 1
+    ref = viterbi_sweep_reference(obs, n_real, 0.05, 0.01, need_bp)
+    for a, b in zip(got, ref):
+        assert (a is None and b is None) or torch.equal(a, b)
+
+
+@pytest.mark.parametrize("engine", DTYPES, indirect=True)
+def test_viterbi_sample_kernel_matches_twin(engine):
+    from poreseq_tpu_torch.engine.viterbi import (VITERBI_SAMPLE,
+                                                  sample_inputs,
+                                                  sample_paths_cuda,
+                                                  sample_paths_reference,
+                                                  sweep_inputs, viterbi_sweep)
+
+    _, obs, n_real = sweep_inputs(_viterbi_events(), "cuda", engine.dtype)
+    liks, fwds, _ = viterbi_sweep(obs, n_real, 0.05, 0.01)
+    args = sample_inputs(liks, fwds, n_real, 16, 0.05, 0.01, 0.33, 0.75)
+    n = VITERBI_SAMPLE.launches
+    got = sample_paths_cuda(*args, 7)
+    assert VITERBI_SAMPLE.launches == n + 1
+    assert torch.equal(got, sample_paths_reference(*args, 7))
 
 
 @pytest.mark.parametrize("engine", DTYPES, indirect=True)
@@ -149,7 +191,27 @@ def test_group_kernel_matches_twin(engine, coverages, scoring):
 def test_kernel_wrappers_reject_bad_operands(engine):
     from poreseq_tpu_torch.engine.fill import fill_cuda
 
+    from poreseq_tpu_torch.engine.viterbi import (sample_inputs,
+                                                  sample_paths_cuda,
+                                                  sweep_inputs,
+                                                  viterbi_sweep_cuda)
+
     args = list(_fill_args(engine, _data(), False))
     args[1] = args[1].to(torch.int64)            # states must be int32
     with pytest.raises(ValueError, match="states"):
         fill_cuda(*args)
+    _, obs, n_real = sweep_inputs(_viterbi_events()[:1], "cuda",
+                                  engine.dtype)
+    with pytest.raises(ValueError, match="n_real"):
+        viterbi_sweep_cuda(obs, n_real.int(), 0.05, 0.01)
+    with pytest.raises(ValueError, match="obs"):        # 1024 states
+        viterbi_sweep_cuda(obs[..., :512].contiguous(), n_real, 0.05, 0.01)
+    liks, fwds, _ = viterbi_sweep_cuda(obs, n_real, 0.05, 0.01)
+    T, fwds, valid, startst, attens = sample_inputs(
+        liks, fwds, n_real, 4, 0.05, 0.01, 0.33, 0.75)
+    with pytest.raises(ValueError, match="valid_rows"):
+        sample_paths_cuda(T, fwds, valid.long(), startst, attens, 0)
+    with pytest.raises(ValueError, match="startst"):
+        sample_paths_cuda(T, fwds, valid, startst.int(), attens, 0)
+    with pytest.raises(ValueError, match="T"):
+        sample_paths_cuda(T[:512], fwds, valid, startst, attens, 0)

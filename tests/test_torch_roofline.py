@@ -1,7 +1,8 @@
 """The least-time counts of engine/roofline.py count the work a launch's data
 needs: padding the launch carries (event rows without a seed alignment,
-padded columns, padded levels) changes neither the bytes nor the
-operations of a fill or a backtrace launch."""
+padded columns, padded levels; for the Viterbi sweep and sampler padded rows
+and padded regions) changes neither the bytes nor the operations of a
+launch."""
 
 import numpy as np
 import pytest
@@ -11,8 +12,12 @@ from poreseq_tpu_torch.engine import TorchEngine
 from poreseq_tpu_torch.engine.align import backtrace
 from poreseq_tpu_torch.engine.fill import get_fill
 from poreseq_tpu_torch.engine.pack import fill_geometry
-from poreseq_tpu_torch.engine.roofline import backtrace_work, fill_work
+from poreseq_tpu_torch.engine.roofline import (backtrace_work, fill_work,
+                                               viterbi_sample_work,
+                                               viterbi_sweep_work)
 from poreseq_tpu_torch.engine.types import AlignData
+from poreseq_tpu_torch.engine.viterbi import (sample_inputs, sweep_inputs,
+                                              viterbi_sweep)
 from poreseq_tpu_torch.sim import simulate_session
 
 torch.set_num_threads(1)
@@ -52,8 +57,42 @@ def _padded(batch, states, is_pad, rows=5, cols=7, levels=64):
     return big, st, pad
 
 
-@pytest.mark.parametrize("kernel", ["fill", "fill with steps", "backtrace"])
+def _viterbi_padded(kernel, rows=64, regions=3):
+    """(work, work of the same launch with `rows` more padded rows and
+    `regions` more padded regions) for a sweep or sampler launch on two
+    simulated regions."""
+    evs = [simulate_session(np.random.default_rng(s), ref_len=n,
+                            coverage=3)[0].events for s, n in ((1, 110),
+                                                               (2, 130))]
+    _, obs, n_real = sweep_inputs(evs, "cpu", torch.float32)
+    B, R, _ = obs.shape
+    big = torch.zeros((B + regions, R + rows, 1024), dtype=obs.dtype)
+    big[:B, :R] = obs
+    big_n = torch.cat([n_real, torch.zeros(regions, dtype=n_real.dtype)])
+    if kernel.startswith("viterbi_sweep"):
+        bp = kernel.endswith("backpointers")
+        return (viterbi_sweep_work(obs, n_real, bp),
+                viterbi_sweep_work(big, big_n, bp))
+    liks, fwds, _ = viterbi_sweep(obs, n_real, 0.05, 0.01)
+    _, fwds, valid, _, attens = sample_inputs(liks, fwds, n_real, 4, 0.05,
+                                              0.01, 0.33, 0.75)
+    big_f = torch.full((B + regions, R + rows, 1024), 1.0 / 1024.0)
+    big_f[:B, :R] = fwds
+    big_v = torch.arange(R + rows)[None, :] < big_n[:, None]
+    return (viterbi_sample_work(fwds, valid, attens),
+            viterbi_sample_work(big_f, big_v, attens))
+
+
+@pytest.mark.parametrize("kernel", ["fill", "fill with steps", "backtrace",
+                                    "viterbi_sweep",
+                                    "viterbi_sweep with backpointers",
+                                    "viterbi_sample"])
 def test_work_counts_leave_out_padding(kernel):
+    if kernel.startswith("viterbi"):
+        work, padded = _viterbi_padded(kernel)
+        assert work == padded
+        assert work[0] > 0 and work[1] > 0
+        return
     batch, states, i0, i1, is_pad = _fill_inputs()
     big, st, pad = _padded(batch, states, is_pad)
     assert not bool(big.active[batch.active.shape[0]:].any())

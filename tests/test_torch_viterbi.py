@@ -146,6 +146,137 @@ def test_counter_hash_pinned_and_uniforms_open():
     assert ((2 ** 52 - 1) + 0.5) * 2.0 ** -52 < 1
 
 
+def _np_halving(x, levels, op):
+    """NumPy halving tree over the last axis: level L pairs c with c + n/2."""
+    out = []
+    for _ in range(levels):
+        n = x.shape[-1]
+        x = op(x[..., : n // 2], x[..., n // 2 :])
+        out.append(x)
+    return out
+
+
+def _np_first_argmax(v, s, ov, os):
+    """(value, state) of the first maximum of two candidates."""
+    take = (ov > v) | ((ov == v) & (os < s))
+    return np.where(take, ov, v), np.where(take, os, s)
+
+
+def _np_sweep_row(liks, fwd, ob, consts, exp, dt):
+    """One sweep row in NumPy, on the halving tree: (newlik, f, bp).  The
+    group reductions are levels 2, 4, 6 (state s reads index s >> 2j), the
+    argmax keeps (value, state) pairs with the first state on ties."""
+    lsp1, lsp2, lsp3, stay_lik, sp1, sp2, sp3, stay_p = (dt(c) for c in
+                                                         consts)
+    states = np.arange(1024)
+    gm = _np_halving(liks, 6, np.maximum)
+    gs = _np_halving(fwd, 6, np.add)
+    v, s = liks, np.broadcast_to(states, liks.shape)
+    ga = []
+    for _ in range(6):
+        h = v.shape[-1] // 2
+        v, s = _np_first_argmax(v[..., :h], s[..., :h], v[..., h:],
+                                s[..., h:])
+        ga.append(s)
+    at = lambda lv, j: lv[2 * j - 1][:, states >> (2 * j)]
+    m = [at(gm, j) + c for j, c in ((1, lsp1), (2, lsp2), (3, lsp3))]
+    mstay = liks + stay_lik
+    newlik = ob + np.maximum(np.maximum(m[0], m[1]), np.maximum(m[2], mstay))
+    bp, cur = at(ga, 1), m[0]
+    for j in (2, 3):
+        upd = m[j - 1] > cur
+        bp, cur = np.where(upd, at(ga, j), bp), np.where(upd, m[j - 1], cur)
+    bp = np.where(mstay > cur, states, bp)
+    f = (((sp1 * at(gs, 1) + sp2 * at(gs, 2)) + sp3 * at(gs, 3))
+         + stay_p * fwd)
+    f = f * exp(ob)
+    return newlik, f / _np_halving(f, 10, np.add)[-1], bp
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_sweep_twin_equals_numpy_halving_tree(dtype):
+    """The twin's sweep, row by row, equals an independent NumPy model of a
+    row on the halving tree bit for bit (liks, fwds and backpointers, a
+    padded region and padded rows included).  exp comes from torch on the
+    same [B, 1024] rows, so the model checks the reduction order and the
+    expression trees, not a libm."""
+    rng = np.random.default_rng(11)
+    dt = np.float64 if dtype == torch.float64 else np.float32
+    B, R = 4, 24
+    obs = rng.normal(-3.0, 2.0, (B, R, 1024)).astype(dt)
+    n_real = np.array([24, 17, 0, 9])
+    liks_t, fwds_t, bps_t = tv.viterbi_sweep_reference(
+        torch.from_numpy(obs), torch.from_numpy(n_real), 0.05, 0.01,
+        need_bp=True)
+    consts = tv.sweep_constants(0.05, 0.01)
+    exp = lambda x: torch.exp(torch.from_numpy(x)).numpy()
+    liks = np.zeros((B, 1024), dt)
+    fwd = np.full((B, 1024), 1.0 / 1024.0, dt)
+    for t in range(R):
+        newlik, f, bp = _np_sweep_row(liks, fwd, obs[:, t], consts, exp, dt)
+        np.testing.assert_array_equal(bps_t[:, t].numpy(), bp)
+        v = (t < n_real)[:, None]
+        liks, fwd = np.where(v, newlik, liks), np.where(v, f, fwd)
+        assert fwd.dtype == dt
+        np.testing.assert_array_equal(fwds_t[:, t].numpy(), fwd)
+    np.testing.assert_array_equal(liks_t.numpy(), liks)
+
+
+def test_tree_levels_are_the_predecessor_groups():
+    """Levels 2, 4 and 6 of the halving tree under max are exactly the
+    j-step group maxima (members c + k * (1024 >> 2j)) for j = 1, 2, 3."""
+    V = torch.from_numpy(np.random.default_rng(5).normal(size=(3, 1024)))
+    lv = tv.halving_levels(V, 6, torch.maximum)
+    for j in (1, 2, 3):
+        n = 1 << (2 * j)
+        group = V.reshape(3, n, 1024 >> (2 * j)).amax(dim=1)
+        assert torch.equal(lv[2 * j - 1], group)
+        assert torch.equal(tv._spread(lv[2 * j - 1], j),
+                           torch.repeat_interleave(group, n, dim=1))
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_sampler_twin_equals_numpy_halving_tree(dtype):
+    """The twin's sampled paths, and each row's scores, equal an
+    independent NumPy model of a sampler row (T[cur] * f^atten,
+    halving-tree total, log + Gumbel, first argmax) bit for bit; pow and log
+    come from torch on the twin's shapes."""
+    rng = np.random.default_rng(12)
+    dt = np.float64 if dtype == torch.float64 else np.float32
+    B, R, nk = 3, 20, 3
+    fw = rng.random((B, R, 1024)) ** 4
+    fwds = (fw / fw.sum(axis=2, keepdims=True)).astype(dt)
+    n_real = np.array([20, 13, 0])
+    valid = np.arange(R)[None, :] < n_real[:, None]
+    fwds = np.where(valid[..., None], fwds, dt(1.0 / 1024.0))
+    T = tv._build_T(0.05, 0.01).astype(dt)
+    startst = rng.integers(0, 1024, B)
+    attens = np.array([0.33 + 0.42 * k / nk for k in range(nk)], dt)
+    t = torch.from_numpy
+    got = tv.sample_paths_reference(t(T), t(fwds), t(valid), t(startst),
+                                    t(attens), 7).numpy()
+    eps = dt(1e-300)                     # 0 in float32, as torch casts it
+    assert (eps == 0) == (dt == np.float32)
+    cur = np.repeat(startst[:, None], nk, axis=1)
+    for i in range(R - 1, -1, -1):
+        np.testing.assert_array_equal(got[:, :, i], cur)
+        u = tv.counter_uniforms(7, nk, torch.tensor([i]), dtype)[:, 0]
+        gumbel = (-torch.log(-torch.log(u))).numpy()          # [nk, 1024]
+        f = (t(fwds[:, i])[:, None, :] ** t(attens)[None, :, None]).numpy()
+        p = T[cur] * f
+        p = p / _np_halving(p, 10, np.add)[-1]
+        x = torch.log(t(p + eps)).numpy() + gumbel[None]
+        np.testing.assert_array_equal(
+            tv.draw_scores(t(T), t(fwds[:, i]), t(cur), t(attens),
+                           t(gumbel)).numpy(), x)
+        v, s = x, np.broadcast_to(np.arange(1024), x.shape)
+        for _ in range(10):
+            h = v.shape[-1] // 2
+            v, s = _np_first_argmax(v[..., :h], s[..., :h], v[..., h:],
+                                    s[..., h:])
+        cur = np.where(valid[:, i][:, None], s[..., 0], cur)
+
+
 @pytest.mark.parametrize("dtype,coverages", [
     (torch.float64, (6, 4, 5)),
     # equal event counts: E_pad adds no padding, so only the draws differ
