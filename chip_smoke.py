@@ -16,9 +16,9 @@ non-zero, nothing runs on the CPU instead):
                 block without a spare warp) and the backtrace on a
                 simulated 1 kb region at 10X, the group scorer on every
                 group of an 8-region lockstep batch, the Viterbi sweep
-                (with and without backpointers) and sampler (16
-                candidates) on that batch's 8 regions, in f64 (equal to the
-                twin) and f32
+                (with and without backpointers), the sampler (16
+                candidates) and its Gumbel kernel on that batch's 8
+                regions, in f64 (equal to the twin) and f32
                 (the production type; the backtrace and the Viterbi kernels
                 equal too), with each kernel's device time (CUDA
                 events), its least time on the card (engine/roofline.py)
@@ -27,7 +27,7 @@ non-zero, nothing runs on the CPU instead):
                 values bit for bit, and in f64 each of the 8 regions of
                 phase 2's batch gets the same candidates inside the batch
                 as alone (f32: the count that do is printed), through the
-                sweep and sampler kernels;
+                sweep, Gumbel and sampler kernels;
   3. e2e      — the port's CLI `consensus --region-batch 8 --device cuda` on a
                 synthetic run (8 x 1 kb regions at 10X, widths 300/100/20,
                 -i 4), checking the output count, the mean accuracy against
@@ -535,7 +535,7 @@ def check_mutscore(engine, calls, f64: bool, report: dict):
 
 
 VITERBI_ARGS = (0.05, 0.01)                    # skip_prob, stay_prob
-SAMPLE_ARGS = (16, 0.05, 0.01, 0.33, 0.75)      # nkeep, ..., mut_min, max
+SAMPLE_ARGS = (16, 0.33, 0.75)                  # nkeep, mut_min, max
 
 
 def _differs(name: str, a, b) -> str:
@@ -546,18 +546,25 @@ def _differs(name: str, a, b) -> str:
     return line
 
 
+# the one-block designs' times at phase 2b's shape, f32 (PERF.md §6, the
+# proof run on an NVIDIA H100 80GB HBM3 at 700 W), printed beside this run's
+ONE_BLOCK_MS = {"viterbi_sweep": 2.005, "viterbi_sample": 3.680}
+
+
 def check_viterbi(engine, events, seed: int, f64: bool, report: dict):
-    """The sweep (with and without backpointers) and the sampler (16
-    candidates) on the 8 regions of the group scorer's batch, as
-    viterbi_mutate_multi builds their operands, each equal to its twin;
-    in f32 each timed."""
+    """The sweep (with and without backpointers), the sampler (16
+    candidates, its Gumbel launch included) and the Gumbel kernel alone on
+    the 8 regions of the group scorer's batch, as viterbi_mutate_multi
+    builds their operands, each equal to its twin; in f32 each timed."""
     import torch
 
-    from poreseq_tpu_torch.engine.roofline import (viterbi_sample_work,
+    from poreseq_tpu_torch.engine.roofline import (viterbi_gumbel_work,
+                                                   viterbi_sample_work,
                                                    viterbi_sweep_work)
     from poreseq_tpu_torch.engine.viterbi import (
-        sample_inputs, sample_paths_cuda, sample_paths_reference,
-        sweep_inputs, viterbi_sweep_cuda, viterbi_sweep_reference)
+        gumbel_cuda, gumbel_reference, sample_inputs, sample_paths_cuda,
+        sample_paths_reference, sweep_inputs, transition_matrix,
+        viterbi_sweep_cuda, viterbi_sweep_reference)
 
     dt = engine.dtype
     _, obs, n_real = sweep_inputs(events, engine.device, dt)
@@ -571,12 +578,22 @@ def check_viterbi(engine, events, seed: int, f64: bool, report: dict):
                      + _differs(name, a, b))
     liks, fwds, _ = got
     args = sample_inputs(liks, fwds, n_real, *SAMPLE_ARGS)
-    paths = sample_paths_cuda(*args, seed)
-    ref = sample_paths_reference(*args, seed)
+    T = transition_matrix(*VITERBI_ARGS, dt, engine.device)
+    paths = sample_paths_cuda(*args, *VITERBI_ARGS, seed)
+    ref = sample_paths_reference(T, *args, seed)
     torch.cuda.synchronize()
     if not torch.equal(paths, ref):
         fail(f"viterbi_sample (f64={f64}) " + _differs("paths", paths, ref))
-    sweep, sample = dict(max_abs_err=0.0), dict(max_abs_err=0.0)
+    # the Gumbel kernel alone, over the call's candidates and rows
+    nk, R = args[3].shape[0], obs.shape[1]
+    rows = torch.arange(R, device=obs.device)
+    gum = gumbel_cuda(seed, nk, R, dt, engine.device)
+    gum_ref = gumbel_reference(seed, nk, rows, dt)
+    torch.cuda.synchronize()
+    if not torch.equal(gum, gum_ref):
+        fail(f"viterbi_gumbel (f64={f64}) "
+             + _differs("gumbel", gum, gum_ref))
+    sweep, sample, gumbel = (dict(max_abs_err=0.0) for _ in range(3))
     if not f64:
         sweep.update(timed(
             event_ms(lambda: viterbi_sweep_cuda(obs, n_real, *VITERBI_ARGS)),
@@ -587,22 +604,35 @@ def check_viterbi(engine, events, seed: int, f64: bool, report: dict):
         sweep["backpointers"] = timed(event_ms(
             lambda: viterbi_sweep_cuda(obs, n_real, *VITERBI_ARGS, True)),
             viterbi_sweep_work(obs, n_real, True), dt)
-        sample.update(timed(event_ms(lambda: sample_paths_cuda(*args, seed)),
-                            viterbi_sample_work(args[1], args[2], args[4]),
-                            dt))
+        sample.update(timed(
+            event_ms(lambda: sample_paths_cuda(*args, *VITERBI_ARGS, seed)),
+            viterbi_sample_work(args[0], args[1], args[3]), dt))
         sample["plain_ms"] = cuda_ms(
-            lambda: sample_paths_reference(*args, seed), reps=2)
+            lambda: sample_paths_reference(T, *args, seed), reps=2)
+        gumbel.update(timed(
+            event_ms(lambda: gumbel_cuda(seed, nk, R, dt, engine.device)),
+            viterbi_gumbel_work(args[1], nk, dt), dt))
+        gumbel["plain_ms"] = cuda_ms(
+            lambda: gumbel_reference(seed, nk, rows, dt), reps=2)
     report[("viterbi_sweep", f64)] = sweep
     report[("viterbi_sample", f64)] = sample
-    B, R, _ = obs.shape
+    report[("viterbi_gumbel", f64)] = gumbel
+    B = obs.shape[0]
     print(f"[kernels] viterbi f{'64' if f64 else '32'}: {len(events)} regions "
           f"(bucket {B}, rows {n_real.tolist()} of {R}), 16 candidates: "
           f"sweep liks/fwds equal, with backpointers liks/fwds/bps equal, "
-          f"sampler paths of {paths.shape[0] * paths.shape[1]} chains equal"
-          + (f"; sweep {_timing(sweep)}, twin {sweep['plain_ms']:.1f} ms; "
+          f"sampler paths of {paths.shape[0] * paths.shape[1]} chains equal, "
+          f"the Gumbel kernel's [{nk}, {R}, 1024] equal"
+          + (f"; sweep {_timing(sweep)} (one-block design: "
+             f"{ONE_BLOCK_MS['viterbi_sweep']} ms), twin "
+             f"{sweep['plain_ms']:.1f} ms; "
              f"with backpointers {_timing(sweep['backpointers'])}; sampler "
-             f"{_timing(sample)}, twin {sample['plain_ms']:.1f} ms | "
-             f"{gpu_line()}" if not f64 else ""), flush=True)
+             f"{_timing(sample)} with its Gumbel launch (one-block design: "
+             f"{ONE_BLOCK_MS['viterbi_sample']} ms), twin "
+             f"{sample['plain_ms']:.1f} ms; Gumbel kernel alone "
+             f"{_timing(gumbel)}, twin {gumbel['plain_ms']:.1f} ms | "
+             f"{gpu_line()}"
+             if not f64 else ""), flush=True)
 
 
 def phase_kernels(seed: int):
@@ -628,14 +658,17 @@ def _kernels():
     from poreseq_tpu_torch.engine.align import BACKTRACE
     from poreseq_tpu_torch.engine.fill import FILL
     from poreseq_tpu_torch.engine.mutscore import MUTSCORE
-    from poreseq_tpu_torch.engine.viterbi import VITERBI_SAMPLE, VITERBI_SWEEP
+    from poreseq_tpu_torch.engine.viterbi import (VITERBI_GUMBEL,
+                                                  VITERBI_SAMPLE,
+                                                  VITERBI_SWEEP)
 
-    return FILL, MUTSCORE, BACKTRACE, VITERBI_SWEEP, VITERBI_SAMPLE
+    return (FILL, MUTSCORE, BACKTRACE, VITERBI_SWEEP, VITERBI_SAMPLE,
+            VITERBI_GUMBEL)
 
 
 # the kernels a phase that runs no Viterbi (variant) must launch
 ALIGN_KERNELS = ("fill", "mutscore", "backtrace")
-VITERBI_KERNELS = ("viterbi_sweep", "viterbi_sample")
+VITERBI_KERNELS = ("viterbi_sweep", "viterbi_sample", "viterbi_gumbel")
 
 
 def _reset_launches():
@@ -1201,6 +1234,8 @@ LIBRARY_NOTE = {
                      "positions (a max-plus and a sum-product step per row)",
     "viterbi_sample": "no single PyTorch call computes a chain of "
                       "categorical draws, each conditioned on the last",
+    "viterbi_gumbel": "no single PyTorch call draws Gumbel noise from a "
+                      "counter hash",
 }
 
 # (seed, k, i, w) -> h, as tests/test_torch_viterbi.py pins them on the CPU
@@ -1235,7 +1270,8 @@ def main():
     by_phase["multihost"] = phase_multihost(args.seed)
 
     held_keys = {"fill": ("fill fwd", "fill bwd"), "mutscore": ("mutscore",),
-                 "backtrace": (), "viterbi_sweep": (), "viterbi_sample": ()}
+                 "backtrace": (), "viterbi_sweep": (), "viterbi_sample": (),
+                 "viterbi_gumbel": ()}
     entries = []
     for k in kernels:
         line = report[(k.name, False)]

@@ -226,25 +226,161 @@ __device__ __forceinline__ void first_max(T& v, int& s, T ov, int os) {
 }
 
 // The halving tree over 1024 states (engine/viterbi.py:halving_levels),
-// level L: x[c] <- x[c] op x[c + 1024 >> L].  With thread t of 256 holding
-// states t + 256q, levels 1-2 are in-thread and leave level-2 value t;
-// tree_level4 takes levels 3-4 at c (< 64) from the 256 level-2 values in
-// shared memory: l4[c] = (x[c] op x[c+128]) op (x[c+64] op x[c+192]).
-template <typename T, typename Op>
-__device__ __forceinline__ T tree_level4(const T* x, int c, Op op) {
-  return op(op(x[c], x[c + 128]), op(x[c + 64], x[c + 192]));
+// level L: x[c] <- x[c] op x[c + 1024 >> L].  The Viterbi kernels' lane
+// layout (viterbi_sweep.cu: a team of 8 warps; viterbi_sample.cu: 4).
+// A chain runs on a team of TEAM warps, the block's first.  Lane l of warp
+// w holds the states l + 32m, m = w + TEAM q for q < 32 / TEAM.  Level L
+// (1..5) of the halving tree pairs state c with c + (1024 >> L), that is m
+// with m + (16 >> (L-1)) on the same lane: it is in-thread while that
+// stride is a multiple of TEAM (levels 1-2 for 8 warps, 1-3 for 4), then
+// each warp's one remaining value goes through shared memory once and every
+// warp finishes levels up to 5 itself; levels 6-10 (strides 16 to 1) are
+// shuffles.  Each level keeps the tree's pairs, so every result is the
+// twin's bit for bit.
+template <int TEAM>
+__device__ __forceinline__ int team_state(int l, int w, int q) {
+  static_assert(TEAM == 4 || TEAM == 8, "a team is 4 or 8 warps");
+  return l + 32 * (w + TEAM * q);
 }
 
-// levels 3-10 of the tree's sum, in one warp, from the 256 level-2 values:
-// level 5 in-thread, 6-10 as shuffles (strides 16 to 1).  Every lane of
-// the warp must call it; lane 0 gets the total.
+// named barrier id (never __syncthreads' 0) over n threads: wait for all
+// n, or arrive without waiting; both order the caller's shared-memory
+// accesses before the barrier's completion
+__device__ __forceinline__ void named_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(n) : "memory");
+}
+__device__ __forceinline__ void named_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(n) : "memory");
+}
+
+// the team's barrier: named barrier 1 over its TEAM * 32 threads, the
+// block's first warps
+template <int TEAM>
+__device__ __forceinline__ void team_sync() {
+  named_sync(1, TEAM * 32);
+}
+
+// (value, state) of a first-max tree
 template <typename T>
-__device__ __forceinline__ T tree_total(const T* x) {
-  const int lane = threadIdx.x & 31;
-  const auto add = [](T a, T b) { return a + b; };
-  T v = tree_level4(x, lane, add) + tree_level4(x, lane + 32, add);
+struct ValIdx {
+  T v;
+  int s;
+};
+
+template <typename T>
+__device__ __forceinline__ ValIdx<T> first_of(ValIdx<T> a, ValIdx<T> b) {
+  first_max(a.v, a.s, b.v, b.s);
+  return a;
+}
+
+template <typename T>
+__device__ __forceinline__ T shfl_down(T v, int d) {
+  return __shfl_down_sync(FULL, v, d);
+}
+template <typename T>
+__device__ __forceinline__ ValIdx<T> shfl_down(ValIdx<T> e, int d) {
+  return {__shfl_down_sync(FULL, e.v, d), __shfl_down_sync(FULL, e.s, d)};
+}
+
+// in-thread level L of a lane's values: x[q] = op(x[q], x[q + n]) for
+// q < n = (16 >> (L - 1)) / TEAM (m and m + TEAM n, the tree's pair)
+template <int TEAM, int L, typename E, typename Op>
+__device__ __forceinline__ void level_in(E* x, Op op) {
+  constexpr int n = (16 >> (L - 1)) / TEAM;
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v = v + __shfl_down_sync(FULL, v, off);
+  for (int q = 0; q < n; ++q) x[q] = op(x[q], x[q + n]);
+}
+
+// the in-thread levels (1-2 for 8 warps, 1-3 for 4) on a lane's 32 / TEAM
+// values; returns the last, the value at l + 32w.  With g1 the level-2
+// values are stored at their tree index l + 32(w + TEAM q).
+template <int TEAM, typename E, typename Op>
+__device__ __forceinline__ E thread_levels(E* x, Op op, E* g1, int l, int w) {
+  level_in<TEAM, 1>(x, op);
+  level_in<TEAM, 2>(x, op);
+  if (g1) {
+#pragma unroll
+    for (int q = 0; q < 8 / TEAM; ++q) g1[team_state<TEAM>(l, w, q)] = x[q];
+  }
+  if constexpr (TEAM == 4) level_in<TEAM, 3>(x, op);
+  return x[0];
+}
+
+// the rest of levels 1-5 from xb, the team's values at l + 32m' (m' <
+// TEAM), computed by every warp; with g2 the level-4 values go to g2[c],
+// c < 64.  Returns level 5 at c = l.
+template <int TEAM, typename E, typename Op>
+__device__ __forceinline__ E exchange_levels(const E* xb, Op op, E* g2,
+                                             int l) {
+  E y[TEAM];
+#pragma unroll
+  for (int m = 0; m < TEAM; ++m) y[m] = xb[l + 32 * m];
+  if constexpr (TEAM == 8) level_in<1, 3>(y, op);
+  level_in<1, 4>(y, op);
+  if (g2) {
+    g2[l] = y[0];
+    g2[l + 32] = y[1];
+  }
+  level_in<1, 5>(y, op);
+  return y[0];
+}
+
+// a / tot, tot a row's total, tot_ok whether it is positive and finite
+// (the same on every lane), with the divide's bits.  The divide's check
+// sends a zero or subnormal numerator to its slow path, and about half of
+// a row's numerators are zero, so a plain divide set the pace of both
+// Viterbi chains (PERF.md §6).  Here a zero numerator never reaches the
+// divide (1 stands in for it; 0 / tot is that zero when tot_ok), and in
+// f32 the quotient is taken in f64, where an f32 subnormal is normal, then
+// rounded to f32: the same bits as the f32 divide, since f64 carries more
+// than 2 * 24 + 2 bits (so rounding the quotient twice is innocuous).
+template <typename T>
+__device__ __forceinline__ T div_total(T a, T tot, bool tot_ok) {
+  const bool zero = a == T(0) && tot_ok;
+  if constexpr (sizeof(T) == 4) {
+    const double q = (zero ? 1.0 : (double)a) / (double)tot;
+    return zero ? a : (T)q;
+  } else {
+    const T q = (zero ? T(1) : a) / tot;
+    return zero ? a : q;
+  }
+}
+
+// torch.argmax's order as an unsigned key: NaN above every number, -0
+// equal to +0, a larger value a larger key (the sign-magnitude bits made
+// monotone)
+__device__ __forceinline__ uint32_t order_key(float v) {
+  const uint32_t u = __float_as_uint(v + 0.0f);
+  return v != v ? 0xFFFFFFFFu : (u >> 31 ? ~u : u | 0x80000000u);
+}
+__device__ __forceinline__ uint64_t order_key(double v) {
+  const uint64_t u = (uint64_t)__double_as_longlong(v + 0.0);
+  return v != v ? ~0ull : (u >> 63 ? ~u : u | (1ull << 63));
+}
+
+// the warp's first maximum of (key, state), torch.argmax's winner: the
+// largest key, the smallest state among its holders, by the hardware's
+// integer reductions (a 64-bit key in two halves); every lane gets it
+__device__ __forceinline__ void warp_first_max(uint32_t& key, int& s) {
+  const uint32_t k = __reduce_max_sync(FULL, key);
+  s = __reduce_min_sync(FULL, key == k ? s : INT_MAX);
+  key = k;
+}
+__device__ __forceinline__ void warp_first_max(uint64_t& key, int& s) {
+  const uint32_t hi = __reduce_max_sync(FULL, (uint32_t)(key >> 32));
+  const uint32_t lo = __reduce_max_sync(
+      FULL, (uint32_t)(key >> 32) == hi ? (uint32_t)key : 0u);
+  const uint64_t k = ((uint64_t)hi << 32) | lo;
+  s = __reduce_min_sync(FULL, key == k ? s : INT_MAX);
+  key = k;
+}
+
+// levels 6-10 of a sum by xor shuffles: every lane gets the total (a + b
+// equals b + a, so the upper half of each pair holds the same value)
+template <typename T>
+__device__ __forceinline__ T shuffle_total(T v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v = v + __shfl_xor_sync(FULL, v, off);
   return v;
 }
 

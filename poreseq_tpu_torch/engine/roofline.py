@@ -37,8 +37,11 @@ WALK_OPS = 10             # a backtrace step's tests and updates
 SWEEP_OPS = 18
 SWEEP_BP_OPS = 8          # the argmax tree and the priority tests/selects
 # per (chain, row, state) of the sampler: pow, product, tree sum, divide,
-# log (+ eps), the Gumbel (two logs, two negations), its add, the argmax
-SAMPLE_OPS = 12
+# log (+ eps), the noise's add, the argmax
+SAMPLE_OPS = 8
+# per (candidate, row, state) of the Gumbel noise, which every region of a
+# call shares: two logs, two negations, and the counter hash
+GUMBEL_OPS = 4
 HASH_OPS = 9              # one lowbias32 round and its xor (f64 draws two)
 
 
@@ -184,19 +187,37 @@ def viterbi_sweep_work(obs, n_real, need_bp: bool):
     return nbytes, ops
 
 
+def _noise_ops(nk: int, rows: int, dtype: torch.dtype) -> int:
+    """Operations of the Gumbel noise for nk candidates over rows rows."""
+    hash_ops = HASH_OPS * (2 if dtype == torch.float64 else 1)
+    return nk * rows * 1024 * (GUMBEL_OPS + hash_ops)
+
+
 def viterbi_sample_work(fwds, valid_rows, attens):
-    """(bytes, operations) of one sampler launch (engine/viterbi.py
-    sample_paths_cuda's operands): the real rows of fwds and the transition
-    matrix read once, every chain's path over real rows written, and per
-    chain, real row with a draw (rows 1..n-1) and state the arithmetic of
-    SAMPLE_OPS and the counter hash; padded rows and regions are not
+    """(bytes, operations) of one sampler call (engine/viterbi.py
+    sample_paths_cuda's operands, its Gumbel launch included): the real
+    rows of fwds and T's 17 values read once, every chain's path over real
+    rows written, per chain, real row with a draw (rows 1..n-1) and state
+    the arithmetic of SAMPLE_OPS, and the noise once for the call over the
+    rows with a draw in any region; padded rows and regions are not
     counted."""
     b = _size(fwds.dtype)
     nk = attens.shape[0]
     n = valid_rows.long().sum(dim=1)
     rows, regions = int(n.sum()), int((n > 0).sum())
     draws = int((n - 1).clamp(min=0).sum()) * nk
-    hash_ops = HASH_OPS * (2 if fwds.dtype == torch.float64 else 1)
-    nbytes = (rows * (1024 * b + 1) + 1024 * 1024 * b + nk * b
-              + regions * 8 + rows * nk * 8)
-    return nbytes, draws * 1024 * (SAMPLE_OPS + hash_ops)
+    drawn_rows = max(int(n.max()) - 1, 0) if len(n) else 0
+    nbytes = (rows * (1024 * b + 1) + 17 * b + nk * b + regions * 8
+              + rows * nk * 8)
+    return nbytes, (draws * 1024 * SAMPLE_OPS
+                    + _noise_ops(nk, drawn_rows, fwds.dtype))
+
+
+def viterbi_gumbel_work(valid_rows, nk: int, dtype: torch.dtype):
+    """(bytes, operations) of the Gumbel launch of a sampler call on
+    valid_rows [B, R] with nk candidates: the noise of the rows with a draw
+    in any region (rows 1..n-1 of the longest) written once, and its
+    arithmetic; the padded rows it also fills are not counted."""
+    n = valid_rows.long().sum(dim=1)
+    rows = max(int(n.max()) - 1, 0) if len(n) else 0
+    return nk * rows * 1024 * _size(dtype), _noise_ops(nk, rows, dtype)

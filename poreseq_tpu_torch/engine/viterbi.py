@@ -6,8 +6,9 @@ over 1/2/3-base steps decomposes into grouped maxes of the 1024-state
 vector (the predecessors of s after j steps are {(s>>2j) + k<<(10-2j)}), so
 a position costs O(1024) work.  The sweep (csrc/viterbi_sweep.cu, one block
 per region) and the stochastic backtrace (csrc/viterbi_sample.cu, one block
-per region and candidate) are hand kernels; their plain twins are Python
-loops over positions, batched over regions (and candidates).  Every sum
+per region and candidate, after csrc/viterbi_gumbel.cu's noise for the call)
+are hand kernels; their plain twins are Python loops over positions, batched
+over regions (and candidates).  Every sum
 over the states, in the twins and the kernels, is taken on one halving
 tree (``halving_levels``), so the kernels can equal the twins bit for bit.
 
@@ -17,7 +18,7 @@ package's ``fold_in(split(PRNGKey(seed))[k], i)`` keys.  Every region of a
 batch draws the same u[k, i, :], so a region's candidates do not depend on
 its batch (its slot, the batch bucket or the padded row count).  h is a
 pure 32-bit integer hash, in int64 tensor ops in the twin and in uint32
-arithmetic in the sampler kernel, bit-equal on CPU and CUDA.
+arithmetic in the Gumbel kernel, bit-equal on CPU and CUDA.
 torch cannot reproduce JAX's threefry bits, so sampled candidates differ
 from the JAX package's; the deterministic path (nkeep=0) matches.
 """
@@ -25,6 +26,7 @@ from the JAX package's; the deterministic path (nkeep=0) matches.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -306,7 +308,7 @@ def viterbi_sweep(obs, n_real, skip_prob, stay_prob, need_bp=False):
 
 
 _M32 = 0xFFFFFFFF
-# sample_paths makes the uniforms this many rows at a time
+# sample_paths_reference makes the noise this many rows at a time
 _DRAW_ROWS = 64
 
 
@@ -359,6 +361,52 @@ def counter_uniforms(seed: int, nkeep: int, rows, dtype):
     return ((x >> 9).to(dtype) + 0.5) * 2.0 ** -23
 
 
+def gumbel_reference(seed: int, nkeep: int, rows, dtype):
+    """The sampler's Gumbel noise -log(-log(u)) on the counter uniforms:
+    [nkeep, n_rows, 1024] (plain twin of csrc/viterbi_gumbel.cu)."""
+    return -torch.log(-torch.log(counter_uniforms(seed, nkeep, rows, dtype)))
+
+
+def transition_index(cur, p):
+    """Where T[cur, p] (``_build_T``) sits in the sampler's 17-value table:
+    16 on the diagonal, else the mask of the steps j = 1..4 whose
+    predecessor set of cur holds p, bit j - 1 set when
+    (p & (4^(5-j) - 1)) == cur >> 2j (T sums the j-step weights in j
+    order over the set bits).  NumPy integer arrays, broadcast."""
+    cur, p = np.asarray(cur), np.asarray(p)
+    m = np.zeros(np.broadcast(cur, p).shape, dtype=np.int64)
+    for j in range(1, 5):
+        m |= ((p & ((1 << (10 - 2 * j)) - 1)) == (cur >> (2 * j))) << (j - 1)
+    return np.where(p == cur, 16, m)
+
+
+@functools.lru_cache(maxsize=64)
+def transition_table(skip_prob: float, stay_prob: float):
+    """The sampler kernel's 17 values of ``_build_T(skip_prob, stay_prob)``
+    in f64, made as it makes them: entry m < 16 sums the j-step weights
+    0.25 (0.25 skip_prob)^(j-1) of the set bits j - 1 of m in j order,
+    entry 16 is stay_prob; T[cur, p] == table[transition_index(cur, p)]."""
+    sp, tab = [], []
+    w = 0.25
+    for _ in range(4):
+        sp.append(w)
+        w = w * 0.25 * skip_prob
+    for m in range(16):
+        t = 0.0
+        for j in range(4):
+            if m >> j & 1:
+                t += sp[j]
+        tab.append(t)
+    return tuple(tab) + (float(stay_prob),)
+
+
+def transition_matrix(skip_prob, stay_prob, dtype, device):
+    """T [1024, 1024] (``_build_T``) of ``dtype`` on ``device``: the
+    twin's operand."""
+    return torch.as_tensor(_build_T(skip_prob, stay_prob), dtype=dtype,
+                           device=device)
+
+
 def sample_paths_reference(T, fwds, valid_rows, startst, attens, seed: int):
     """Plain twin of the sampler kernel, the stochastic backtraces
     (Viterbi.cpp:403-423): for every region b and candidate k, path[R-1] =
@@ -377,9 +425,8 @@ def sample_paths_reference(T, fwds, valid_rows, startst, attens, seed: int):
     for i in range(R - 1, -1, -1):
         if gumbel is None or i < lo:
             lo = max(i + 1 - _DRAW_ROWS, 0)
-            u = counter_uniforms(seed, nk, torch.arange(
+            gumbel = gumbel_reference(seed, nk, torch.arange(
                 lo, i + 1, dtype=torch.int64, device=dev), dt)
-            gumbel = -torch.log(-torch.log(u))         # [nk, rows, 1024]
         paths[:, :, i] = cur
         nxt = torch.argmax(draw_scores(T, fwds[:, i], cur, attens,
                                        gumbel[:, i - lo]), dim=2)
@@ -397,37 +444,63 @@ def draw_scores(T, fwd_row, cur, attens, gumbel_row):
     return torch.log(probs + 1e-300) + gumbel_row[None]
 
 
-_SAMPLE_SIG = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_uint]
-               + [ctypes.c_void_p])
+_SAMPLE_SIG = ([ctypes.POINTER(ctypes.c_double)] + [ctypes.c_void_p] * 6
+               + [ctypes.c_int] * 3 + [ctypes.c_void_p])
 VITERBI_SAMPLE = Kernel(
     "viterbi_sample",
     "poreseq_tpu/engine/tpu/viterbi.py:320 _backtrace_one",
     {"psq_viterbi_sample_f32": _SAMPLE_SIG,
      "psq_viterbi_sample_f64": _SAMPLE_SIG})
+_GUMBEL_SIG = [ctypes.c_void_p] + [ctypes.c_int] * 2 + [ctypes.c_uint,
+                                                        ctypes.c_void_p]
+VITERBI_GUMBEL = Kernel(
+    "viterbi_gumbel",
+    "poreseq_tpu/engine/tpu/viterbi.py:333 _backtrace_one "
+    "(jax.random.categorical's Gumbel noise)",
+    {"psq_viterbi_gumbel_f32": _GUMBEL_SIG,
+     "psq_viterbi_gumbel_f64": _GUMBEL_SIG})
 
 
-def sample_paths_cuda(T, fwds, valid_rows, startst, attens, seed: int):
-    """Launch csrc/viterbi_sample.cu: same paths as the twin."""
+def gumbel_cuda(seed: int, nkeep: int, R: int, dtype, device):
+    """Launch csrc/viterbi_gumbel.cu: ``gumbel_reference`` over rows
+    0..R-1, [nkeep, R, 1024]."""
+    gum = torch.empty((nkeep, R, 1024), dtype=dtype, device=device)
+    VITERBI_GUMBEL.call(f"psq_viterbi_gumbel_{dtype_suffix(dtype)}",
+                        ptr(gum), nkeep, R, seed & _M32, stream())
+    return gum
+
+
+def sample_paths_cuda(fwds, valid_rows, startst, attens, skip_prob,
+                      stay_prob, seed: int):
+    """Launch csrc/viterbi_gumbel.cu for every candidate and row, then
+    csrc/viterbi_sample.cu: the twin's paths for T = _build_T(skip_prob,
+    stay_prob).  The chains read T's 17 distinct values
+    (``transition_table``), passed by value."""
     B, R, _ = fwds.shape
     nk = attens.shape[0]
     dev, dt = fwds.device, fwds.dtype
-    check("T", T, dt, (1024, 1024), dev)
     check("fwds", fwds, dt, (B, R, 1024), dev)
     check("valid_rows", valid_rows, torch.bool, (B, R), dev)
     check("startst", startst, torch.int64, (B,), dev)
     check("attens", attens, dt, (nk,), dev)
     paths = torch.empty((B, nk, R), dtype=torch.long, device=dev)
-    VITERBI_SAMPLE.call(f"psq_viterbi_sample_{dtype_suffix(dt)}", ptr(T),
-                        ptr(fwds), ptr(valid_rows), ptr(startst),
-                        ptr(attens), ptr(paths), B, nk, R, seed & _M32,
-                        stream())
+    gum = gumbel_cuda(seed, nk, R, dt, dev)
+    tab = (ctypes.c_double * 17)(*transition_table(float(skip_prob),
+                                                   float(stay_prob)))
+    VITERBI_SAMPLE.call(f"psq_viterbi_sample_{dtype_suffix(dt)}", tab,
+                        ptr(fwds), ptr(gum), ptr(valid_rows), ptr(startst),
+                        ptr(attens), ptr(paths), B, nk, R, stream())
     return paths
 
 
-def sample_paths(T, fwds, valid_rows, startst, attens, seed: int):
-    """Sampler wrapper: the twin for CPU tensors, the kernel for CUDA."""
-    if route(T, fwds, valid_rows, startst, attens) == "cuda":
-        return sample_paths_cuda(T, fwds, valid_rows, startst, attens, seed)
+def sample_paths(fwds, valid_rows, startst, attens, skip_prob, stay_prob,
+                 seed: int):
+    """Sampler wrapper: the twin (on ``transition_matrix``) for CPU
+    tensors, the kernels for CUDA."""
+    if route(fwds, valid_rows, startst, attens) == "cuda":
+        return sample_paths_cuda(fwds, valid_rows, startst, attens,
+                                 skip_prob, stay_prob, seed)
+    T = transition_matrix(skip_prob, stay_prob, fwds.dtype, fwds.device)
     return sample_paths_reference(T, fwds, valid_rows, startst, attens, seed)
 
 
@@ -474,9 +547,9 @@ def viterbi_mutate_multi(events_lists, nkeep, skip_prob, stay_prob, mut_min,
             out[b] = [_states_to_seq(states)]
         return out
 
-    paths = sample_paths(*sample_inputs(liks, fwds, n_real_d, nkeep,
-                                        skip_prob, stay_prob, mut_min,
-                                        mut_max), seed).cpu().numpy()
+    paths = sample_paths(*sample_inputs(liks, fwds, n_real_d, nkeep, mut_min,
+                                        mut_max), skip_prob, stay_prob,
+                         seed).cpu().numpy()
     n_real = n_real_d.cpu().numpy()
     for bp, b in enumerate(act):
         R_b = int(n_real[bp])
@@ -519,16 +592,14 @@ def sweep_inputs(events_lists, device, dtype):
     return act, obs, t(n_real, torch.long)
 
 
-def sample_inputs(liks, fwds, n_real, nkeep, skip_prob, stay_prob, mut_min,
-                  mut_max):
-    """The sampler's operands after a sweep: (T [1024, 1024], fwds with
-    1/1024 on the rows past each region's end, valid_rows [B, R], startst
-    [B] (each region's best final state), attens [nkeep])."""
+def sample_inputs(liks, fwds, n_real, nkeep, mut_min, mut_max):
+    """The sampler's operands after a sweep: (fwds with 1/1024 on the rows
+    past each region's end, valid_rows [B, R], startst [B] (each region's
+    best final state), attens [nkeep])."""
     dev, dt = fwds.device, fwds.dtype
     attens = torch.tensor([mut_min + (mut_max - mut_min) * k / float(nkeep)
                            for k in range(nkeep)], dtype=dt, device=dev)
     valid_rows = (torch.arange(fwds.shape[1], device=dev)[None, :]
                   < n_real[:, None])
     fwds = torch.where(valid_rows[..., None], fwds, 1.0 / 1024.0)
-    T = torch.as_tensor(_build_T(skip_prob, stay_prob), dtype=dt, device=dev)
-    return T, fwds, valid_rows, torch.argmax(liks, dim=1), attens
+    return fwds, valid_rows, torch.argmax(liks, dim=1), attens

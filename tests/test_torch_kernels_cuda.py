@@ -7,8 +7,9 @@ backward with and without, the group scorer at
 Ws = 41 and 201 (Refine's point width and Mutate's scoring width): f64 must
 equal the twin exactly, f32 within tolerances, with the step bytes, best
 coordinates and accept signs held.  The backtrace, the Viterbi sweep (with
-and without backpointers) and the sampler must equal their twins exactly in
-f64 and f32.  Marked `cuda`: they skip where torch
+and without backpointers, one region with all rows real or none) and the
+sampler (1 and 16 candidates) and its Gumbel kernel alone must equal their
+twins exactly in f64 and f32.  Marked `cuda`: they skip where torch
 sees no GPU.  Run them on the card with
 
     PSQ_TPU_TESTS=1 python -m pytest -m cuda tests/test_torch_kernels_cuda.py
@@ -134,20 +135,71 @@ def test_viterbi_sweep_kernel_matches_twin(engine, need_bp):
 
 
 @pytest.mark.parametrize("engine", DTYPES, indirect=True)
-def test_viterbi_sample_kernel_matches_twin(engine):
-    from poreseq_tpu_torch.engine.viterbi import (VITERBI_SAMPLE,
+@pytest.mark.parametrize("nk", [1, 16])
+def test_viterbi_sample_kernel_matches_twin(engine, nk):
+    from poreseq_tpu_torch.engine.viterbi import (VITERBI_GUMBEL,
+                                                  VITERBI_SAMPLE,
                                                   sample_inputs,
                                                   sample_paths_cuda,
                                                   sample_paths_reference,
-                                                  sweep_inputs, viterbi_sweep)
+                                                  sweep_inputs,
+                                                  transition_matrix,
+                                                  viterbi_sweep)
 
     _, obs, n_real = sweep_inputs(_viterbi_events(), "cuda", engine.dtype)
     liks, fwds, _ = viterbi_sweep(obs, n_real, 0.05, 0.01)
-    args = sample_inputs(liks, fwds, n_real, 16, 0.05, 0.01, 0.33, 0.75)
-    n = VITERBI_SAMPLE.launches
-    got = sample_paths_cuda(*args, 7)
+    args = sample_inputs(liks, fwds, n_real, nk, 0.33, 0.75)
+    n, g = VITERBI_SAMPLE.launches, VITERBI_GUMBEL.launches
+    got = sample_paths_cuda(*args, 0.05, 0.01, 7)
     assert VITERBI_SAMPLE.launches == n + 1
-    assert torch.equal(got, sample_paths_reference(*args, 7))
+    assert VITERBI_GUMBEL.launches == g + 1
+    T = transition_matrix(0.05, 0.01, engine.dtype, "cuda")
+    assert torch.equal(got, sample_paths_reference(T, *args, 7))
+
+
+@pytest.mark.parametrize("engine", DTYPES, indirect=True)
+@pytest.mark.parametrize("real", ["all", "none"])
+def test_viterbi_kernels_one_region_match_twins(engine, real):
+    """B = 1: one region with all its rows real, or with none (n_real = 0:
+    the sweep passes the carry, the sampler keeps the start state)."""
+    from poreseq_tpu_torch.engine.viterbi import (sample_inputs,
+                                                  sample_paths_cuda,
+                                                  sample_paths_reference,
+                                                  sweep_inputs,
+                                                  transition_matrix,
+                                                  viterbi_sweep_cuda,
+                                                  viterbi_sweep_reference)
+
+    _, obs, n_real = sweep_inputs(_viterbi_events()[:1], "cuda",
+                                  engine.dtype)
+    obs, n_real = obs[:1].contiguous(), n_real[:1].contiguous()
+    if real == "none":
+        n_real = torch.zeros_like(n_real)
+    for bp in (False, True):
+        got = viterbi_sweep_cuda(obs, n_real, 0.05, 0.01, bp)
+        ref = viterbi_sweep_reference(obs, n_real, 0.05, 0.01, bp)
+        for a, b in zip(got, ref):
+            assert (a is None and b is None) or torch.equal(a, b)
+    args = sample_inputs(ref[0], ref[1], n_real, 16, 0.33, 0.75)
+    T = transition_matrix(0.05, 0.01, engine.dtype, "cuda")
+    assert torch.equal(sample_paths_cuda(*args, 0.05, 0.01, 3),
+                       sample_paths_reference(T, *args, 3))
+
+
+@pytest.mark.parametrize("engine", DTYPES, indirect=True)
+def test_viterbi_gumbel_kernel_matches_twin(engine):
+    """The sampler's Gumbel kernel equals -log(-log(u)) on the counter
+    uniforms, bit for bit, and counts its own launches only."""
+    from poreseq_tpu_torch.engine.viterbi import (VITERBI_GUMBEL,
+                                                  VITERBI_SAMPLE, gumbel_cuda,
+                                                  gumbel_reference)
+
+    n, g = VITERBI_SAMPLE.launches, VITERBI_GUMBEL.launches
+    got = gumbel_cuda(7, 16, 70, engine.dtype, "cuda")
+    assert (VITERBI_SAMPLE.launches, VITERBI_GUMBEL.launches) == (n, g + 1)
+    ref = gumbel_reference(7, 16, torch.arange(70, device="cuda"),
+                           engine.dtype)
+    assert torch.equal(got, ref)
 
 
 @pytest.mark.parametrize("engine", DTYPES, indirect=True)
@@ -207,11 +259,12 @@ def test_kernel_wrappers_reject_bad_operands(engine):
     with pytest.raises(ValueError, match="obs"):        # 1024 states
         viterbi_sweep_cuda(obs[..., :512].contiguous(), n_real, 0.05, 0.01)
     liks, fwds, _ = viterbi_sweep_cuda(obs, n_real, 0.05, 0.01)
-    T, fwds, valid, startst, attens = sample_inputs(
-        liks, fwds, n_real, 4, 0.05, 0.01, 0.33, 0.75)
+    fwds, valid, startst, attens = sample_inputs(liks, fwds, n_real, 4, 0.33,
+                                                 0.75)
     with pytest.raises(ValueError, match="valid_rows"):
-        sample_paths_cuda(T, fwds, valid.long(), startst, attens, 0)
+        sample_paths_cuda(fwds, valid.long(), startst, attens, 0.05, 0.01, 0)
     with pytest.raises(ValueError, match="startst"):
-        sample_paths_cuda(T, fwds, valid, startst.int(), attens, 0)
-    with pytest.raises(ValueError, match="T"):
-        sample_paths_cuda(T[:512], fwds, valid, startst, attens, 0)
+        sample_paths_cuda(fwds, valid, startst.int(), attens, 0.05, 0.01, 0)
+    with pytest.raises(ValueError, match="attens"):
+        sample_paths_cuda(fwds, valid, startst, attens.double(), 0.05, 0.01,
+                          0)

@@ -1,8 +1,9 @@
 """The least-time counts of engine/roofline.py count the work a launch's data
 needs: padding the launch carries (event rows without a seed alignment,
-padded columns, padded levels; for the Viterbi sweep and sampler padded rows
-and padded regions) changes neither the bytes nor the operations of a
-launch."""
+padded columns, padded levels; for the Viterbi sweep, sampler and Gumbel
+kernel padded rows and padded regions) changes neither the bytes nor the
+operations of a launch, and the sampler's noise, which every region of a
+call shares, is counted once per call."""
 
 import numpy as np
 import pytest
@@ -12,7 +13,8 @@ from poreseq_tpu_torch.engine import TorchEngine
 from poreseq_tpu_torch.engine.align import backtrace
 from poreseq_tpu_torch.engine.fill import get_fill
 from poreseq_tpu_torch.engine.pack import fill_geometry
-from poreseq_tpu_torch.engine.roofline import (backtrace_work, fill_work,
+from poreseq_tpu_torch.engine.roofline import (SAMPLE_OPS, backtrace_work,
+                                               fill_work, viterbi_gumbel_work,
                                                viterbi_sample_work,
                                                viterbi_sweep_work)
 from poreseq_tpu_torch.engine.types import AlignData
@@ -74,11 +76,13 @@ def _viterbi_padded(kernel, rows=64, regions=3):
         return (viterbi_sweep_work(obs, n_real, bp),
                 viterbi_sweep_work(big, big_n, bp))
     liks, fwds, _ = viterbi_sweep(obs, n_real, 0.05, 0.01)
-    _, fwds, valid, _, attens = sample_inputs(liks, fwds, n_real, 4, 0.05,
-                                              0.01, 0.33, 0.75)
+    fwds, valid, _, attens = sample_inputs(liks, fwds, n_real, 4, 0.33, 0.75)
     big_f = torch.full((B + regions, R + rows, 1024), 1.0 / 1024.0)
     big_f[:B, :R] = fwds
     big_v = torch.arange(R + rows)[None, :] < big_n[:, None]
+    if kernel == "viterbi_gumbel":
+        return (viterbi_gumbel_work(valid, 4, fwds.dtype),
+                viterbi_gumbel_work(big_v, 4, fwds.dtype))
     return (viterbi_sample_work(fwds, valid, attens),
             viterbi_sample_work(big_f, big_v, attens))
 
@@ -86,7 +90,7 @@ def _viterbi_padded(kernel, rows=64, regions=3):
 @pytest.mark.parametrize("kernel", ["fill", "fill with steps", "backtrace",
                                     "viterbi_sweep",
                                     "viterbi_sweep with backpointers",
-                                    "viterbi_sample"])
+                                    "viterbi_sample", "viterbi_gumbel"])
 def test_work_counts_leave_out_padding(kernel):
     if kernel.startswith("viterbi"):
         work, padded = _viterbi_padded(kernel)
@@ -116,3 +120,23 @@ def test_work_counts_leave_out_padding(kernel):
     assert work == backtrace_work(big_ral, big_best, big_n0,
                                   batch.mean.dtype)
     assert work[0] > 0 and work[1] > 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_sampler_work_counts_the_noise_once_per_call(dtype):
+    """Twice the regions (the same rows) doubles the chains' arithmetic but
+    not the Gumbel noise's: the sampler's operations grow by the chains'
+    SAMPLE_OPS alone, and the Gumbel launch's work does not grow."""
+    n = torch.tensor([70, 45, 0])
+    valid = torch.arange(80)[None, :] < n[:, None]
+    fwds = torch.full((3, 80, 1024), 1.0 / 1024.0, dtype=dtype)
+    attens = torch.full((16,), 0.5, dtype=dtype)
+    one = viterbi_sample_work(fwds, valid, attens)
+    two = viterbi_sample_work(torch.cat([fwds, fwds]),
+                              torch.cat([valid, valid]), attens)
+    draws = int((n - 1).clamp(min=0).sum()) * 16
+    assert two[1] - one[1] == draws * 1024 * SAMPLE_OPS
+    noise = viterbi_gumbel_work(valid, 16, dtype)
+    assert noise == viterbi_gumbel_work(torch.cat([valid, valid]), 16, dtype)
+    assert one[1] == draws * 1024 * SAMPLE_OPS + noise[1]
+    assert noise[0] == 16 * 69 * 1024 * fwds.element_size()

@@ -294,3 +294,250 @@ def test_candidates_do_not_depend_on_the_batch(dtype, coverages):
     assert all(len(s) == 16 for s in solo)
     assert run([A, B, C]) == solo
     assert run([C, A]) == [solo[2], solo[0]]
+
+
+# ------------------------------------------------ the kernels' lane layout
+
+# levels 1..LEVELS_IN[team] are in-thread (common.cuh thread_levels): the
+# sweep's team of 8 warps and the sampler's 4
+LEVELS_IN = {4: 3, 8: 2}
+
+
+def _lanes(x, team):
+    """[..., 1024] -> [..., team, 32, 32 / team]: warp w, lane l, slot q
+    holds state l + 32 (w + team q) (common.cuh team_state)."""
+    w = np.arange(team)[:, None, None]
+    l = np.arange(32)[None, :, None]
+    q = np.arange(32 // team)[None, None, :]
+    return x[..., l + 32 * (w + team * q)]
+
+
+def _from_lanes(x, team):
+    """[..., team, 32, nq] slot values back to tree index l + 32(w + team q)."""
+    nq = x.shape[-1]
+    out = np.empty(x.shape[:-3] + (32 * team * nq,), x.dtype)
+    w = np.arange(team)[:, None, None]
+    l = np.arange(32)[None, :, None]
+    q = np.arange(nq)[None, None, :]
+    out[..., l + 32 * (w + team * q)] = x
+    return out
+
+
+def _team_tree(xs, team, op, planted=False):
+    """NumPy model of the Viterbi kernels' reductions (common.cuh
+    thread_levels, exchange_levels, the shuffles): xs a tuple of [..., 1024]
+    arrays (value, or value and state), op on such tuples.  In-thread levels
+    pair slot q with q + n; the exchange hands every warp the team's values;
+    level 6 is a shfl_down by 16; the total takes levels 6-10 by xor
+    shuffles, each lane's own value first.  Returns ({2, 4, 6: level by
+    tree index}, [..., 32] every lane's total).  planted pairs q with
+    (q + n) ^ 1 at level 1 (a wrong tree)."""
+    cut = lambda t, a, b: tuple(v[..., a:b] for v in t)
+    x = tuple(_lanes(v, team) for v in xs)
+    got = {}
+    for L in range(1, LEVELS_IN[team] + 1):
+        n = (16 >> (L - 1)) // team
+        other = cut(x, n, 2 * n)
+        if planted and L == 1 and n > 1:
+            other = tuple(v[..., np.arange(n, 2 * n) ^ 1] for v in x)
+        x = op(cut(x, 0, n), other)
+        if L in (2, 4):
+            got[L] = tuple(_from_lanes(v, team) for v in x)
+    y = tuple(np.swapaxes(v[..., 0], -1, -2) for v in x)   # [..., 32, team]
+    for L in range(LEVELS_IN[team] + 1, 6):
+        n = 16 >> (L - 1)
+        y = op(cut(y, 0, n), cut(y, n, 2 * n))
+        if L == 4:
+            got[4] = tuple(np.swapaxes(v, -1, -2).reshape(v.shape[:-2] + (64,))
+                           for v in y)
+    v5 = tuple(v[..., 0] for v in y)                        # lane l: c = l
+    got[6] = op(cut(v5, 0, 16), cut(v5, 16, 32))
+    tot, lanes = v5, np.arange(32)
+    for off in (16, 8, 4, 2, 1):
+        tot = op(tot, tuple(v[..., lanes ^ off] for v in tot))
+    return got, tot
+
+
+def _np_first_of(a, b):
+    v, s = _np_first_argmax(a[0], a[1], b[0], b[1])
+    return v, s
+
+
+@pytest.mark.parametrize("team", [4, 8])
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+def test_lane_layout_model_equals_halving_tree(team, dtype):
+    """The kernels' lane layout (lane l holds states l + 32m, levels
+    in-thread, one exchange, shuffles) gives the twins' halving tree bit for
+    bit: the sweep's group sums, maxima and first argmaxima (levels 2, 4,
+    6), the sampler's total on every lane and its first argmax; a planted
+    pairing change does not."""
+    rng = np.random.default_rng(team)
+    x = np.exp(rng.normal(0.0, 6.0, (5, 1024))).astype(dtype)
+    ties = rng.integers(-30, 4, (5, 1024)).astype(dtype)
+    states = np.broadcast_to(np.arange(1024), x.shape)
+    add = lambda a, b: (a[0] + b[0],)
+    mxo = lambda a, b: (np.maximum(a[0], b[0]),)
+    ref_s = _np_halving(x, 10, np.add)
+    ref_m = _np_halving(ties, 6, np.maximum)
+    ref_a, v, s = [], ties, states
+    for _ in range(10):
+        h = v.shape[-1] // 2
+        v, s = _np_first_argmax(v[..., :h], s[..., :h], v[..., h:], s[..., h:])
+        ref_a.append(s)
+    got_s, tot = _team_tree((x,), team, add)
+    got_m, _ = _team_tree((ties,), team, mxo)
+    got_a, best = _team_tree((ties, states), team, _np_first_of)
+    for L in (2, 4, 6):
+        np.testing.assert_array_equal(got_s[L][0], ref_s[L - 1])
+        np.testing.assert_array_equal(got_m[L][0], ref_m[L - 1])
+        np.testing.assert_array_equal(got_a[L][1], ref_a[L - 1])
+    np.testing.assert_array_equal(tot[0], np.repeat(ref_s[9], 32, axis=1))
+    np.testing.assert_array_equal(best[1], np.repeat(ref_a[9], 32, axis=1))
+    assert (ties == ties.max(axis=1, keepdims=True)).sum() > 5   # ties exist
+    planted, _ = _team_tree((x,), team, add, planted=True)
+    assert not np.array_equal(planted[2][0], ref_s[1])
+
+
+@pytest.mark.parametrize("skip_stay", [(0.05, 0.01), (0.141, 0.043),
+                                       (0.088, 0.057)])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_transition_table_equals_build_T(skip_stay, dtype):
+    """The sampler's 17 values of T, made from (skip, stay) in f64 and cast
+    to the working type as the kernel's launch casts them, indexed by the
+    step mask and the diagonal of every (cur, p), equal _build_T cast to
+    that type over all 1024 x 1024 pairs (the main path's skip/stay and two
+    of train's)."""
+    T = tv._build_T(*skip_stay)
+    tab = np.array(tv.transition_table(*skip_stay))
+    assert tab.shape == (17,) and tab.dtype == np.float64
+    idx = tv.transition_index(np.arange(1024)[:, None],
+                              np.arange(1024)[None, :])
+    np.testing.assert_array_equal(tab[idx], T)
+    got = torch.as_tensor(tab).to(dtype).numpy()[idx]
+    np.testing.assert_array_equal(
+        got, tv.transition_matrix(*skip_stay, dtype, "cpu").numpy())
+
+
+def _np_mix32(x):
+    """lowbias32 on uint32 arrays, as csrc/viterbi_gumbel.cu:mix32 computes
+    it (wrapping uint32 products)."""
+    x = x ^ (x >> np.uint32(16))
+    x = x * np.uint32(0x7FEB352D)
+    x = x ^ (x >> np.uint32(15))
+    x = x * np.uint32(0x846CA68B)
+    return x ^ (x >> np.uint32(16))
+
+
+def _gumbel_kernel_model(seed, nk, R, dtype):
+    """NumPy model of gumbel_kernel's launch: min(ceil(n / 256), 132 * 16)
+    blocks of 256 threads, thread t of block b visits e = b 256 + t +
+    j * blocks * 256 < n, decodes k = (e >> 10) / R, i = (e >> 10) % R,
+    s = e & 1023 and writes -log(-log(u)) of its own hash chain to g[e].
+    Returns (g flattened, how often each e was written)."""
+    n = nk * R * 1024
+    blocks = min(-(-n // 256), 132 * 16)
+    stride = blocks * 256
+    e = (np.arange(stride)[None, :]
+         + stride * np.arange(-(-n // stride))[:, None]).ravel()
+    e = e[e < n]
+    ki = e >> 10
+    k, i, s = ki // R, ki % R, e & 1023
+    with np.errstate(over="ignore"):
+        h0 = _np_mix32(np.uint32(seed) ^ np.uint32(0x9E3779B9))
+        hki = _np_mix32(_np_mix32(h0 ^ k.astype(np.uint32))
+                        ^ i.astype(np.uint32))
+        hi = _np_mix32(hki ^ s.astype(np.uint32))
+        if dtype == torch.float64:
+            lo = _np_mix32(hki ^ (s + 1024).astype(np.uint32))
+            x = ((hi.astype(np.uint64) >> np.uint64(12)) << np.uint64(32)) \
+                | lo.astype(np.uint64)
+            u = (x.astype(np.float64) + 0.5) * 2.0 ** -52
+        else:
+            u = ((hi >> np.uint32(9)).astype(np.float32) + np.float32(0.5)) \
+                * np.float32(2.0 ** -23)
+    g = np.full(n, np.nan, u.dtype)
+    t = torch.from_numpy(u)
+    g[e] = (-torch.log(-torch.log(t))).numpy()
+    return g, np.bincount(e, minlength=n)
+
+
+@pytest.mark.parametrize("nk,R", [(1, 3), (16, 40), (3, 700)])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_gumbel_kernel_indexing_model(nk, R, dtype):
+    """A model of the Gumbel kernel's grid-stride launch (its block count,
+    its index decode, its uint32 hash) writes every element of the twin's
+    [nk, R, 1024] block once, equal element by element; (16, 40) and
+    (3, 700) take 2 and 4 strides of the grid."""
+    g, visits = _gumbel_kernel_model(7, nk, R, dtype)
+    assert np.all(visits == 1)
+    ref = tv.gumbel_reference(7, nk, torch.arange(R), dtype)
+    np.testing.assert_array_equal(g.reshape(nk, R, 1024), ref.numpy())
+
+
+def _order_key(v):
+    """NumPy model of common.cuh order_key: NaN on top, -0 as +0, the
+    sign-magnitude bits made monotone."""
+    bits = {np.float32: (np.uint32, 31), np.float64: (np.uint64, 63)}
+    ut, top = bits[v.dtype.type]
+    u = (v + v.dtype.type(0)).view(ut)
+    neg = (u >> ut(top)) == 1
+    key = np.where(neg, ~u, u | (ut(1) << ut(top)))
+    return np.where(np.isnan(v), np.iinfo(ut).max, key)
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+def test_argmax_order_key_equals_torch_argmax(dtype):
+    """The sampler's argmax (the largest order key, then the smallest state
+    among its holders) is torch.argmax's first maximum: NaN first, -0 equal
+    to +0, ties to the smaller index."""
+    rng = np.random.default_rng(3)
+    special = np.array([np.nan, -0.0, 0.0, np.inf, -np.inf, 1.5, -1.5,
+                        np.finfo(dtype).tiny / 4, -np.finfo(dtype).max],
+                       dtype)
+    for _ in range(200):
+        v = rng.choice(special, 64)
+        if rng.random() < 0.5:
+            v = np.where(np.isnan(v), dtype(2.0), v)
+        key = _order_key(v)
+        got = int(np.nonzero(key == key.max())[0][0])
+        assert got == int(torch.argmax(torch.from_numpy(v))), v
+    x = rng.normal(size=4096).astype(dtype)
+    order = np.argsort(_order_key(x), kind="stable")
+    assert np.all(np.diff(x[order]) >= 0)
+
+
+def _div_total(a, tot):
+    """NumPy model of common.cuh div_total: a zero numerator is not divided
+    (0 / tot is that zero for a positive finite tot), and an f32 quotient
+    is taken in f64 and rounded to f32."""
+    ok = (tot > 0) & np.isfinite(tot)
+    zero = (a == 0) & ok
+    wide = np.float64 if a.dtype == np.float32 else a.dtype.type
+    q = (np.where(zero, 1, a).astype(wide) / wide(tot)).astype(a.dtype)
+    return np.where(zero, a, q)
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+def test_div_total_is_the_divide(dtype):
+    """The kernels' row-total divide gives the divide's bits: zeros of either
+    sign, subnormal and normal numerators, exact quotients and subnormal
+    midpoints, over positive, zero, infinite and NaN totals."""
+    rng = np.random.default_rng(8)
+    fi = np.finfo(dtype)
+    mant = rng.random(20000) + 0.5
+    expo = rng.integers(fi.minexp - fi.nmant - 2, 4, 20000)
+    a = (mant * np.exp2(expo.astype(np.float64))).astype(dtype)
+    a[::7] = 0
+    a[1::7] = -0.0
+    a[2::7] = fi.smallest_subnormal * rng.integers(1, 64, a[2::7].size)
+    sub_mid = np.array([9, 15, 21], dtype) * fi.smallest_subnormal  # / 6
+    with np.errstate(divide="ignore", invalid="ignore"):
+        for tot in (dtype(1), dtype(6), dtype(0.37), dtype(1e-3),
+                    dtype(3.0e4), dtype(0), dtype(np.inf), dtype(np.nan)):
+            for x in (a, sub_mid):
+                got, ref = _div_total(x, tot), x / tot
+                assert got.dtype == ref.dtype
+                np.testing.assert_array_equal(got.view(f"u{got.itemsize}")[
+                    ~np.isnan(ref)], ref.view(f"u{ref.itemsize}")[
+                    ~np.isnan(ref)])
+                assert np.array_equal(np.isnan(got), np.isnan(ref))
