@@ -49,10 +49,23 @@ non-zero, nothing runs on the CPU instead):
                 transition operands;
   6. multihost — two processes on the card run `consensus --coordinator`
                 over 4 regions; each OUTPUT.pN equals, byte for byte, a
-                single-process run of its regions (--shard-index).
-Phases 2b-6 reset the kernels' launch counters before they start and report
-them after.  The line before the last is a JSON object with one entry per
-kernel; the last line is {"ok": true, "device": {...}}.
+                single-process run of its regions (--shard-index);
+  7. mesh     — phase 3's run through pipeline.mutate_many (the function
+                the CLI's consensus calls) on an engine whose ev x mut mesh
+                is 2x2 of the one card (cuda:0 four times): every shard
+                launches the fill, the backtrace and the group scorer, mean
+                accuracy >= 99.0 %, and the count of regions whose sequence
+                differs from phase 3's is printed (the mesh takes the host's
+                scoring geometry in f32, phase 3 the device's), with the
+                wall, launches and peak device memory beside phase 3's;
+                then one Refine call (phase 2's 8 regions) on the mesh
+                equals the single-device call's totals bit for bit, f64 and
+                f32, on the same (host) geometry.
+Phase 2 also holds the fill, backtrace and group scorer on cuda:1 in f64
+when torch sees a second card.  Phases 2b-7 reset the kernels' launch
+counters before they start and report them after.  The line before the
+last is a JSON object with one entry per kernel; the last line is
+{"ok": true, "device": {...}}.
 Kernel times are CUDA-event times of 20 launches after two warm-up
 launches, over 20; the twins' and the phases' are host walls closed by a
 synchronize.
@@ -651,6 +664,17 @@ def phase_kernels(seed: int):
         check_backtrace(engine, _session(seed), f64, report)
         check_mutscore(engine, regions, f64, report)
         check_viterbi(engine, events, seed, f64, report)
+    if torch.cuda.device_count() < 2:
+        print(f"[kernels] cuda:1: skipped, torch sees "
+              f"{torch.cuda.device_count()} card", flush=True)
+        return report
+    # the wrappers launch on their operands' card: the same holds on cuda:1
+    engine, second = TorchEngine("cuda:1", torch.float64), {}
+    check_fill(engine, seed, True, second)
+    check_backtrace(engine, _session(seed), True, second)
+    check_mutscore(engine, _mut_regions(seed), True, second)
+    print(f"[kernels] cuda:1: fill, backtrace and group scorer equal their "
+          f"twins in f64", flush=True)
     return report
 
 
@@ -930,6 +954,7 @@ def phase_e2e(seed: int, profile: str | None = None):
         rf = _write_lines(os.path.join(d, "regions.txt"), regions)
         out = os.path.join(d, "out.fasta")
         _reset_launches()
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         with engine_seconds() as secs:
             cli.main(["consensus", fasta, bam, reads_dir, "-R", rf, "-p",
@@ -938,6 +963,7 @@ def phase_e2e(seed: int, profile: str | None = None):
                      + (["--profile", profile] if profile else []))
             torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
         if profile:
             from poreseq_tpu_torch import trace_summary
 
@@ -962,11 +988,13 @@ def phase_e2e(seed: int, profile: str | None = None):
           f"(min {min(accs):.3f}%), launches {launches}, engine host "
           f"seconds (calls, s) "
           f"{ {m: (n, round(t, 3)) for m, (n, t) in secs.items()} }, "
+          f"peak device memory {peak / 2**20:.1f} MiB, "
           f"fast5 via {fast5_io} | {gpu_line()}", flush=True)
     if acc < 99.0:
         fail(f"e2e mean accuracy {acc:.3f}% < 99.0%")
     _need_launches("e2e", launches)
-    return launches
+    return launches, dict(seqs=seqs, wall=wall, peak=peak, acc=acc,
+                          secs=secs)
 
 
 def _captured(argv):
@@ -1225,6 +1253,111 @@ def phase_multihost(seed: int):
     return launches
 
 
+def _refine_totals(engine, regions):
+    """The Refine call of phase 2's 8 regions (a copy, realigned in place)
+    on ``engine``, on the host's scoring geometry: totals [G, P] per class,
+    and the call's wall (closed by a synchronize)."""
+    import copy
+
+    import torch
+
+    from poreseq_tpu_torch.engine.mutscore import (group_launches,
+                                                   group_totals,
+                                                   group_totals_sharded)
+
+    datas, mlists = copy.deepcopy(regions)
+    run = group_totals if engine.mesh is None else group_totals_sharded
+    t0 = time.perf_counter()
+    out = [run(*args) for _, _, args in group_launches(
+        engine, datas, mlists, [True] * len(datas), host_geometry=True)]
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def phase_mesh(seed: int, e2e: dict, e2e_launches: dict):
+    """7: phase 3's consensus on a 2x2 ev x mut mesh of the one card, then
+    one sharded Refine call against the single-device call."""
+    import torch
+
+    from poreseq_tpu_torch import pipeline
+    from poreseq_tpu_torch.api import swalign
+    from poreseq_tpu_torch.core.params import load_params
+    from poreseq_tpu_torch.engine import TorchEngine
+    from poreseq_tpu_torch.parallel.mesh import make_mesh
+
+    _fast5_io()
+    card = [torch.device("cuda:0")] * 4
+    mesh = make_mesh(2, 2, card)
+    engine = TorchEngine("cuda", torch.float32, mesh=mesh)
+    d = tempfile.mkdtemp(prefix="psq_smoke_mesh_")
+    try:
+        truth, fasta, bam, reads, conf, regions = _e2e_run(d, seed)
+        params = dict(load_params(conf), verbose=0)
+        _reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with engine_seconds() as secs:
+            results = pipeline.mutate_many(fasta, bam, reads, regions,
+                                           params=params, verbose=0, reps=4,
+                                           engine=engine)
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        launches = _launches()
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    if any(r is None for r in results):
+        fail(f"mesh: {sum(r is None for r in results)} regions skipped")
+    seqs = dict(zip(regions, (r[0] for r in results)))
+    accs = [swalign(s, truth[max(int(n.split(":")[1]) - 400, 0)
+                             : int(n.split(":")[2]) + 400])[0]
+            for n, s in seqs.items()]
+    acc = float(np.mean(accs))
+    differ = sum(seqs[n] != e2e["seqs"].get(n) for n in regions)
+    shards = mesh.shard_launches()
+    missing = [(sh, k) for sh, n in shards.items() for k in ALIGN_KERNELS
+               if n.get(k, 0) <= 0]
+
+    # one Refine call, sharded vs single device, on the same operands
+    refine = _mut_regions(seed)["refine"]
+    held, walls = {}, {}
+    for dt in (torch.float64, torch.float32):
+        single, w1 = _refine_totals(TorchEngine("cuda", dt), refine)
+        sharded, w2 = _refine_totals(
+            TorchEngine("cuda", dt, mesh=make_mesh(2, 2, card)), refine)
+        if len(single) != len(sharded) or not all(
+                torch.equal(a, b) for a, b in zip(single, sharded)):
+            fail(f"mesh: the sharded Refine call's totals differ from the "
+                 f"single device's ({dt})")
+        held[dt] = sum(a.shape[0] for a in single)
+        walls[dt] = (w1, w2)
+    print(f"[mesh] consensus {E2E_REGIONS} x 1 kb at 10X on a 2x2 mesh of "
+          f"cuda:0, widths 300/100/20, -i 4, 8 regions a batch: wall "
+          f"{wall:.2f} s (phase 3 {e2e['wall']:.2f} s), mean accuracy "
+          f"{acc:.3f}% (min {min(accs):.3f}%; phase 3 {e2e['acc']:.3f}%), "
+          f"{differ} of {len(regions)} regions differ from phase 3's FASTA, "
+          f"launches {launches} (phase 3 {e2e_launches}), engine host "
+          f"seconds (calls, s) "
+          f"{ {m: (n, round(t, 3)) for m, (n, t) in secs.items()} } (phase 3 "
+          f"{ {m: (n, round(t, 3)) for m, (n, t) in e2e['secs'].items()} }), "
+          f"per shard "
+          f"{ {f'{i}x{j}': n for (i, j), n in shards.items()} }, peak "
+          f"device memory {peak / 2**20:.1f} MiB (phase 3 "
+          f"{e2e['peak'] / 2**20:.1f} MiB); Refine call of phase 2's 8 "
+          f"regions: sharded totals equal the single device's over "
+          f"{held[torch.float64]} / {held[torch.float32]} groups (f64 / "
+          f"f32), walls single / mesh f64 "
+          f"{walls[torch.float64][0]:.2f} / {walls[torch.float64][1]:.2f} s, "
+          f"f32 {walls[torch.float32][0]:.2f} / "
+          f"{walls[torch.float32][1]:.2f} s | {gpu_line()}", flush=True)
+    if missing:
+        fail(f"mesh: shards that never launched a kernel: {missing}")
+    if acc < 99.0:
+        fail(f"mesh mean accuracy {acc:.3f}% < 99.0%")
+    _need_launches("mesh", launches)
+    return launches
+
+
 # why each kernel's library_ms is null
 LIBRARY_NOTE = {
     "fill": "no single PyTorch call computes a banded max-plus pair-HMM fill",
@@ -1264,10 +1397,12 @@ def main():
     kernels = phase_build()
     report = phase_kernels(args.seed)
     phase_viterbi(args.seed)
-    by_phase, held = {"e2e": phase_e2e(args.seed, args.profile)}, {}
+    by_phase, held = {}, {}
+    by_phase["e2e"], e2e = phase_e2e(args.seed, args.profile)
     by_phase["variant"], held["variant"] = phase_variant(args.seed)
     by_phase["train"], held["train"] = phase_train(args.seed)
     by_phase["multihost"] = phase_multihost(args.seed)
+    by_phase["mesh"] = phase_mesh(args.seed, e2e, by_phase["e2e"])
 
     held_keys = {"fill": ("fill fwd", "fill bwd"), "mutscore": ("mutscore",),
                  "backtrace": (), "viterbi_sweep": (), "viterbi_sample": (),
@@ -1286,10 +1421,11 @@ def main():
             held_launches={p: {hk: t[hk] for hk in held_keys[k.name]}
                            for p, t in held.items()}))
     print(json.dumps({"kernels": entries}), flush=True)
-    # the run used one card (phase 6 puts both processes on cuda:0)
+    # the run needs one card (phases 6 and 7 put every process and shard on
+    # cuda:0)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": 1}}), flush=True)
+        "count": torch.cuda.device_count()}}), flush=True)
 
 
 if __name__ == "__main__":

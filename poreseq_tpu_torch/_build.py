@@ -94,12 +94,17 @@ def build_host(name: str) -> Path:
     return lib
 
 
+#: every Kernel made, in the order their modules define them
+KERNELS: list = []
+
+
 class Kernel:
     """One csrc/<name>.cu library: built and loaded on first use, with a
     plain-integer ``launches`` count that its wrapper bumps once per kernel
     launch (never for a twin call).  Distinct kernels build concurrently."""
 
     def __init__(self, name: str, replaces: str, signatures: dict):
+        KERNELS.append(self)
         self.name = name
         self.replaces = replaces
         self.source = f"poreseq_tpu_torch/csrc/{name}.cu"
@@ -121,10 +126,14 @@ class Kernel:
                 self._lib = lib
         return self._lib
 
-    def call(self, fn: str, *args) -> None:
-        """Run one C entry point (it launches on the current stream and
-        returns cudaGetLastError()); raise on a refused launch."""
-        err = getattr(self.lib(), fn)(*args)
+    def call(self, fn: str, device: torch.device, *args) -> None:
+        """Run one C entry point under ``device`` (its operands' card: the
+        CUDA runtime's current device, so ``cudaFuncSetAttribute`` and the
+        launch reach that card); the entry launches on the stream passed
+        in ``args`` (``stream(device)``) and returns cudaGetLastError().
+        Raise on a refused launch."""
+        with torch.cuda.device(device):
+            err = getattr(self.lib(), fn)(*args)
         if err != 0:
             raise RuntimeError(f"{self.name}.{fn}: CUDA error {err}")
         self.launches += 1
@@ -134,8 +143,9 @@ def ptr(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
 
 
-def stream() -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+def stream(device: torch.device) -> ctypes.c_void_p:
+    """The current stream of ``device`` (not of the current device)."""
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
 
 
 def check(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple,
@@ -153,12 +163,16 @@ def check(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple,
 
 
 def route(*tensors: torch.Tensor) -> str:
-    """'cpu' (plain twin) or 'cuda' (kernel) for a kernel wrapper's operands;
-    anything else raises."""
+    """'cpu' (plain twin) or 'cuda' (kernel, all operands on one card) for
+    a kernel wrapper's operands; anything else raises."""
     kinds = {t.device.type for t in tensors}
     if kinds == {"cpu"}:
         return "cpu"
     if kinds == {"cuda"}:
+        cards = {t.device for t in tensors}
+        if len(cards) > 1:
+            raise ValueError(f"kernel operands on {sorted(map(str, cards))}: "
+                             "need all on one CUDA device")
         return "cuda"
     raise ValueError(f"kernel operands on {sorted(kinds)}: need all-cpu "
                      "(plain twin) or all-cuda (kernel)")

@@ -10,7 +10,8 @@ cpu) on those that run the engine:
   --shard-index/--num-shards deal the regions round-robin by hand,
   --coordinator/--num-processes/--process-id do it for a multi-process run
   (each process writes OUTPUT.pN), --profile DIR writes a torch.profiler
-  Chrome trace.
+  Chrome trace, --mesh EVxMUT|auto shards each region's events and
+  mutation groups over a device mesh (``parallel/mesh.py``).
 - ``variant``: ``pipeline.variant`` per region (-f variant sequences,
   -m a mutation file, -a every point mutation); scores go to stdout.
 - ``train``: hill-climbs the transition parameters: every iteration's 16
@@ -90,6 +91,12 @@ def main(argv=None):
     p.add_argument("--profile", default=None, metavar="DIR",
                    help="write a torch.profiler Chrome trace of the run "
                    "into DIR")
+    p.add_argument("--mesh", default=None, metavar="EVxMUT",
+                   help="device mesh of each region's events x mutation "
+                   "groups (e.g. '8' or '4x2'; 'auto' = every card on the "
+                   "event axis): shard k on cuda:N+k for --device cuda:N, "
+                   "every shard on the CPU for --device cpu; with too few "
+                   "cards the run is single-device")
     _add_multihost(p, "; regions are dealt round-robin across processes "
                    "and each process writes OUTPUT.pN")
     _add_device(p)
@@ -176,6 +183,37 @@ def _add_device(p):
                    "in a multi-process run give each process its own")
 
 
+def resolve_mesh(spec, device: torch.device):
+    """The engine mesh for ``--mesh`` (the JAX CLI's meaning): None, '',
+    'none', 'off' or '0' -> single device; 'auto' -> every device on the
+    'ev' axis; 'A' or 'AxB' -> (ev=A, mut=B).  On a CUDA device shard k is
+    cuda:N+k (N the device's index); on the CPU every shard is the CPU,
+    which is one device to 'auto'.  With fewer devices than shards, one
+    stderr line and a single-device run (None)."""
+    from .parallel.mesh import make_mesh
+
+    spec = (spec or "").strip().lower()
+    if spec in ("", "0", "none", "off"):
+        return None
+    cpu = device.type == "cpu"
+    base = device.index or 0
+    n = 1 if cpu else max(torch.cuda.device_count() - base, 0)
+    if spec == "auto":
+        if n < 2:
+            return None
+        n_ev, n_mut = n, 1
+    else:
+        a, _, b = spec.partition("x")
+        n_ev, n_mut = int(a), int(b or 1)
+        if not cpu and n_ev * n_mut > n:
+            sys.stderr.write("--mesh {} needs {} devices, have {}; running "
+                             "single-device\n".format(spec, n_ev * n_mut, n))
+            return None
+    devices = ([device] * (n_ev * n_mut) if cpu else
+               [torch.device("cuda", base + k) for k in range(n_ev * n_mut)])
+    return make_mesh(n_ev, n_mut, devices)
+
+
 def parse_regions(args):
     """Region resolution (cmdline.py:127-165)."""
     regions = []
@@ -243,7 +281,8 @@ def _consensus(args):
         regions = shard_regions(regions, args.shard_index, args.num_shards)
 
     device = torch.device(args.device)
-    engine = TorchEngine(device=device)
+    engine = TorchEngine(device=device,
+                         mesh=resolve_mesh(args.mesh, device))
 
     # region-granular resume: output is flushed after every region
     done = set()

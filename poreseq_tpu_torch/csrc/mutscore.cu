@@ -341,10 +341,22 @@ static int launch(const MutArgs* a, void* stream) {
     if (err != cudaSuccess) return (int)err;
   }
   const int GP = a->G * a->P;
-  if (GP > 0)
+  if (GP > 0 && a->totals)       // no totals: the deltas are summed later
     sum_rows_kernel<T><<<(GP + 255) / 256, 256, 0, st>>>(
         static_cast<const T*>(a->deltas), static_cast<T*>(a->totals), GP,
         a->E_g);
+  return (int)cudaGetLastError();
+}
+
+// totals [GP] from deltas [GP, E_g] alone: the reduction over a mesh's
+// gathered per-shard deltas, in the same row order as in launch()
+template <typename T>
+static int sum_rows(const void* deltas, void* totals, int GP, int E_g,
+                    void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (GP > 0)
+    sum_rows_kernel<T><<<(GP + 255) / 256, 256, 0, st>>>(
+        static_cast<const T*>(deltas), static_cast<T*>(totals), GP, E_g);
   return (int)cudaGetLastError();
 }
 
@@ -354,4 +366,14 @@ extern "C" int psq_mutscore_f32(const MutArgs* a, void* stream) {
 
 extern "C" int psq_mutscore_f64(const MutArgs* a, void* stream) {
   return launch<double>(a, stream);
+}
+
+extern "C" int psq_sum_rows_f32(const void* deltas, void* totals, int GP,
+                                int E_g, void* stream) {
+  return sum_rows<float>(deltas, totals, GP, E_g, stream);
+}
+
+extern "C" int psq_sum_rows_f64(const void* deltas, void* totals, int GP,
+                                int E_g, void* stream) {
+  return sum_rows<double>(deltas, totals, GP, E_g, stream);
 }

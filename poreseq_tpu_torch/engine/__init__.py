@@ -9,7 +9,12 @@ device batch, one fill program and one group-scorer launch per class.
 
 The device is explicit: every tensor is created on ``device``.  On
 ``device="cpu"`` the kernel wrappers run their plain PyTorch twins; on a
-CUDA device they launch the hand kernels of ``csrc/`` or raise.
+CUDA device they launch the hand kernels of ``csrc/`` or raise.  With a
+``mesh`` (``parallel/mesh.py``) one region's events shard over its 'ev'
+axis and its mutation groups over 'mut': the fills, the backtrace and the
+group scorer run per shard on the shard's device, and the results equal the
+single device's bit for bit; the Viterbi stage runs on the mesh's first
+device, which is the engine's ``device``.
 
 A failure inside an engine call (a build, a refused launch, a device fault,
 a bad operand) leaves it as ``EngineError``, so the CLI's per-region failure
@@ -26,7 +31,8 @@ import numpy as np
 import torch
 
 from ..core.sequence import seq_to_states
-from .align import fwd_dev, fwd_likes
+from ..parallel.mesh import ShardedBatch
+from .align import fwd_dev, fwd_dev_sharded, fwd_likes
 from .pack import (event_ref_indexes, fill_geometry, pack_events, place_full,
                    round_up, to_device_batch)
 from .sw import map_alignments as _map_alignments
@@ -67,8 +73,16 @@ class TorchEngine:
     #: chunking does not change results
     wave_rows = 512
 
-    def __init__(self, device="cuda", dtype=torch.float32, seed: int = 0):
+    def __init__(self, device="cuda", dtype=torch.float32, seed: int = 0,
+                 mesh=None):
         self.device = torch.device(device)
+        self.mesh = mesh
+        if mesh is not None:
+            if {d.type for r in mesh.devices for d in r} != {
+                    self.device.type}:
+                raise ValueError(f"TorchEngine: {mesh} is not all on "
+                                 f"{self.device.type}")
+            self.device = mesh.first
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("TorchEngine(device='cuda'): CUDA is not "
                                "available")
@@ -103,9 +117,10 @@ class TorchEngine:
             for ev in events)
 
     def _batch_for(self, events, ref_indexes):
-        """Packed arrays + device batch for an event list, cached by content
-        fingerprint; `active` refreshed from the given ref_indexes."""
-        fp = self._fingerprint(events)
+        """Packed arrays + device batch for an event list (a ShardedBatch on
+        a mesh), cached by content fingerprint; `active` refreshed from the
+        given ref_indexes."""
+        fp = self._fingerprint(events) + (repr(self.mesh),)
         hit = self._bcache.get(fp)
         if hit is not None:
             batch, arrays = hit
@@ -115,17 +130,27 @@ class TorchEngine:
             active = np.array([len(r) > 0 for r in ref_indexes])
             if not np.array_equal(active, arrays["active"]):
                 arrays = dict(arrays, active=active)
-                batch = batch._replace(
-                    active=torch.as_tensor(active, device=self.device))
+                batch = self._with_active(batch, active)
                 self._bcache[fp] = (batch, arrays)
         else:
-            arrays, ref_indexes = pack_events(events)
-            batch = to_device_batch(arrays, self.dtype, self.device)
+            if self.mesh is not None:
+                arrays, ref_indexes = pack_events(events,
+                                                  e_div=self.mesh.n_ev)
+                batch = ShardedBatch.upload(self.mesh, arrays, self.dtype)
+            else:
+                arrays, ref_indexes = pack_events(events)
+                batch = to_device_batch(arrays, self.dtype, self.device)
             self._bcache[fp] = (batch, arrays)
             self._bcache_order.append(fp)
             if len(self._bcache_order) > 4:
                 self._bcache.pop(self._bcache_order.pop(0), None)
         return batch, arrays, ref_indexes
+
+    def _with_active(self, batch, active: np.ndarray):
+        if self.mesh is not None:
+            return batch.with_active(active)
+        return batch._replace(
+            active=torch.as_tensor(active, device=self.device))
 
     def _prepare_multi(self, datas: list[AlignData], participate=None):
         """Combined context for R regions: one packed batch, per-event
@@ -158,8 +183,7 @@ class TorchEngine:
                              for r in ev_region])
             active = arrays["active"] & mask
             arrays = dict(arrays, active=active)
-            batch = batch._replace(
-                active=torch.as_tensor(active, device=self.device))
+            batch = self._with_active(batch, active)
 
         return dict(batch=batch, arrays=arrays, ref_indexes=ref_indexes,
                     n0=n0, E=E, ev_region=ev_region, S_list=S_list,
@@ -225,12 +249,19 @@ class TorchEngine:
         fi = fill_geometry(arrays, ctx["ref_indexes"], ctx["S_e"], ctx["C"],
                            p.realign_width)
         T = arrays["mean"].shape[1]
-        t = lambda x: torch.as_tensor(x, device=self.device)
-        args = (ctx["batch"], t(ctx["states2"]), t(fi["i0"]), t(fi["i1"]),
-                t(fi["is_pad"]), float(p.lik_offset), p.realign_width, T,
+        geom = (ctx["states2"], fi["i0"], fi["i1"], fi["is_pad"])
+        if self.mesh is None:
+            geom = tuple(torch.as_tensor(x, device=self.device) for x in geom)
+        args = (ctx["batch"], *geom, float(p.lik_offset), p.realign_width, T,
                 int(ctx["C"] + 2 * T + 8), int(ctx["C"]))
         ral = rlk = None
-        if likes_only:
+        if self.mesh is not None:
+            out = fwd_dev_sharded(self.mesh, *args, likes_only=likes_only)
+            if likes_only:
+                best, vals = out
+            else:
+                best, ral, rlk, vals = out
+        elif likes_only:
             best, vals = fwd_likes(*args)
         else:
             best, ral, rlk, vals = fwd_dev(*args)

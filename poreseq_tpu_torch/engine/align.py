@@ -14,6 +14,7 @@ import ctypes
 import torch
 
 from .._build import Kernel, check, dtype_suffix, ptr, route, stream
+from ..parallel.mesh import gather, shard_rows
 from .dp import EXTEND, IGNORE, INSERT, MATCH, SKIP, STAY
 from .fill import get_fill
 
@@ -87,10 +88,10 @@ def backtrace_cuda(M, S, steps_m, steps_s, i0, i1, best_i, best_j,
         check(n, t, torch.int32, (E,), dev)
     ral = torch.empty((E, t_pad), dtype=dt, device=dev)
     rlk = torch.empty((E, t_pad), dtype=dt, device=dev)
-    BACKTRACE.call(f"psq_backtrace_{dtype_suffix(dt)}",
+    BACKTRACE.call(f"psq_backtrace_{dtype_suffix(dt)}", dev,
                    ptr(M), ptr(S), ptr(steps_m), ptr(steps_s), ptr(i0),
                    ptr(i1), ptr(best_i), ptr(best_j), ptr(ral), ptr(rlk),
-                   C, E, W, t_pad, max_steps, stream())
+                   C, E, W, t_pad, max_steps, stream(dev))
     return ral, rlk
 
 
@@ -155,3 +156,56 @@ def both_dev(batch, states, i0, i1, is_pad, lik_offset, width: int,
     blank = lambda x: torch.cat([torch.zeros_like(x[:1]), x])
     return (blank(rf.M), blank(rf.S), blank(rb.M), blank(rb.S),
             blank(rf.best_pfx), blank(rb.best_pfx), ral, rlk)
+
+
+def fwd_dev_sharded(mesh, batch, states, i0, i1, is_pad, lik_offset,
+                    width: int, t_pad: int, max_steps: int, n_like: int,
+                    likes_only: bool = False):
+    """fwd_dev on a mesh (``parallel/mesh.py``): 'ev' shard i's rows run
+    the unchanged fill and backtrace on the first device of mesh row i;
+    (best, ral, rlk, likes) come back in global row order on the mesh's
+    first device, (best, likes) when ``likes_only`` (fwd_likes).  ``batch``
+    is a ShardedBatch; states [C, E], i0/i1 [E, C+1] and is_pad [C, E] are
+    global (numpy or torch)."""
+    outs = []
+    for i, (lo, hi) in enumerate(batch.bounds):
+        dev = mesh.devices[i][0]
+        with mesh.on(i, mesh.serves(i, dev)):
+            outs.append(fwd_dev(
+                batch.parts[i][dev], shard_rows(states, lo, hi, dev, 1),
+                shard_rows(i0, lo, hi, dev), shard_rows(i1, lo, hi, dev),
+                shard_rows(is_pad, lo, hi, dev, 1), lik_offset, width,
+                t_pad, max_steps, n_like))
+    best, ral, rlk, likes = ([o[k] for o in outs] for k in range(4))
+    if likes_only:
+        return gather(best, mesh.first), gather(likes, mesh.first)
+    return tuple(gather(x, mesh.first) for x in (best, ral, rlk, likes))
+
+
+def both_dev_sharded(mesh, batch, states, i0, i1, is_pad, lik_offset,
+                     width: int, t_pad: int, max_steps: int):
+    """both_dev on a mesh: 'ev' shard i's rows run both fills and the
+    backtrace once on each distinct device of mesh row i, where that
+    device's group-scorer shards read the lattices.  Returns (shards, ral,
+    rlk): shards[i][device] = dict(batch, i0f, i1f, Mf, Sf, Mb, Sb, bpf,
+    bpb) for the shard's rows, and ral/rlk [E, T] in global row order on
+    the mesh's first device.  Arguments as in fwd_dev_sharded."""
+    shards, rals, rlks = [], [], []
+    for i, (lo, hi) in enumerate(batch.bounds):
+        row = {}
+        for dev in mesh.row_devices(i):
+            b = batch.parts[i][dev]
+            i0f = shard_rows(i0, lo, hi, dev)
+            i1f = shard_rows(i1, lo, hi, dev)
+            with mesh.on(i, mesh.serves(i, dev)):
+                Mf, Sf, Mb, Sb, bpf, bpb, ral, rlk = both_dev(
+                    b, shard_rows(states, lo, hi, dev, 1), i0f, i1f,
+                    shard_rows(is_pad, lo, hi, dev, 1), lik_offset, width,
+                    t_pad, max_steps)
+            row[dev] = dict(batch=b, i0f=i0f, i1f=i1f, Mf=Mf, Sf=Sf, Mb=Mb,
+                            Sb=Sb, bpf=bpf, bpb=bpb)
+            if dev == mesh.devices[i][0]:
+                rals.append(ral)
+                rlks.append(rlk)
+        shards.append(row)
+    return shards, gather(rals, mesh.first), gather(rlks, mesh.first)

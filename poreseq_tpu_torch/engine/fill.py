@@ -78,7 +78,8 @@ def fill_cuda(batch: EventBatch, states, i0, i1, is_pad, lik_offset,
         ptr(batch.n0), ptr(active), ptr(states), ptr(pad), ptr(i0), ptr(i1),
         ptr(M), ptr(S), ptr(sm), ptr(ss), ptr(cmax), ptr(carg),
         C, E, W, T, int(backward), int(need_steps), float(lik_offset))
-    FILL.call(f"psq_fill_{dtype_suffix(dt)}", ctypes.byref(args), stream())
+    FILL.call(f"psq_fill_{dtype_suffix(dt)}", dev, ctypes.byref(args),
+              stream(dev))
     return M, S, sm, ss, cmax, carg
 
 

@@ -24,10 +24,11 @@ import ctypes
 import numpy as np
 import torch
 
-from .._build import Kernel, check, dtype_suffix, route, stream
+from .._build import Kernel, check, dtype_suffix, ptr, route, stream
+from ..parallel.mesh import pad_axis, shard_rows
 from ..core.sequence import (_POW4, apply_mutation, seq_to_codes,
                               seq_to_states)
-from .align import both_dev
+from .align import both_dev, both_dev_sharded
 from .dp import (DMAX, MODEL_FIELDS, column_solve, emission,
                  level_windows, neg_big, window)
 from .pack import (event_ref_indexes, fill_geometry, limited_geometry,
@@ -505,15 +506,31 @@ class _MutArgs(ctypes.Structure):
 
 
 _SIG = [ctypes.POINTER(_MutArgs), ctypes.c_void_p]
+_SUM_SIG = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
 MUTSCORE = Kernel(
     "mutscore", "poreseq_tpu/engine/tpu/pallas_mutscore.py:195 _kernel",
-    {"psq_mutscore_f32": _SIG, "psq_mutscore_f64": _SIG})
+    {"psq_mutscore_f32": _SIG, "psq_mutscore_f64": _SIG,
+     "psq_sum_rows_f32": _SUM_SIG, "psq_sum_rows_f64": _SUM_SIG})
 
 
 def group_totals_cuda(batch, Mf, Sf, Mb, Sb, i0f, i1f, i0r, i1r, win, bpf,
                       bpb, ev_region, gp, lik_offset, W, Ws, RS, K, P, DM,
                       E_g):
     """Launch csrc/mutscore.cu: (totals [G, P], deltas [G, P, E_g])."""
+    return _launch_groups(True, batch, Mf, Sf, Mb, Sb, i0f, i1f, i0r, i1r,
+                          win, bpf, bpb, ev_region, gp, lik_offset, W, Ws,
+                          RS, K, P, DM, E_g)
+
+
+def group_deltas_cuda(*args):
+    """Launch csrc/mutscore.cu's group kernel alone (group_totals_cuda's
+    arguments): deltas [G, P, E_g], summed later by ``sum_rows``."""
+    return _launch_groups(False, *args)[1]
+
+
+def _launch_groups(with_totals, batch, Mf, Sf, Mb, Sb, i0f, i1f, i0r, i1r,
+                   win, bpf, bpb, ev_region, gp, lik_offset, W, Ws, RS, K, P,
+                   DM, E_g):
     C1, E, _ = Mf.shape
     Q1 = win[0].shape[0]
     dev, dt = Mf.device, Mf.dtype
@@ -543,7 +560,8 @@ def group_totals_cuda(batch, Mf, Sf, Mb, Sb, i0f, i1f, i0r, i1r, win, bpf,
                      torch.uint8 if k == "s_valid" else torch.int32,
                      shapes[k], dev) for k in GROUP_FIELDS}
     deltas = torch.empty((G, P, E_g), dtype=dt, device=dev)
-    totals = torch.empty((G, P), dtype=dt, device=dev)
+    totals = (torch.empty((G, P), dtype=dt, device=dev) if with_totals
+              else None)
     args = _MutArgs(
         *[t.data_ptr() for t in (Mf, Sf, Mb, Sb, i0f, i1f, i0r, i1r)],
         (ctypes.c_void_p * 3)(*[t.data_ptr() for t in win]),
@@ -551,11 +569,26 @@ def group_totals_cuda(batch, Mf, Sf, Mb, Sb, i0f, i1f, i0r, i1r, win, bpf,
         (ctypes.c_void_p * 4)(*[t.data_ptr() for t in lik]),
         (ctypes.c_void_p * 6)(*[t.data_ptr() for t in model]),
         *[garr[k].data_ptr() for k in GROUP_FIELDS],
-        deltas.data_ptr(), totals.data_ptr(),
+        deltas.data_ptr(), totals.data_ptr() if with_totals else None,
         C1, E, W, Ws, Q1, RS, K, P, DM, E_g, G, float(lik_offset))
-    MUTSCORE.call(f"psq_mutscore_{dtype_suffix(dt)}", ctypes.byref(args),
-                  stream())
+    MUTSCORE.call(f"psq_mutscore_{dtype_suffix(dt)}", dev,
+                  ctypes.byref(args), stream(dev))
     return totals, deltas
+
+
+def sum_rows(deltas):
+    """totals [G, P] = the fixed-order sum over the last axis of deltas
+    [G, P, E_g]: the twin for a CPU tensor, csrc/mutscore.cu's
+    sum_rows_kernel for a CUDA one."""
+    if route(deltas) == "cpu":
+        return sum_rows_reference(deltas)
+    G, P, E_g = deltas.shape
+    dev, dt = deltas.device, deltas.dtype
+    check("deltas", deltas, dt, (G, P, E_g), dev)
+    totals = torch.empty((G, P), dtype=dt, device=dev)
+    MUTSCORE.call(f"psq_sum_rows_{dtype_suffix(dt)}", dev,
+                  ptr(deltas), ptr(totals), G * P, E_g, stream(dev))
+    return totals
 
 
 def group_totals(batch, Mf, Sf, Mb, Sb, i0f, i1f, i0r, i1r, win, bpf, bpb,
@@ -569,17 +602,106 @@ def group_totals(batch, Mf, Sf, Mb, Sb, i0f, i1f, i0r, i1r, win, bpf, bpb,
     return sum_rows_reference(group_deltas_reference(*args))
 
 
-def group_launches(engine, datas, muts_list, participate):
+def group_deltas(batch, Mf, Sf, Mb, Sb, i0f, i1f, i0r, i1r, win, bpf, bpb,
+                 ev_region, gp, lik_offset, W, Ws, RS, K, P, DM, E_g):
+    """Group scorer wrapper without the sum: deltas [G, P, E_g] from the
+    twin (CPU tensors) or the group kernel (CUDA tensors)."""
+    args = (batch, Mf, Sf, Mb, Sb, i0f, i1f, i0r, i1r, win, bpf, bpb,
+            ev_region, gp, lik_offset, W, Ws, RS, K, P, DM, E_g)
+    if route(Mf, i0r, win[0], gp["g_start"]) == "cuda":
+        return group_deltas_cuda(*args)
+    return group_deltas_reference(*args)
+
+
+def mesh_scoring_inputs(shards, bounds, i0r, i1r, ev_region, Ws: int):
+    """Give every shard of ``align.both_dev_sharded`` its rows of the
+    scoring geometry (host i0r/i1r [E, C+1]) and of the region ids
+    (``ev_region`` [E]), and its scoring-band windows."""
+    for (lo, hi), row in zip(bounds, shards):
+        for dev, sh in row.items():
+            sh["i0r"] = shard_rows(i0r, lo, hi, dev)
+            sh["i1r"] = shard_rows(i1r, lo, hi, dev)
+            sh["ev_region"] = shard_rows(ev_region, lo, hi, dev)
+            b = sh["batch"]
+            sh["win"] = build_windows(b.mean, b.stdv, b.lsr, sh["i0r"], Ws)
+
+
+def group_totals_sharded(mesh, shards, bounds, gp, lik_offset, W, Ws, RS,
+                         K, P, DM, E_g):
+    """The group scorer on a mesh: totals [G, P] on the mesh's first device,
+    equal bit for bit to ``group_totals`` on one device.
+
+    The groups (host arrays ``gp`` of ``_pad_groups``) split into n_mut
+    contiguous chunks.  Shard (i, j) runs the group kernel on 'ev' shard
+    i's rows (``shards[i][device]``, as ``mesh_scoring_inputs`` left them)
+    for chunk j: each group's row slice [s, s + E_g), s = g_evoff clamped
+    to E - E_g as on one device, is cut to the shard's rows at width
+    min(E_g, rows per shard).  No float is summed across shards: every
+    (group, slot, row of the slice) delta is gathered to its place in a
+    [G_j, P, E_g] buffer on chunk j's first device (each row lies in
+    exactly one shard, whose cut slice covers it), and ``sum_rows`` adds
+    the rows in order 0..E_g-1, as the single-device launch does."""
+    n_ev, n_mut = mesh.n_ev, mesh.n_mut
+    E = bounds[-1][1]
+    E_loc = E // n_ev
+    Eg_loc = min(E_g, E_loc)
+    G = gp["g_start"].shape[0]
+    fills = dict(g_region=-1, s_win=-1)
+    g = {k: pad_axis(np.asarray(gp[k]), n_mut, fill=fills.get(k, 0))
+         for k in GROUP_FIELDS}
+    Gj = g["g_start"].shape[0] // n_mut
+    start = np.clip(g["g_evoff"].astype(np.int64), 0, E - E_g)
+    totals = []
+    for j in range(n_mut):
+        sel = slice(j * Gj, (j + 1) * Gj)
+        rows = start[sel, None] + np.arange(E_g)              # [Gj, E_g]
+        src = np.zeros((Gj, E_g), dtype=np.int64)
+        home = mesh.devices[0][j]
+        parts = []
+        for i, (lo, hi) in enumerate(bounds):
+            dev = mesh.devices[i][j]
+            sh = shards[i][dev]
+            off = np.clip(start[sel] - lo, 0, E_loc - Eg_loc)
+            gp_d = {k: torch.as_tensor(
+                off.astype(np.int32) if k == "g_evoff" else g[k][sel],
+                device=dev) for k in GROUP_FIELDS}
+            with mesh.on(i, [j]):
+                parts.append(group_deltas(
+                    sh["batch"], sh["Mf"], sh["Sf"], sh["Mb"], sh["Sb"],
+                    sh["i0f"], sh["i1f"], sh["i0r"], sh["i1r"], sh["win"],
+                    sh["bpf"], sh["bpb"], sh["ev_region"], gp_d, lik_offset,
+                    W, Ws, RS, K, P, DM, Eg_loc).to(home))
+            mine = (rows >= lo) & (rows < hi)
+            src[mine] = (i * Eg_loc + rows - lo - off[:, None])[mine]
+        idx = torch.as_tensor(src, device=home)[:, None, :]
+        full = torch.gather(torch.cat(parts, dim=2), 2,
+                            idx.expand(Gj, P, E_g)).contiguous()
+        totals.append(sum_rows(full).to(mesh.first))
+    return torch.cat(totals)[:G]
+
+
+def group_launches(engine, datas, muts_list, participate,
+                   host_geometry=None):
     """Realign the participating regions (forward + backward fills and the
     backtrace; events updated, ref_like deferred) and yield one
     (gp, idx_maps, args) per (K, D) class: the host group arrays, the map
     back to each region's mutation list, and the group scorer's arguments
-    (``group_totals(*args)``)."""
+    (``group_totals(*args)``, or ``group_totals_sharded(*args)`` on an
+    engine with a mesh).
+
+    host_geometry: take the post-backtrace scoring geometry from the host's
+    ``limited_geometry`` (default: in f64 and on a mesh, as the JAX engine
+    does) rather than from ``geom_body`` on the device (f32 on one
+    device)."""
     p = datas[0].params
     W = 2 * p.realign_width + 1
     Ws = 2 * min(p.scoring_width, p.realign_width) + 1
     RS = max(p.realign_width - p.scoring_width, 0)
-    dt, dev = engine.dtype, engine.device
+    dt, dev, mesh = engine.dtype, engine.device, engine.mesh
+    if host_geometry is None:
+        host_geometry = dt == torch.float64 or mesh is not None
+    elif mesh is not None and not host_geometry:
+        raise ValueError("group_launches: a mesh takes the host geometry")
 
     classes = _partition_classes(datas, muts_list, participate)
     ctx = engine._prepare_multi(datas, participate=participate)
@@ -588,12 +710,17 @@ def group_launches(engine, datas, muts_list, participate):
 
     fi = fill_geometry(arrays, ctx["ref_indexes"], S_e, C, p.realign_width)
     T = arrays["mean"].shape[1]
-    i0f = torch.as_tensor(fi["i0"], device=dev)
-    i1f = torch.as_tensor(fi["i1"], device=dev)
-    Mf, Sf, Mb, Sb, bpf, bpb, ral, rlk = both_dev(
-        batch, torch.as_tensor(ctx["states2"], device=dev), i0f, i1f,
-        torch.as_tensor(fi["is_pad"], device=dev), float(p.lik_offset),
-        p.realign_width, T, int(C + 2 * T + 8))
+    if mesh is None:
+        i0f = torch.as_tensor(fi["i0"], device=dev)
+        i1f = torch.as_tensor(fi["i1"], device=dev)
+        Mf, Sf, Mb, Sb, bpf, bpb, ral, rlk = both_dev(
+            batch, torch.as_tensor(ctx["states2"], device=dev), i0f, i1f,
+            torch.as_tensor(fi["is_pad"], device=dev), float(p.lik_offset),
+            p.realign_width, T, int(C + 2 * T + 8))
+    else:
+        shards, ral, rlk = both_dev_sharded(
+            mesh, batch, ctx["states2"], fi["i0"], fi["i1"], fi["is_pad"],
+            float(p.lik_offset), p.realign_width, T, int(C + 2 * T + 8))
 
     # realigned events (ref_like read at the next sync point)
     ral_h = ral.to(torch.float64).cpu().numpy()
@@ -606,8 +733,8 @@ def group_launches(engine, datas, muts_list, participate):
             at += 1
 
     # post-backtrace scoring-band geometry (Alignment.cpp:131-132): on
-    # device in f32, host limited_geometry in f64 (the parity path)
-    if dt == torch.float32:
+    # device (f32 on one device) or host limited_geometry
+    if not host_geometry:
         i0r, i1r = geom_body(ral, batch.n0,
                              torch.as_tensor(S_e, device=dev),
                              p.scoring_width, int(C))
@@ -620,11 +747,17 @@ def group_launches(engine, datas, muts_list, participate):
                     post_ris[at] = event_ref_indexes(ev)
                 at += 1
         i0h, i1h = limited_geometry(post_ris, n0, S_e, C, p.scoring_width)
-        i0r = torch.as_tensor(i0h, device=dev)
-        i1r = torch.as_tensor(i1h, device=dev)
-    i1r = torch.minimum(i1r, i0r + (Ws - 1)).contiguous()
-    win = build_windows(batch.mean, batch.stdv, batch.lsr, i0r, Ws)
-    ev_region_d = torch.as_tensor(ev_region, device=dev)
+        i1h = np.minimum(i1h, i0h + (Ws - 1))
+        if mesh is not None:
+            mesh_scoring_inputs(shards, batch.bounds, i0h, i1h, ev_region,
+                                Ws)
+        else:
+            i0r = torch.as_tensor(i0h, device=dev)
+            i1r = torch.as_tensor(i1h, device=dev)
+    if mesh is None:
+        i1r = torch.minimum(i1r, i0r + (Ws - 1)).contiguous()
+        win = build_windows(batch.mean, batch.stdv, batch.lsr, i0r, Ws)
+        ev_region_d = torch.as_tensor(ev_region, device=dev)
 
     # each group's event rows: its region's contiguous rows
     ev_counts = np.bincount(ev_region[ev_region >= 0], minlength=len(datas))
@@ -648,6 +781,11 @@ def group_launches(engine, datas, muts_list, participate):
             idx_maps.append(np.asarray(idx_c, dtype=np.int64))
         gp = _pad_groups(parts, g_S_parts, g_region_parts)
         gp["g_evoff"][: gp["G"]] = np.concatenate(g_evoff_parts)
+        if mesh is not None:
+            yield gp, idx_maps, (mesh, shards, batch.bounds, gp,
+                                 float(p.lik_offset), W, Ws, RS, K_c,
+                                 P_SLOTS, D_c, E_g)
+            continue
         gp_d = {k: torch.as_tensor(gp[k], device=dev) for k in GROUP_FIELDS}
         args = (batch, Mf, Sf, Mb, Sb, i0f, i1f, i0r, i1r, win, bpf, bpb,
                 ev_region_d, gp_d, float(p.lik_offset), W, Ws, RS, K_c,
@@ -665,9 +803,10 @@ def score_mutations_multi(engine, datas, muts_list):
                    for d, m in zip(datas, muts_list)]
     if not any(participate):
         return mutscores_list
+    totals_of = group_totals if engine.mesh is None else group_totals_sharded
     for gp, idx_maps, args in group_launches(engine, datas, muts_list,
                                              participate):
-        totals_h = group_totals(*args).to(torch.float64).cpu().numpy()
+        totals_h = totals_of(*args).to(torch.float64).cpu().numpy()
         for g in range(gp["G"]):
             r = int(gp["g_region"][g])
             im = idx_maps[int(gp["g_part"][g])]

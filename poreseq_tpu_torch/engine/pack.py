@@ -49,16 +49,18 @@ def place_full(ev: Event, vals: np.ndarray) -> np.ndarray:
     return full
 
 
-def pack_events(events: list[Event]):
+def pack_events(events: list[Event], e_div: int = 1):
     """Padded per-event arrays (numpy, float64) and per-event ref_indexes.
 
     The event axis is padded to the JAX package's buckets (32-granular up to
-    128 rows, at least 64; then 128-granular) and the level axis to a
-    multiple of 256, so both packages see identical shapes; padding rows are
-    inactive."""
+    128 rows, at least 64; then 128-granular), then up to a multiple of
+    ``e_div`` (a mesh's 'ev' axis: each shard gets as many rows), and the
+    level axis to a multiple of 256, so both packages see identical shapes;
+    padding rows are inactive."""
     E_real = len(events)
     E = (max(round_up(E_real, 32), 64) if E_real <= 128
          else round_up(E_real, 128))
+    E = round_up(E, max(e_div, 1))
     trims = [trim_range(ev) for ev in events]
     n0 = np.ones(E, dtype=np.int32)
     for e, (lo, hi) in enumerate(trims):

@@ -292,10 +292,10 @@ def viterbi_sweep_cuda(obs, n_real, skip_prob, stay_prob, need_bp=False):
     fwds = torch.empty((B, R, 1024), dtype=dt, device=dev)
     bps = (torch.empty((B, R, 1024), dtype=torch.long, device=dev)
            if need_bp else None)
-    VITERBI_SWEEP.call(f"psq_viterbi_sweep_{dtype_suffix(dt)}", ptr(obs),
-                       ptr(n_real), ptr(liks), ptr(fwds),
+    VITERBI_SWEEP.call(f"psq_viterbi_sweep_{dtype_suffix(dt)}", dev,
+                       ptr(obs), ptr(n_real), ptr(liks), ptr(fwds),
                        ptr(bps) if need_bp else None, B, R,
-                       *sweep_constants(skip_prob, stay_prob), stream())
+                       *sweep_constants(skip_prob, stay_prob), stream(dev))
     return liks, fwds, bps
 
 
@@ -466,7 +466,8 @@ def gumbel_cuda(seed: int, nkeep: int, R: int, dtype, device):
     0..R-1, [nkeep, R, 1024]."""
     gum = torch.empty((nkeep, R, 1024), dtype=dtype, device=device)
     VITERBI_GUMBEL.call(f"psq_viterbi_gumbel_{dtype_suffix(dtype)}",
-                        ptr(gum), nkeep, R, seed & _M32, stream())
+                        gum.device, ptr(gum), nkeep, R, seed & _M32,
+                        stream(gum.device))
     return gum
 
 
@@ -487,9 +488,10 @@ def sample_paths_cuda(fwds, valid_rows, startst, attens, skip_prob,
     gum = gumbel_cuda(seed, nk, R, dt, dev)
     tab = (ctypes.c_double * 17)(*transition_table(float(skip_prob),
                                                    float(stay_prob)))
-    VITERBI_SAMPLE.call(f"psq_viterbi_sample_{dtype_suffix(dt)}", tab,
-                        ptr(fwds), ptr(gum), ptr(valid_rows), ptr(startst),
-                        ptr(attens), ptr(paths), B, nk, R, stream())
+    VITERBI_SAMPLE.call(f"psq_viterbi_sample_{dtype_suffix(dt)}", dev,
+                        tab, ptr(fwds), ptr(gum), ptr(valid_rows),
+                        ptr(startst), ptr(attens), ptr(paths), B, nk, R,
+                        stream(dev))
     return paths
 
 

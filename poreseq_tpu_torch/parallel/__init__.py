@@ -1,1 +1,2 @@
-"""Multi-process region sharding for the port (``distributed``)."""
+"""Multi-process region sharding (``distributed``) and the device mesh over
+one region's events and mutation groups (``mesh``) for the port."""

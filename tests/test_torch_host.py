@@ -29,10 +29,12 @@ CONF = dict(realign_width=16, scoring_width=8, point_width=6,
 
 
 def test_port_imports_nothing_of_the_jax_package():
-    """No file of poreseq_tpu_torch/ and no line of chip_smoke.py imports
-    poreseq_tpu (or jax), lazily inside a function or not."""
+    """No file of poreseq_tpu_torch/ (the device mesh, parallel/mesh.py,
+    among them) and no line of chip_smoke.py imports poreseq_tpu (or jax),
+    lazily inside a function or not."""
     files = sorted((REPO / "poreseq_tpu_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
+    assert REPO / "poreseq_tpu_torch" / "parallel" / "mesh.py" in files
     bad = []
     for f in files:
         for node in ast.walk(ast.parse(f.read_text())):

@@ -9,8 +9,10 @@ equal the twin exactly, f32 within tolerances, with the step bytes, best
 coordinates and accept signs held.  The backtrace, the Viterbi sweep (with
 and without backpointers, one region with all rows real or none) and the
 sampler (1 and 16 candidates) and its Gumbel kernel alone must equal their
-twins exactly in f64 and f32.  Marked `cuda`: they skip where torch
-sees no GPU.  Run them on the card with
+twins exactly in f64 and f32.  A 2x2 mesh of the one card gives the single
+device's group totals bit for bit, and the fill, backtrace and scorer on
+cuda:1 equal their twins (skipped with one card).  Marked `cuda`: they skip
+where torch sees no GPU.  Run them on the card with
 
     PSQ_TPU_TESTS=1 python -m pytest -m cuda tests/test_torch_kernels_cuda.py
 """
@@ -51,7 +53,7 @@ def _fill_args(engine, data, backward, steps=True):
     ctx = engine._prepare_multi([data])
     fi = fill_geometry(ctx["arrays"], ctx["ref_indexes"], ctx["S_e"],
                        ctx["C"], data.params.realign_width)
-    t = lambda x: torch.as_tensor(x, device="cuda")
+    t = lambda x: torch.as_tensor(x, device=engine.device)
     return (ctx["batch"], t(ctx["states2"]), t(fi["i0"]), t(fi["i1"]),
             t(fi["is_pad"]), 4.5, backward, 2 * data.params.realign_width + 1,
             steps)
@@ -268,3 +270,93 @@ def test_kernel_wrappers_reject_bad_operands(engine):
     with pytest.raises(ValueError, match="attens"):
         sample_paths_cuda(fwds, valid, startst, attens.double(), 0.05, 0.01,
                           0)
+
+
+@pytest.mark.parametrize("engine", DTYPES, indirect=True)
+def test_sum_rows_kernel_matches_twin(engine):
+    from poreseq_tpu_torch.engine.mutscore import (MUTSCORE, sum_rows,
+                                                   sum_rows_reference)
+
+    g = torch.Generator().manual_seed(0)
+    deltas = torch.randn((37, 9, 23), generator=g, dtype=engine.dtype)
+    n = MUTSCORE.launches
+    got = sum_rows(deltas.cuda())
+    assert MUTSCORE.launches == n + 1
+    assert torch.equal(got.cpu(), sum_rows_reference(deltas))
+
+
+def _mesh_regions(scoring=6):
+    """Three regions whose rows straddle the 'ev' shards of a 2-row mesh,
+    each with every point mutation."""
+    datas, mlists = [], []
+    for r, cov in enumerate((14, 20, 16)):
+        data = _data(realign=16, scoring=scoring, seed=r, coverage=cov,
+                     ref_len=80)
+        datas.append(data)
+        mlists.append(find_point_mutations(data))
+    return datas, mlists
+
+
+@pytest.mark.parametrize("engine", DTYPES, indirect=True)
+def test_mesh_on_one_card_equals_single_device(engine):
+    """A 2x2 mesh of cuda:0 four times: the group scorer's totals equal the
+    single-device launch's bit for bit on the same (host) band geometry,
+    and every shard launched the fill, the backtrace and the scorer."""
+    from poreseq_tpu_torch.engine import TorchEngine
+    from poreseq_tpu_torch.engine.mutscore import (group_launches,
+                                                   group_totals,
+                                                   group_totals_sharded)
+    from poreseq_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(2, 2, [torch.device("cuda:0")] * 4)
+    out = {}
+    for name, eng in (("single", engine),
+                      ("mesh", TorchEngine("cuda", engine.dtype,
+                                           mesh=mesh))):
+        datas, mlists = _mesh_regions()
+        run = group_totals if eng.mesh is None else group_totals_sharded
+        out[name] = [run(*args) for _, _, args in group_launches(
+            eng, datas, mlists, [True] * 3, host_geometry=True)]
+    assert len(out["single"]) == len(out["mesh"]) > 0
+    for a, b in zip(out["single"], out["mesh"]):
+        assert torch.equal(a, b)
+    for shard, launches in mesh.shard_launches().items():
+        for k in ("fill", "backtrace", "mutscore"):
+            assert launches.get(k, 0) > 0, (shard, k)
+
+
+@pytest.mark.parametrize("engine", [torch.float64], indirect=True)
+def test_kernels_on_second_card_match_twins(engine):
+    """The fill, the backtrace and the group scorer launched on cuda:1 (the
+    wrappers enter their operands' device) equal their twins."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs a second CUDA GPU")
+    from poreseq_tpu_torch.engine import TorchEngine
+    from poreseq_tpu_torch.engine.align import (backtrace_cuda,
+                                                backtrace_reference)
+    from poreseq_tpu_torch.engine.dp import fill_reference
+    from poreseq_tpu_torch.engine.fill import fill_cuda, get_fill
+    from poreseq_tpu_torch.engine.mutscore import (group_deltas_reference,
+                                                   group_launches,
+                                                   group_totals_cuda,
+                                                   sum_rows_reference)
+
+    eng = TorchEngine("cuda:1", torch.float64)
+    data = _data()
+    args = _fill_args(eng, data, False)
+    got = fill_cuda(*args)
+    assert got[0].device == torch.device("cuda:1")
+    for a, b in zip(got, fill_reference(*args)):
+        assert torch.equal(a, b)
+    r = get_fill(24)(*args[:7])
+    T = args[0].mean.shape[1]
+    bt = (r.M, r.S, r.steps_m, r.steps_s, r.i0, r.i1, r.best_i, r.best_j,
+          T, args[1].shape[0] + 2 * T + 8)
+    for a, b in zip(backtrace_cuda(*bt), backtrace_reference(*bt)):
+        assert torch.equal(a, b)
+    datas, mlists = _mesh_regions()
+    for _, _, ga in group_launches(eng, datas, mlists, [True] * 3):
+        tot, _ = group_totals_cuda(*ga)
+        assert tot.device == torch.device("cuda:1")
+        assert torch.equal(tot, sum_rows_reference(
+            group_deltas_reference(*ga)))

@@ -94,6 +94,23 @@ def test_pack_helpers_match_jax():
                      jp.limited_geometry(ri_j, a_j["n0"], S, 192, width))
 
 
+@pytest.mark.parametrize("n_events,e_div", [(5, 3), (5, 4), (70, 8),
+                                             (130, 3)])
+def test_pack_events_e_div_matches_jax(n_events, e_div):
+    """pack_events(e_div=n) rounds the event axis up to a multiple of n (a
+    mesh's 'ev' axis), as the JAX package's pack_events does, array for
+    array; the added rows are inactive padding."""
+    pa = _events(seed=n_events, ref_len=60, coverage=n_events, trim=False)
+    evs = pa.events
+    a_t, ri_t = tp.pack_events(evs, e_div=e_div)
+    a_j, ri_j = jp.pack_events(evs, e_div=e_div)
+    _assert_same(a_t, a_j)
+    _assert_same(ri_t, ri_j)
+    E = len(a_t["n0"])
+    assert E % e_div == 0 and E >= len(tp.pack_events(evs)[0]["n0"])
+    assert not a_t["active"][n_events:].any()
+
+
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 def test_device_batch_round_trip(dtype):
     arrays, _ = tp.pack_events(_events().events)
