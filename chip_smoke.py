@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch / CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--seed N] [--profile DIR]
+    python3 chip_smoke.py [--seed N] [--profile DIR] [--f32-regions N]
 
 Phases (each prints one line of what it measured; any failure exits
 non-zero, nothing runs on the CPU instead):
@@ -60,9 +60,22 @@ non-zero, nothing runs on the CPU instead):
                 wall, launches and peak device memory beside phase 3's;
                 then one Refine call (phase 2's 8 regions) on the mesh
                 equals the single-device call's totals bit for bit, f64 and
-                f32, on the same (host) geometry.
+                f32, on the same (host) geometry;
+  8. f32_equiv — scripts/f32_equiv.py's protocol at production widths
+                (300/100/20) on --f32-regions 1 kb regions (default 10,
+                the script's own count; region i: seed 1000 + 37 i,
+                coverage 8/10/12 and draft error 0.02/0.03/0.05 cycling
+                with i): the port's exact engine (on the CPU, a spawned
+                pool of a process per region, at most one per core) and
+                TorchEngine f32 and f64 on the card each run Mutate(reps=2)
+                on the reads, Mutate(reps=2) on the exact engine's Viterbi
+                candidates (libc rand() seeded with the region's seed) and
+                Refine; per card engine, the regions whose sequence first
+                differs from the exact engine's after each step, and the
+                degraded ones (accuracy there 0.5 points or more from the
+                exact engine's, or below 99 %), which fail the run.
 Phase 2 also holds the fill, backtrace and group scorer on cuda:1 in f64
-when torch sees a second card.  Phases 2b-7 reset the kernels' launch
+when torch sees a second card.  Phases 2b-8 reset the kernels' launch
 counters before they start and report them after.  The line before the
 last is a JSON object with one entry per kernel; the last line is
 {"ok": true, "device": {...}}.
@@ -1358,6 +1371,136 @@ def phase_mesh(seed: int, e2e: dict, e2e_launches: dict):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 8: f32_equiv, the card engines' decisions against the exact oracle
+# ---------------------------------------------------------------------------
+
+EQUIV_STEPS = ("phase1", "viterbi", "refine")
+EQUIV_REF_LEN = 1000
+
+
+def _equiv_case(i: int) -> tuple:
+    """Region i of scripts/f32_equiv.py: (seed, coverage, draft error)."""
+    return 1000 + 37 * i, 8 + (i % 3) * 2, (0.02, 0.03, 0.05)[i % 3]
+
+
+def _equiv_session(i: int, **engine):
+    from poreseq_tpu_torch.sim import simulate_session
+
+    seed, cov, derr = _equiv_case(i)
+    return simulate_session(np.random.default_rng(seed),
+                            ref_len=EQUIV_REF_LEN, coverage=cov,
+                            draft_error=derr,
+                            params=dict(P_WIDTHS, verbose=0), **engine)
+
+
+def _equiv_exact(i: int) -> dict:
+    """Region i on the exact engine, in a spawned worker: its sequence and
+    accuracy after each step, the Viterbi candidates (libc rand() seeded
+    with the region's seed, so the phase repeats) and its wall."""
+    from poreseq_tpu_torch.api import swalign
+    from poreseq_tpu_torch.engine import _native
+    from poreseq_tpu_torch.engine.types import AlignData
+
+    t0 = time.perf_counter()
+    pa, truth = _equiv_session(i, backend="exact")
+    seqs = []
+    pa.Mutate(reps=2)
+    seqs.append(pa.sequence)
+    _native.srand(_equiv_case(i)[0])
+    cands = pa.engine.viterbi_mutate(AlignData.from_session(pa).events, 16,
+                                     0.05, 0.01, 0.33, 0.75)
+    pa.Mutate(seqs=list(cands), reps=2)
+    seqs.append(pa.sequence)
+    pa.Refine()
+    seqs.append(pa.sequence)
+    return dict(seqs=seqs, cands=list(cands),
+                accs=[swalign(s, truth)[0] for s in seqs],
+                wall=time.perf_counter() - t0)
+
+
+def phase_f32_equiv(n: int):
+    """8: scripts/f32_equiv.py's protocol on the card at production widths:
+    n regions, each through Mutate(reps=2) on its reads, Mutate(reps=2) on
+    the exact engine's 16 Viterbi candidates and Refine, on the exact
+    engine and on TorchEngine f32 and f64.  A card engine's comparison of a
+    region ends at its first step whose sequence differs from the exact
+    engine's; the region is degraded when its accuracy there is 0.5 points
+    or more from the exact engine's, or below 99 %.  The exact side of
+    every region runs in a spawned process pool while the card engines run
+    their first step."""
+    import multiprocessing
+
+    import torch
+
+    from poreseq_tpu_torch.api import swalign
+    from poreseq_tpu_torch.engine import TorchEngine
+
+    engines = {"f32": TorchEngine("cuda", torch.float32),
+               "f64": TorchEngine("cuda", torch.float64)}
+    walls = dict.fromkeys(engines, 0.0)
+
+    def step(name, pa, method, *args):
+        t0 = time.perf_counter()
+        getattr(pa, method)(*args)
+        torch.cuda.synchronize()
+        walls[name] += time.perf_counter() - t0
+        return pa.sequence
+
+    _reset_launches()
+    t_phase = time.perf_counter()
+    runs = {}
+    with multiprocessing.get_context("spawn").Pool(
+            min(n, os.cpu_count() or 1)) as pool:
+        pending = pool.map_async(_equiv_exact, range(n))
+        for name, eng in engines.items():
+            for i in range(n):
+                pa, truth = _equiv_session(i, engine=eng)
+                runs[name, i] = (pa, truth, [step(name, pa, "Mutate", "self",
+                                                  2)])
+        exact = pending.get(timeout=900)
+    stats = {name: dict.fromkeys(
+        [f"{s}_div" for s in EQUIV_STEPS] + ["degraded"], 0)
+        for name in engines}
+    regions = []
+    for i, ex in enumerate(exact):
+        row = dict(case=_equiv_case(i), acc_exact=ex["accs"][-1])
+        for name in engines:
+            pa, truth, seqs = runs[name, i]
+            for k, s in enumerate(EQUIV_STEPS):
+                if k == 1:
+                    seqs.append(step(name, pa, "Mutate", list(ex["cands"]),
+                                     2))
+                elif k == 2:
+                    seqs.append(step(name, pa, "Refine"))
+                if seqs[k] != ex["seqs"][k]:
+                    break
+            else:
+                row[name] = dict(diverged=None, acc=ex["accs"][-1])
+                continue
+            acc = swalign(seqs[k], truth)[0]
+            bad = abs(acc - ex["accs"][k]) >= 0.5 or acc < 99.0
+            stats[name][f"{s}_div"] += 1
+            stats[name]["degraded"] += int(bad)
+            row[name] = dict(diverged=s, acc=acc,
+                             acc_exact_there=ex["accs"][k], degraded=bad)
+        regions.append(row)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t_phase
+    launches = _launches()
+    print("[f32_equiv] " + json.dumps(dict(
+        regions_n=n, ref_len=EQUIV_REF_LEN, widths=P_WIDTHS, stats=stats,
+        regions=regions, engine_wall_s=dict(
+            walls, exact=sum(ex["wall"] for ex in exact)),
+        phase_wall_s=wall, launches=launches, card=gpu_line())), flush=True)
+    for name, st in stats.items():
+        if st["degraded"]:
+            fail(f"f32_equiv: {st['degraded']} of {n} regions degraded on "
+                 f"TorchEngine {name}")
+    _need_launches("f32_equiv", launches, ALIGN_KERNELS)
+    return launches
+
+
 # why each kernel's library_ms is null
 LIBRARY_NOTE = {
     "fill": "no single PyTorch call computes a banded max-plus pair-HMM fill",
@@ -1384,6 +1527,8 @@ def main():
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", default=None, metavar="DIR",
                     help="run phase 3 under torch.profiler, trace into DIR")
+    ap.add_argument("--f32-regions", type=int, default=10, metavar="N",
+                    help="regions of phase 8 (f32_equiv)")
     args = ap.parse_args()
 
     import torch
@@ -1403,6 +1548,7 @@ def main():
     by_phase["train"], held["train"] = phase_train(args.seed)
     by_phase["multihost"] = phase_multihost(args.seed)
     by_phase["mesh"] = phase_mesh(args.seed, e2e, by_phase["e2e"])
+    by_phase["f32_equiv"] = phase_f32_equiv(args.f32_regions)
 
     held_keys = {"fill": ("fill fwd", "fill bwd"), "mutscore": ("mutscore",),
                  "backtrace": (), "viterbi_sweep": (), "viterbi_sample": (),

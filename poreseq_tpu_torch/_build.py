@@ -15,8 +15,9 @@ kernel instance's registers and spills (kept as ``Kernel.build_log``).  A
 failed build raises with the compiler's stderr; nothing falls back to a
 twin.
 
-``csrc/host_sw.cpp`` (the host Smith-Waterman core) is compiled the same way
-by ``build_host``, with g++ and the JAX package's flags for its exact core:
+``csrc/psq_exact.cpp`` (the host C++ core: the exact engine, the
+Smith-Waterman aligners and the greedy accept's argsort) is compiled the
+same way by ``build_host``, with g++ and the JAX package's flags for it:
 ``-O3 -std=c++17 -fPIC -shared -ffp-contract=off -fno-fast-math`` (no fused
 multiply-adds, so its results equal the original's bit for bit).
 """

@@ -2,9 +2,11 @@
 
 API-compatible with the reference's PSAlign
 (PoreSeq's poreseq/_poreseqcpp.pyx:189-472).  Copy of the JAX package's
-``api.py`` on the port's engine: a session computes on the ``TorchEngine``
-its caller gives it, else on one shared ``TorchEngine("cuda")`` made at
-first use.  There is no engine table.
+``api.py`` on the port's engines: a session computes on the engine its
+caller gives it, else on its backend's shared engine, made at first use:
+``backend="torch"`` (the default) one ``TorchEngine("cuda")``,
+``backend="exact"`` one ``ExactEngine`` (the CPU oracle, bit-faithful to
+the reference, with no device).
 """
 
 from __future__ import annotations
@@ -18,17 +20,27 @@ from .engine import driver
 from .engine.types import AlignData
 
 
-_DEFAULT_ENGINE = None
+BACKENDS = ("torch", "exact")
+
+_ENGINES: dict = {}
 
 
-def default_engine():
-    """The shared ``TorchEngine("cuda")`` of sessions given no engine."""
-    global _DEFAULT_ENGINE
-    if _DEFAULT_ENGINE is None:
-        from .engine import TorchEngine
+def get_engine(backend: str = "torch"):
+    """The shared engine of a backend: "torch", one ``TorchEngine("cuda")``
+    (it needs a card), or "exact", one ``ExactEngine`` (no device)."""
+    if backend not in _ENGINES:
+        if backend == "torch":
+            from .engine import TorchEngine
 
-        _DEFAULT_ENGINE = TorchEngine("cuda")
-    return _DEFAULT_ENGINE
+            _ENGINES[backend] = TorchEngine("cuda")
+        elif backend == "exact":
+            from .engine.exact import ExactEngine
+
+            _ENGINES[backend] = ExactEngine()
+        else:
+            raise ValueError(f"unknown backend {backend!r}: expected one of "
+                             f"{BACKENDS}")
+    return _ENGINES[backend]
 
 
 def swalign(seq1: str, seq2: str):
@@ -55,17 +67,18 @@ class PSAlign:
         params (dict): parameter dictionary
     """
 
-    def __init__(self, engine=None):
+    def __init__(self, backend: str = "torch", engine=None):
         self.sequence = ""
         self.events = []
         self.params = {}
-        self._engine = engine          # None: default_engine()
+        self.backend = backend
+        self._engine = engine          # given: wins over the backend
 
     @property
     def engine(self):
         if self._engine is not None:
             return self._engine
-        return default_engine()
+        return get_engine(self.backend)
 
     def Copy(self) -> "PSAlign":
         # the engine (device caches) is shared, not copied

@@ -1,12 +1,18 @@
 """Command line of the PyTorch / CUDA port.
 
 Subcommands, with the JAX CLI's flags plus ``--device`` (cuda, cuda:N or
-cpu) on those that run the engine:
+cpu) on those that run the engine.  ``--backend`` picks the engine of
+``consensus``, ``variant`` and ``train``: ``torch`` (the default), a
+TorchEngine on ``--device``, or ``exact``, the CPU oracle
+(``engine/exact``, bit-faithful to the reference; it has no device, so
+``--device`` other than the default and ``--mesh`` are errors, exit 2).
 
-- ``consensus``: ``pipeline.mutate_many`` on a TorchEngine:
+- ``consensus``: ``pipeline.mutate_many`` on the run's engine:
   regions are corrected in lockstep batches of --region-batch, the next
   batch's loads are prefetched on a thread, and a batch that runs out of
-  memory is retried at half its width (width 1 skips the region).
+  memory is retried at half its width (width 1 skips the region).  Under
+  ``--backend exact`` the same loop runs at width 1 for any --region-batch,
+  each region its own failure unit (the JAX CLI's FASTA).
   --shard-index/--num-shards deal the regions round-robin by hand,
   --coordinator/--num-processes/--process-id do it for a multi-process run
   (each process writes OUTPUT.pN), --profile DIR writes a torch.profiler
@@ -16,8 +22,9 @@ cpu) on those that run the engine:
   -m a mutation file, -a every point mutation); scores go to stdout.
 - ``train``: hill-climbs the transition parameters: every iteration's 16
   proposals run as one lockstep batch (``pipeline.train_candidates``) and
-  the best goes to ./train_best.conf.  -n/--threads is accepted and
-  unused: a fork pool cannot share a CUDA context.
+  the best goes to ./train_best.conf.  Under ``--backend exact`` the
+  proposals run over a pool of -n/--threads processes, as in the JAX CLI
+  (spawned: the workers start from a fresh interpreter).
 - ``split``, ``merge``, ``extract``: copies of the JAX CLI's.
 
 Failure units: a region that fails to load (or, in ``variant``, to realign
@@ -35,6 +42,7 @@ from __future__ import annotations
 import argparse
 import gc
 import glob
+import multiprocessing
 import os
 import random
 import sys
@@ -45,6 +53,7 @@ import torch
 from torch.profiler import record_function
 
 from . import pipeline
+from .api import BACKENDS
 from .core.params import load_params, save_params, vary_params
 from .core.regions import MutationInfo, RegionInfo
 from .engine import EngineError, TorchEngine
@@ -55,6 +64,7 @@ from .parallel.distributed import (allgather_round_robin, finish_multihost,
                                    init_multihost, shard_regions)
 
 OUT_OF_MEMORY = (torch.cuda.OutOfMemoryError, MemoryError)
+DEVICE = "cuda"
 
 
 def main(argv=None):
@@ -100,6 +110,7 @@ def main(argv=None):
     _add_multihost(p, "; regions are dealt round-robin across processes "
                    "and each process writes OUTPUT.pN")
     _add_device(p)
+    _add_backend(p)
     p.set_defaults(func=consensus)
 
     p = subparsers.add_parser("variant", help="call sequence variants")
@@ -118,14 +129,15 @@ def main(argv=None):
     p.add_argument("-v", "--verbose", action="count", default=0)
     _add_multihost(p, "; regions are dealt round-robin across processes")
     _add_device(p)
+    _add_backend(p)
     p.set_defaults(func=variant)
 
     p = subparsers.add_parser("train", help="train model parameters on data")
     _add_inputs(p)
     p.add_argument("-i", "--iter", type=int, default=30)
     p.add_argument("-n", "--threads", type=int, default=4,
-                   help="accepted and unused: the candidates run as one "
-                   "lockstep batch")
+                   help="processes of --backend exact's pool (the torch "
+                   "backend runs the proposals as one lockstep batch)")
     p.add_argument("-p", "--params", default=None)
     p.add_argument("-r", "--region", default=None)
     p.add_argument("-d", "--descend", action="store_true", default=False,
@@ -133,6 +145,7 @@ def main(argv=None):
     _add_multihost(p, "; each process evaluates a round-robin share of "
                    "the proposals")
     _add_device(p)
+    _add_backend(p)
     p.set_defaults(func=train)
 
     p = subparsers.add_parser("split", help="split fasta files into chunks")
@@ -158,6 +171,15 @@ def main(argv=None):
     if not hasattr(args, "func"):
         parser.print_help()
         return
+    if getattr(args, "backend", None) == "exact":
+        given = [flag for flag, on in (
+            ("--mesh", getattr(args, "mesh", None) is not None),
+            ("--device", args.device != DEVICE)) if on]
+        if given:
+            sys.stderr.write("poreseq-torch: error: --backend exact runs on "
+                             "the CPU oracle, which has no device: drop "
+                             "{}\n".format(" and ".join(given)))
+            raise SystemExit(2)
     args.func(args)
 
 
@@ -178,9 +200,24 @@ def _add_multihost(p, what: str):
 
 
 def _add_device(p):
-    p.add_argument("--device", default="cuda",
+    p.add_argument("--device", default=DEVICE,
                    help="torch device of the engine (cuda, cuda:N or cpu); "
                    "in a multi-process run give each process its own")
+
+
+def _add_backend(p):
+    p.add_argument("--backend", default="torch", choices=BACKENDS,
+                   help="compute engine: torch (a TorchEngine on --device) "
+                   "or exact (the CPU oracle, bit-faithful to the "
+                   "reference, no device)")
+
+
+def _engine(args):
+    """The run's engine: a TorchEngine on --device, or None under --backend
+    exact (the pipeline then runs on the shared ExactEngine)."""
+    if args.backend == "exact":
+        return None
+    return TorchEngine(device=args.device)
 
 
 def resolve_mesh(spec, device: torch.device):
@@ -237,10 +274,10 @@ def _join(args) -> tuple:
                           args.process_id)
 
 
-def _release(device: torch.device):
+def _release(engine):
     """Drop a failed batch's device buffers before a smaller retry."""
     gc.collect()
-    if device.type == "cuda":
+    if engine is not None and engine.device.type == "cuda":
         torch.cuda.empty_cache()
 
 
@@ -251,7 +288,7 @@ def consensus(args):
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU]
-    if torch.device(args.device).type == "cuda":
+    if args.backend == "torch" and torch.device(args.device).type == "cuda":
         activities.append(ProfilerActivity.CUDA)
     os.makedirs(args.profile, exist_ok=True)
     prof = profile(activities=activities)
@@ -280,9 +317,11 @@ def _consensus(args):
     if args.num_shards > 1:
         regions = shard_regions(regions, args.shard_index, args.num_shards)
 
-    device = torch.device(args.device)
-    engine = TorchEngine(device=device,
-                         mesh=resolve_mesh(args.mesh, device))
+    engine = None
+    if args.backend == "torch":
+        device = torch.device(args.device)
+        engine = TorchEngine(device=device,
+                             mesh=resolve_mesh(args.mesh, device))
 
     # region-granular resume: output is flushed after every region
     done = set()
@@ -304,7 +343,13 @@ def _consensus(args):
 
     def load_part(part):
         return pipeline.load_many(args.ref, args.bam, args.dir, part,
-                                  params=args.params, engine=engine)
+                                  params=args.params, backend=args.backend,
+                                  engine=engine)
+
+    # a TorchEngine's batch recovers from running out of memory only; the
+    # exact oracle runs width 1, where any failure skips its region (the
+    # JAX CLI's width 1)
+    recoverable = OUT_OF_MEMORY if engine is not None else Exception
 
     # one loader thread prefetches the NEXT chunk's BAM/fast5 loads while
     # the device computes the current chunk
@@ -313,8 +358,8 @@ def _consensus(args):
     def run_chunk(chunk, width, prefetch=False):
         """Lockstep-batch a chunk, halving the batch width when it runs out
         of memory (recoverable at smaller widths); width 1 skips the region
-        that still does not fit.  Any other failure (a build, a refused
-        launch, a device fault) propagates."""
+        that still does not fit.  On a TorchEngine any other failure (a
+        build, a refused launch, a device fault) propagates."""
         parts = [chunk[at : at + width] for at in range(0, len(chunk), width)]
         fut = None
         for pi, part in enumerate(parts):
@@ -330,24 +375,26 @@ def _consensus(args):
                         args.ref, args.bam, args.dir, part,
                         params=args.params, test=args.test,
                         verbose=args.verbose, reps=args.iterations,
-                        engine=engine, loaded=loaded)
-            except OUT_OF_MEMORY as e:
+                        backend=args.backend, engine=engine, loaded=loaded)
+            except recoverable as e:
                 if width == 1:
                     sys.stderr.write("Skipping {}: {}\n".format(part[0], e))
                     continue
                 sys.stderr.write(
                     "Batch of {} failed ({}), retrying at {}\n".format(
                         len(part), e, max(width // 2, 1)))
-                _release(device)
+                _release(engine)
                 run_chunk(part, max(width // 2, 1))
                 continue
             for region, res in zip(part, results):
                 if res is not None:   # None = region skipped during load
                     emit(region, res[0], res[1])
 
+    # under exact the regions run one by one whatever --region-batch says:
+    # the sequential FASTA and the sequential libc rand() draws
+    width = max(int(args.region_batch or 1), 1) if engine is not None else 1
     try:
-        run_chunk(regions, max(int(args.region_batch or 1), 1),
-                  prefetch=True)
+        run_chunk(regions, width, prefetch=True)
     finally:
         loader.shutdown(wait=False, cancel_futures=True)
         if out is not sys.stdout:
@@ -367,8 +414,7 @@ def variant(args):
     if nproc > 1:
         sys.stderr.write("Process {}/{}: {} of {} regions\n".format(
             pid, nproc, len(regions[pid::nproc]), len(regions)))
-    device = torch.device(args.device)
-    engine = TorchEngine(device=device)
+    engine = _engine(args)
 
     muts = []
     if args.mut_file is not None:
@@ -396,10 +442,10 @@ def variant(args):
         try:
             pipeline.variant(args.ref, args.bam, args.dir, args.fasta,
                              curmuts, region, args.params, args.verbose,
-                             engine=engine)
+                             backend=args.backend, engine=engine)
         except OUT_OF_MEMORY as e:
             sys.stderr.write("Skipping {}: {}\n".format(region, e))
-            _release(device)
+            _release(engine)
         except EngineError:
             raise
         except Exception as e:
@@ -424,16 +470,43 @@ def _train_batch(args, cands, engine):
         half = len(cands) // 2
         sys.stderr.write("Batch of {} failed ({}), retrying at {}\n".format(
             len(cands), e, half))
-        _release(engine.device)
+        _release(engine)
         return (_train_batch(args, cands[:half], engine)
                 + _train_batch(args, cands[half:], engine))
 
 
+class _TrainCandidate:
+    """One proposal's consensus on the exact oracle (the JAX CLI's
+    trainhelper, cmdline.py:235-244); picklable, for the process pool."""
+
+    def __init__(self, args):
+        self.args = args
+
+    def __call__(self, params):
+        a = self.args
+        return pipeline.mutate(a.ref, a.bam, a.dir, params=params,
+                               region=a.region, test=not a.descend,
+                               verbose=1, reps=10, backend="exact")
+
+
+def _train_exact(args, cands):
+    """--backend exact: the proposals over a pool of -n processes, as the
+    JAX CLI's exact path.  The workers are spawned, so none inherits a CUDA
+    context or a thread of this process."""
+    run = _TrainCandidate(args)
+    if args.threads <= 1:
+        return [run(p) for p in cands]
+    with multiprocessing.get_context("spawn").Pool(args.threads) as pool:
+        return pool.map(run, cands)
+
+
 def train(args):
-    """Hill-climb on consensus accuracy (the JAX CLI's tpu path): every
-    iteration proposes 16 parameter sets and keeps the most accurate."""
+    """Hill-climb on consensus accuracy: every iteration proposes 16
+    parameter sets and keeps the most accurate (the torch backend runs
+    them as one lockstep batch, the JAX CLI's tpu path; the exact backend
+    over a process pool)."""
     pid, nproc, store = _join(args)
-    engine = TorchEngine(device=args.device)
+    engine = _engine(args)
 
     params = load_params(args.params)
     for i in range(args.iter):
@@ -447,7 +520,9 @@ def train(args):
         else:
             paramlist = vary_params(params)
             mine = paramlist
-        accs = [s[1] for s in _train_batch(args, mine, engine)]
+        seqs = (_train_exact(args, mine) if engine is None
+                else _train_batch(args, mine, engine))
+        accs = [s[1] for s in seqs]
         if nproc > 1:
             accs = allgather_round_robin(accs, len(paramlist), pid, nproc,
                                          store)

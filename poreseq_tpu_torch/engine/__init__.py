@@ -299,7 +299,7 @@ class TorchEngine:
 
     @_engine_call
     def map_alignments(self, data: AlignData, newseq: str):
-        # host Smith-Waterman remap (csrc/host_sw.cpp)
+        # host Smith-Waterman remap (csrc/psq_exact.cpp)
         return _map_alignments(data, newseq)
 
     def score_mutations(self, data: AlignData, muts):

@@ -9,8 +9,8 @@ These drivers implement the reference's control flow —
   engine.score_mutations(data, muts)        -> list[MutationScore]
   engine.map_alignments(data, newseq)       -> (accuracy, filled pairs[n,2])
 
-so the same logic drives any engine (here the port's TorchEngine; a copy of
-the JAX package's ``engine/driver.py``).
+so the same logic drives any engine (the port's TorchEngine and its exact
+engine; a copy of the JAX package's ``engine/driver.py``).
 """
 
 from __future__ import annotations

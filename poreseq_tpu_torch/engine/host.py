@@ -1,6 +1,6 @@
 """Shared host-side thread pool for GIL-releasing native work.
 
-The host C core (csrc/host_sw.cpp) is called through ctypes, which drops
+The host C core (csrc/psq_exact.cpp) is called through ctypes, which drops
 the GIL for the duration of each call — Smith-Waterman alignments, event
 remaps and final accuracy checks are therefore genuinely parallel across
 threads.  One process-wide pool serves every caller so thread count stays

@@ -1,6 +1,7 @@
-"""Smith-Waterman wrappers over the port's host C++ core (csrc/host_sw.cpp,
-built with g++ on first use by ``_build.build_host``).  A copy of the JAX
-package's ``engine/exact/sw.py`` and the loader part of its ``_native.py``.
+"""Smith-Waterman wrappers over the port's exact core (csrc/psq_exact.cpp,
+built with g++ on first use and bound in ``engine/_native.py``).  A
+copy of the JAX package's ``engine/exact/sw.py``; the port's
+``engine/exact/sw.py`` re-exports it.
 
 Semantics per PoreSeq's cpp/swlib.cpp: +5/-4/-8 scoring, `>=` tie-break
 favoring the diagonal, local backtrace from the global max, accuracy in % of
@@ -10,42 +11,10 @@ matched pairs (NaN for empty alignments, which the callers rely on).
 from __future__ import annotations
 
 import ctypes as ct
-import threading
 
 import numpy as np
 
-_f8 = np.ctypeslib.ndpointer(dtype=np.float64, flags="C_CONTIGUOUS")
-_i4 = np.ctypeslib.ndpointer(dtype=np.int32, flags="C_CONTIGUOUS")
-
-_LIB = None
-_LOCK = threading.Lock()
-
-
-def _lib() -> ct.CDLL:
-    """csrc/host_sw.cpp, built (if missing or stale) and loaded once."""
-    global _LIB
-    with _LOCK:
-        if _LIB is None:
-            from .._build import build_host
-
-            lib = ct.CDLL(str(build_host("host_sw")))
-            lib.psq_swfull.restype = ct.c_int
-            lib.psq_swfull.argtypes = [
-                ct.c_char_p, ct.c_int, ct.c_char_p, ct.c_int,
-                _i4, _i4, ct.c_int,
-                ct.POINTER(ct.c_double), ct.POINTER(ct.c_int32),
-            ]
-            lib.psq_swfast.restype = ct.c_int
-            lib.psq_swfast.argtypes = [
-                ct.c_char_p, ct.c_int, ct.c_char_p, ct.c_int,
-                ct.c_double, ct.c_double, ct.c_int,
-                _i4, _i4, ct.c_int,
-                ct.POINTER(ct.c_double), ct.POINTER(ct.c_int32),
-            ]
-            lib.psq_srand.argtypes = [ct.c_uint]
-            lib.psq_argsort_desc.argtypes = [_f8, ct.c_int, _i4]
-            _LIB = lib
-    return _LIB
+from ._native import lib as _lib
 
 
 def argsort_desc(scores: np.ndarray) -> np.ndarray:

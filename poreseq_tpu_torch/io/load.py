@@ -26,6 +26,7 @@ def load_aligned_events(
     eventdir: str,
     reginfo: RegionInfo,
     params: dict,
+    backend: str = "torch",
     engine=None,
 ) -> PSAlign:
     """LoadAlignedEvents (LoadData.py:10-52)."""
@@ -38,7 +39,7 @@ def load_aligned_events(
         for x in events:
             x.setparams(params)
     refseq = refseq[reginfo.start : reginfo.end]
-    pa = PSAlign(engine=engine)
+    pa = PSAlign(backend=backend, engine=engine)
     pa.sequence = refseq
     pa.events = events
     pa.params = params

@@ -1,8 +1,9 @@
 """Top-level consensus and variant drivers.
 
 Mirror PoreSeq's poreseq/Mutate.py and Variant.py.  Copy of the JAX
-package's ``pipeline.py`` on the port's engine: every entry point takes the
-``TorchEngine`` to run on (None: ``api.default_engine()``).
+package's ``pipeline.py`` on the port's engines: every entry point takes the
+engine to run on, else its ``backend``'s shared engine (``api.get_engine``:
+"torch", the default, or "exact", the CPU oracle).
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ def mutate(
     verbose: int = 0,
     test: bool = False,
     reps: int = 4,
+    backend: str = "torch",
     engine=None,
 ):
     """Consensus error correction of one region (Mutate.py:8-101).
@@ -54,7 +56,8 @@ def mutate(
         params["verbose"] = 0
 
     pa = load_aligned_events(fastafile, bamfile, fast5dir, RegionInfo(region),
-                             params, engine=engine)
+                             params, backend=backend,
+                             engine=engine)
     refseq = pa.sequence
 
     if test and verbose == 0:
@@ -84,20 +87,7 @@ def mutate(
             + str(round(swalign(pa.sequence, refseq)[0], 1)) + "%\n"
         )
 
-    pa.Mutate(reps=reps)
-
-    if verbose > 0:
-        acc = swalign(pa.sequence, refseq)[0]
-        sys.stderr.write("Accuracy: " + str(round(acc, 1)) + "%\n")
-
-    for _ in range(reps):
-        pa.Mutate(seqs="viterbi")
-        nbases = pa.Refine()
-        if verbose > 0:
-            acc = swalign(pa.sequence, refseq)[0]
-            sys.stderr.write("Accuracy: " + str(round(acc, 1)) + "%\n")
-        if nbases == 0:
-            break
+    _consensus_rounds(pa, refseq, reps, verbose)
 
     if "end_trim" in params and len(pa.sequence) > 2 * params["end_trim"]:
         pa.sequence = pa.sequence[int(params["end_trim"]) : -int(params["end_trim"])]
@@ -115,12 +105,32 @@ def mutate(
     return (pa.sequence, acc)
 
 
+def _consensus_rounds(pa, refseq, reps, verbose):
+    """One session's Mutate(reps) / (Mutate('viterbi') + Refine) schedule
+    (Mutate.py:70-85), each call on the session's engine."""
+    pa.Mutate(reps=reps)
+
+    if verbose > 0:
+        acc = swalign(pa.sequence, refseq)[0]
+        sys.stderr.write("Accuracy: " + str(round(acc, 1)) + "%\n")
+
+    for _ in range(reps):
+        pa.Mutate(seqs="viterbi")
+        nbases = pa.Refine()
+        if verbose > 0:
+            acc = swalign(pa.sequence, refseq)[0]
+            sys.stderr.write("Accuracy: " + str(round(acc, 1)) + "%\n")
+        if nbases == 0:
+            break
+
+
 def load_many(
     fastafile: str,
     bamfile: str,
     fast5dir: str,
     regions: list[str],
     params: dict | None = None,
+    backend: str = "torch",
     engine=None,
 ):
     """Load several regions' sessions, one failure unit per region: returns
@@ -132,7 +142,7 @@ def load_many(
         try:
             pa = load_aligned_events(fastafile, bamfile, fast5dir,
                                      RegionInfo(region), dict(params or {}),
-                                     engine=engine)
+                                     backend=backend, engine=engine)
             out.append((pa, None))
         except Exception as e:
             out.append((None, str(e)))
@@ -148,6 +158,7 @@ def mutate_many(
     verbose: int = 0,
     test: bool = False,
     reps: int = 4,
+    backend: str = "torch",
     engine=None,
     loaded: list | None = None,
 ):
@@ -171,7 +182,7 @@ def mutate_many(
 
     if loaded is None:
         loaded = load_many(fastafile, bamfile, fast5dir, regions, params,
-                           engine=engine)
+                           backend=backend, engine=engine)
 
     n = len(regions)
     results: list = [None] * n
@@ -219,14 +230,19 @@ def _lockstep_consensus(sessions, params, reps, verbose):
     ride in the device batch either way.
 
     ``sessions`` is [(slot, pa, refseq)]; returns {slot: (seq, acc)} with the
-    end-trim and final-accuracy bookkeeping of Mutate.py:88-99."""
+    end-trim and final-accuracy bookkeeping of Mutate.py:88-99.  On an
+    engine without batched calls (the exact oracle) the sessions run one
+    after another on mutate()'s schedule, so each result, and the libc
+    rand() draws of each Viterbi call, are those of a sequential run."""
     from .engine.multi import mutate_datas, refine_datas
     from .engine.types import AlignData
 
     results = {}
-    if sessions:
-        engine = sessions[0][1].engine
-
+    engine = sessions[0][1].engine if sessions else None
+    if sessions and not hasattr(engine, "score_mutations_multi"):
+        for _, pa, refseq in sessions:
+            _consensus_rounds(pa, refseq, reps, verbose)
+    elif sessions:
         # ---- phase 1: Mutate(reps) from the reads' own 2D basecalls ----
         datas = [AlignData.from_session(pa) for _, pa, _ in sessions]
         seqs_list = [[x.sequence for x in pa.events[::2]]
@@ -314,6 +330,7 @@ def train_candidates(
     paramlist: list[dict],
     descend: bool = False,
     reps: int = 10,
+    backend: str = "torch",
     engine=None,
     verbose: int = 1,
 ):
@@ -331,7 +348,7 @@ def train_candidates(
     base_params.setdefault("verbose", 0)
     pa0 = load_aligned_events(fastafile, bamfile, fast5dir,
                               RegionInfo(region), base_params,
-                              engine=engine)
+                              backend=backend, engine=engine)
     refseq = pa0.sequence
     if len(pa0.events) < 5:
         if verbose > 0:
@@ -355,7 +372,7 @@ def train_candidates(
     for i, p in enumerate(paramlist):
         p = dict(p)
         p.setdefault("verbose", 0)
-        pa = PSAlign(engine=engine)
+        pa = PSAlign(backend=backend, engine=engine)
         pa.sequence = seed
         pa.events = (pa0.events if i == 0
                      else [ev.light_copy() for ev in pa0.events])
@@ -378,6 +395,7 @@ def variant(
     region: str | None = None,
     params: dict | None = None,
     verbose: int = 0,
+    backend: str = "torch",
     engine=None,
 ):
     """Variant scoring (Variant.py:11-95): either whole candidate sequences
@@ -386,7 +404,7 @@ def variant(
     params = dict(params or {})
     reginfo = RegionInfo(region)
     pa = load_aligned_events(ref_fasta, bamfile, fast5dir, reginfo, params,
-                             engine=engine)
+                             backend=backend, engine=engine)
     pa.params["verbose"] = verbose
 
     if var_fasta is not None:

@@ -139,6 +139,7 @@ def simulate_session(
     ref_len: int = 1000,
     coverage: int = 10,
     draft_error: float = 0.0,
+    backend: str = "torch",
     engine=None,
     params: dict | None = None,
     **kw,
@@ -151,7 +152,7 @@ def simulate_session(
 
     truth = random_seq(rng, ref_len)
     draft = mutate_seq(rng, truth, draft_error) if draft_error > 0 else truth
-    pa = PSAlign(engine=engine)
+    pa = PSAlign(backend=backend, engine=engine)
     pa.sequence = draft
     pa.params = dict(params or {})
     pa.params.setdefault("verbose", 0)

@@ -1,7 +1,8 @@
 """The port's own host layer (core/, io/, sim.py, api.py, pipeline.py,
-engine/{types,driver,multi,sw}.py, csrc/host_sw.cpp) against the JAX
-package's originals on seeded inputs, one parametrised test per layer, and
-a scan of the port's sources for any import of the JAX package."""
+engine/{types,driver,multi,sw}.py and the Smith-Waterman of its copy of
+csrc/psq_exact.cpp) against the JAX package's originals on seeded inputs,
+one parametrised test per layer, and a scan of the port's sources for any
+import of the JAX package."""
 
 import ast
 import copy
@@ -30,11 +31,17 @@ CONF = dict(realign_width=16, scoring_width=8, point_width=6,
 
 def test_port_imports_nothing_of_the_jax_package():
     """No file of poreseq_tpu_torch/ (the device mesh, parallel/mesh.py,
-    among them) and no line of chip_smoke.py imports poreseq_tpu (or jax),
-    lazily inside a function or not."""
+    and the exact engine, engine/exact/ over engine/_native.py, among
+    them) and no line of
+    chip_smoke.py imports poreseq_tpu (or jax), lazily inside a function or
+    not."""
     files = sorted((REPO / "poreseq_tpu_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
-    assert REPO / "poreseq_tpu_torch" / "parallel" / "mesh.py" in files
+    port = REPO / "poreseq_tpu_torch"
+    assert port / "parallel" / "mesh.py" in files
+    assert port / "engine" / "_native.py" in files
+    assert {port / "engine" / "exact" / f"{m}.py" for m in (
+        "__init__", "align", "sw", "viterbi")} <= set(files)
     bad = []
     for f in files:
         for node in ast.walk(ast.parse(f.read_text())):
