@@ -18,16 +18,20 @@ non-zero, nothing runs on the CPU instead):
                 group of an 8-region lockstep batch, the Viterbi sweep
                 (with and without backpointers), the sampler (16
                 candidates) and its Gumbel kernel on that batch's 8
-                regions, in f64 (equal to the twin) and f32
-                (the production type; the backtrace and the Viterbi kernels
-                equal too), with each kernel's device time (CUDA
+                regions, the Viterbi observations on those regions' rows,
+                the per-base likes, the scoring geometry and its windows on
+                the 8-region batch of a Mutate round (scoring width 100), in
+                f64 (equal to the twin) and f32 (the production type; every
+                kernel but the fill and the group scorer equal too; the
+                fill's running best equal to dp.finish_fill on the kernel's
+                own column maxima), with each kernel's device time (CUDA
                 events), its least time on the card (engine/roofline.py)
                 and the twin's time;
   2b. viterbi — the sampler's counter hash on the card equals its pinned
                 values bit for bit, and in f64 each of the 8 regions of
                 phase 2's batch gets the same candidates inside the batch
                 as alone (f32: the count that do is printed), through the
-                sweep, Gumbel and sampler kernels;
+                observation, sweep, Gumbel and sampler kernels;
   3. e2e      — the port's CLI `consensus --region-batch 8 --device cuda` on a
                 synthetic run (8 x 1 kb regions at 10X, widths 300/100/20,
                 -i 4), checking the output count, the mean accuracy against
@@ -76,7 +80,9 @@ non-zero, nothing runs on the CPU instead):
                 exact engine's, or below 99 %), which fail the run.
 Phase 2 also holds the fill, backtrace and group scorer on cuda:1 in f64
 when torch sees a second card.  Phases 2b-8 reset the kernels' launch
-counters before they start and report them after.  The line before the
+counters before they start and report them after; each must have launched
+the kernels of its path (phase 3: every kernel; phase 7: all but the
+geometry, which a mesh takes from the host).  The line before the
 last is a JSON object with one entry per kernel; the last line is
 {"ok": true, "device": {...}}.
 Kernel times are CUDA-event times of 20 launches after two warm-up
@@ -255,12 +261,12 @@ def phase_build():
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(kernels)) as pool:
         list(pool.map(lambda k: k.lib(), kernels))
-    secs = {k.name: round(k.build_seconds, 3) for k in kernels}
+    secs = {k.src: round(k.build_seconds, 3) for k in kernels}
     print(f"[build] nvcc sm_90a: {secs} wall "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
-    for k in kernels:
+    for k in {k.src: k for k in kernels}.values():
         for line in ptxas_usage(k.build_log):
-            print(f"[build] ptxas {k.name} {line}", flush=True)
+            print(f"[build] ptxas {k.src} {line}", flush=True)
     print(gpu_line(), flush=True)
     return kernels
 
@@ -302,7 +308,9 @@ def hold_fill(args, where: str) -> float:
     """One fill launch (fill_cuda's arguments) against its plain twin on the
     same operands: M, S and cmax equal (f64) or within the tolerance (f32),
     step bytes equal (f64) or >= 99.95 % equal (f32), first argmaxes and
-    best coordinates equal.  Returns the max |diff|."""
+    best coordinates equal; the kernel's running best (best_pfx, best,
+    best_i, best_j) equal to dp.finish_fill on its own cmax and carg.
+    Returns the max |diff|."""
     import torch
 
     from poreseq_tpu_torch.engine.dp import fill_reference, finish_fill
@@ -313,6 +321,7 @@ def hold_fill(args, where: str) -> float:
     rtol, atol = _tolerance(f64)
     got = fill_cuda(*args)
     ref = fill_reference(*args)
+    own = finish_fill(*got[:6], i0, i1, backward)
     torch.cuda.synchronize()
     what = f"{where} fill (f64={f64}, backward={backward})"
     err = 0.0
@@ -331,10 +340,13 @@ def hold_fill(args, where: str) -> float:
             if not bool((d <= atol + rtol * b.abs()).all()):
                 fail(f"{what}: {n} max |diff| {d.max().item()}")
             err = max(err, d.max().item())
-    rg = finish_fill(*got, i0, i1, backward)
+    for n, k in zip(("best_pfx", "best", "best_i", "best_j"), got[6:]):
+        if not torch.equal(k, getattr(own, n)):
+            fail(f"{what}: the kernel's {n} differs from finish_fill on its "
+                 "own column maxima")
     rr = finish_fill(*ref, i0, i1, backward)
-    if not (torch.equal(rg.best_i, rr.best_i)
-            and torch.equal(rg.best_j, rr.best_j)):
+    if not (torch.equal(own.best_i, rr.best_i)
+            and torch.equal(own.best_j, rr.best_j)):
         fail(f"{what}: best_i/best_j differ")
     return err
 
@@ -374,7 +386,9 @@ def check_fill(engine, seed: int, f64: bool, report: dict):
               f"E={batch.mean.shape[0]} C={states.shape[0]} W={W}: forward "
               f"with steps, backward with "
               f"and without held to the twin, max |diff| so far {err:.3e} "
-              f"(rtol {rtol}, atol {atol}); steps/best equal", flush=True)
+              f"(rtol {rtol}, atol {atol}); steps/best equal; the kernel's "
+              f"best_pfx/best/best_i/best_j equal finish_fill on its own "
+              f"cmax/carg", flush=True)
     if not f64:
         print(f"[kernels] fill f32 W={2 * FILL_WIDTHS[0] + 1}: forward "
               f"{_timing(line['forward'])}"
@@ -578,22 +592,38 @@ ONE_BLOCK_MS = {"viterbi_sweep": 2.005, "viterbi_sample": 3.680}
 
 
 def check_viterbi(engine, events, seed: int, f64: bool, report: dict):
-    """The sweep (with and without backpointers), the sampler (16
-    candidates, its Gumbel launch included) and the Gumbel kernel alone on
-    the 8 regions of the group scorer's batch, as viterbi_mutate_multi
-    builds their operands, each equal to its twin; in f32 each timed."""
+    """The observations, the sweep (with and without backpointers), the
+    sampler (16 candidates, its Gumbel launch included) and the Gumbel
+    kernel alone on the 8 regions of the group scorer's batch, as
+    viterbi_mutate_multi builds their operands, each equal to its twin; in
+    f32 each timed."""
     import torch
 
     from poreseq_tpu_torch.engine.roofline import (viterbi_gumbel_work,
+                                                   viterbi_obs_work,
                                                    viterbi_sample_work,
                                                    viterbi_sweep_work)
     from poreseq_tpu_torch.engine.viterbi import (
-        gumbel_cuda, gumbel_reference, sample_inputs, sample_paths_cuda,
-        sample_paths_reference, sweep_inputs, transition_matrix,
-        viterbi_sweep_cuda, viterbi_sweep_reference)
+        gumbel_cuda, gumbel_reference, obs_inputs, obs_multi_cuda,
+        obs_multi_reference, sample_inputs, sample_paths_cuda,
+        sample_paths_reference, transition_matrix, viterbi_sweep_cuda,
+        viterbi_sweep_reference)
 
     dt = engine.dtype
-    _, obs, n_real = sweep_inputs(events, engine.device, dt)
+    _, ops, n_real = obs_inputs(events, engine.device, dt)
+    obs = obs_multi_cuda(*ops)
+    obs_ref = obs_multi_reference(*ops)
+    torch.cuda.synchronize()
+    if not torch.equal(obs, obs_ref):
+        fail(f"viterbi_obs (f64={f64}) " + _differs("obs", obs, obs_ref))
+    del obs_ref
+    obs_line = dict(max_abs_err=0.0)
+    if not f64:
+        obs_line.update(timed(event_ms(lambda: obs_multi_cuda(*ops)),
+                              viterbi_obs_work(ops[0], ops[2], ops[3]), dt))
+        obs_line["plain_ms"] = cuda_ms(lambda: obs_multi_reference(*ops),
+                                       reps=2)
+    report[("viterbi_obs", f64)] = obs_line
     for bp in (False, True):
         got = viterbi_sweep_cuda(obs, n_real, *VITERBI_ARGS, bp)
         ref = viterbi_sweep_reference(obs, n_real, *VITERBI_ARGS, bp)
@@ -646,7 +676,11 @@ def check_viterbi(engine, events, seed: int, f64: bool, report: dict):
     B = obs.shape[0]
     print(f"[kernels] viterbi f{'64' if f64 else '32'}: {len(events)} regions "
           f"(bucket {B}, rows {n_real.tolist()} of {R}), 16 candidates: "
-          f"sweep liks/fwds equal, with backpointers liks/fwds/bps equal, "
+          f"observations [{B}, {R}, 1024] over E_pad={ops[0].shape[2]} "
+          f"events equal"
+          + (f" ({_timing(obs_line)}, twin {obs_line['plain_ms']:.1f} ms)"
+             if not f64 else "")
+          + f"; sweep liks/fwds equal, with backpointers liks/fwds/bps equal, "
           f"sampler paths of {paths.shape[0] * paths.shape[1]} chains equal, "
           f"the Gumbel kernel's [{nk}, {R}, 1024] equal"
           + (f"; sweep {_timing(sweep)} (one-block design: "
@@ -659,6 +693,78 @@ def check_viterbi(engine, events, seed: int, f64: bool, report: dict):
              f"{_timing(gumbel)}, twin {gumbel['plain_ms']:.1f} ms | "
              f"{gpu_line()}"
              if not f64 else ""), flush=True)
+
+
+def _scoring_operands(engine, datas):
+    """The operands of the per-base likes, the scoring geometry and its
+    windows in one Mutate round's scoring call on an 8-region lockstep
+    batch, as group_launches builds them: (batch, ral, rlk, S_e, C, scoring
+    width, Ws)."""
+    import torch
+
+    from poreseq_tpu_torch.engine.align import both_dev
+    from poreseq_tpu_torch.engine.pack import fill_geometry
+
+    ctx = engine._prepare_multi(datas)
+    p = datas[0].params
+    fi = fill_geometry(ctx["arrays"], ctx["ref_indexes"], ctx["S_e"],
+                       ctx["C"], p.realign_width)
+    T = ctx["arrays"]["mean"].shape[1]
+    t = lambda x: torch.as_tensor(x, device=engine.device)
+    out = both_dev(ctx["batch"], t(ctx["states2"]), t(fi["i0"]), t(fi["i1"]),
+                   t(fi["is_pad"]), float(p.lik_offset), p.realign_width, T,
+                   int(ctx["C"] + 2 * T + 8))
+    Ws = 2 * min(p.scoring_width, p.realign_width) + 1
+    return (ctx["batch"], out[6], out[7], t(ctx["S_e"].astype(np.int32)),
+            int(ctx["C"]), p.scoring_width, Ws)
+
+
+def check_prologue(engine, datas, f64: bool, report: dict):
+    """The per-base likes, the scoring geometry and its windows on the
+    operands of a Mutate round's scoring call (8 regions, scoring width
+    100), each equal to its twin; in f32 each timed."""
+    import torch
+
+    from poreseq_tpu_torch.engine.align import likes_cuda, likes_reference
+    from poreseq_tpu_torch.engine.mutscore import (geom_cuda, geom_reference,
+                                                   windows_cuda,
+                                                   windows_reference)
+    from poreseq_tpu_torch.engine.roofline import (geom_work, likes_work,
+                                                   windows_work)
+
+    batch, ral, rlk, S_e, C, sw, Ws = _scoring_operands(engine, datas)
+    dt = engine.dtype
+    i0r, i1r = geom_cuda(ral, batch.n0, S_e, sw, C)
+    win_args = (batch.mean, batch.stdv, batch.lsr, i0r, Ws)
+    runs = {
+        "likes": ((ral, rlk, C), likes_cuda, likes_reference,
+                  likes_work(ral, C)),
+        "geom": ((ral, batch.n0, S_e, sw, C), geom_cuda, geom_reference,
+                 geom_work(ral, batch.n0, C)),
+        "windows": (win_args, windows_cuda, windows_reference,
+                    windows_work(batch, i0r, Ws)),
+    }
+    for name, (args, kern, twin, work) in runs.items():
+        got, ref = kern(*args), twin(*args)
+        torch.cuda.synchronize()
+        got, ref = ((got,), (ref,)) if name == "likes" else (got, ref)
+        for a, b in zip(got, ref):
+            if not torch.equal(a, b):
+                fail(f"{name} (f64={f64}) " + _differs(name, a, b))
+        line = dict(max_abs_err=0.0)
+        if not f64:
+            line.update(timed(event_ms(lambda: kern(*args)), work, dt))
+            line["plain_ms"] = cuda_ms(lambda: twin(*args), reps=2)
+        report[(name, f64)] = line
+    E, T = ral.shape
+    print(f"[kernels] prologue f{'64' if f64 else '32'}: {len(datas)} regions "
+          f"E={E} ({int(batch.active.sum())} active) T={T} C={C}: likes "
+          f"[{E}, {C}], geometry i0/i1 [{E}, {C + 1}] (scoring width {sw}) "
+          f"and windows 3 x [{C + 1}, {E}, {Ws}] equal their twins"
+          + "".join(f"; {n} {_timing(report[(n, f64)])}, twin "
+                    f"{report[(n, f64)]['plain_ms']:.1f} ms"
+                    for n in runs if not f64)
+          + (f" | {gpu_line()}" if not f64 else ""), flush=True)
 
 
 def phase_kernels(seed: int):
@@ -677,6 +783,7 @@ def phase_kernels(seed: int):
         check_backtrace(engine, _session(seed), f64, report)
         check_mutscore(engine, regions, f64, report)
         check_viterbi(engine, events, seed, f64, report)
+        check_prologue(engine, _mut_regions(seed)["mutate"][0], f64, report)
     if torch.cuda.device_count() < 2:
         print(f"[kernels] cuda:1: skipped, torch sees "
               f"{torch.cuda.device_count()} card", flush=True)
@@ -692,20 +799,24 @@ def phase_kernels(seed: int):
 
 
 def _kernels():
-    from poreseq_tpu_torch.engine.align import BACKTRACE
+    from poreseq_tpu_torch.engine.align import BACKTRACE, LIKES
     from poreseq_tpu_torch.engine.fill import FILL
-    from poreseq_tpu_torch.engine.mutscore import MUTSCORE
+    from poreseq_tpu_torch.engine.mutscore import GEOM, MUTSCORE, WINDOWS
     from poreseq_tpu_torch.engine.viterbi import (VITERBI_GUMBEL,
+                                                  VITERBI_OBS,
                                                   VITERBI_SAMPLE,
                                                   VITERBI_SWEEP)
 
     return (FILL, MUTSCORE, BACKTRACE, VITERBI_SWEEP, VITERBI_SAMPLE,
-            VITERBI_GUMBEL)
+            VITERBI_GUMBEL, VITERBI_OBS, LIKES, GEOM, WINDOWS)
 
 
-# the kernels a phase that runs no Viterbi (variant) must launch
+# the kernels every engine path launches (and every shard of a mesh)
 ALIGN_KERNELS = ("fill", "mutscore", "backtrace")
-VITERBI_KERNELS = ("viterbi_sweep", "viterbi_sample", "viterbi_gumbel")
+# ... a scoring call, with the device geometry (f32 on one device)
+SCORE_KERNELS = ALIGN_KERNELS + ("windows", "geom")
+VITERBI_KERNELS = ("viterbi_obs", "viterbi_sweep", "viterbi_sample",
+                   "viterbi_gumbel")
 
 
 def _reset_launches():
@@ -1116,7 +1227,7 @@ def phase_variant(seed: int):
         fail(f"variant -a: {len(lines_a)} lines, {n_points} point mutations")
     if not fscores.get("truth", -np.inf) > fscores.get("mutated5", np.inf):
         fail(f"variant -f: scores {fscores}")
-    _need_launches("variant", launches, ALIGN_KERNELS)
+    _need_launches("variant", launches, SCORE_KERNELS)
     return launches, times
 
 
@@ -1367,7 +1478,8 @@ def phase_mesh(seed: int, e2e: dict, e2e_launches: dict):
         fail(f"mesh: shards that never launched a kernel: {missing}")
     if acc < 99.0:
         fail(f"mesh mean accuracy {acc:.3f}% < 99.0%")
-    _need_launches("mesh", launches)
+    # a mesh takes the scoring geometry from the host
+    _need_launches("mesh", launches, [k for k in launches if k != "geom"])
     return launches
 
 
@@ -1497,7 +1609,7 @@ def phase_f32_equiv(n: int):
         if st["degraded"]:
             fail(f"f32_equiv: {st['degraded']} of {n} regions degraded on "
                  f"TorchEngine {name}")
-    _need_launches("f32_equiv", launches, ALIGN_KERNELS)
+    _need_launches("f32_equiv", launches, SCORE_KERNELS + ("likes",))
     return launches
 
 
@@ -1512,6 +1624,14 @@ LIBRARY_NOTE = {
                       "categorical draws, each conditioned on the last",
     "viterbi_gumbel": "no single PyTorch call draws Gumbel noise from a "
                       "counter hash",
+    "viterbi_obs": "no single PyTorch call computes a trimmed mean over "
+                   "events (torch.sort then a masked sum is several calls)",
+    "likes": "no single PyTorch call computes the last anchored value at "
+             "each reference index (two cummax, a searchsorted, gathers)",
+    "geom": "no single PyTorch call computes update_refs' interpolation, "
+            "a band placement and its rate limit",
+    "windows": "no single PyTorch call gathers windows with pad values "
+               "outside the event (a gather, a clamp and a where)",
 }
 
 # (seed, k, i, w) -> h, as tests/test_torch_viterbi.py pins them on the CPU
@@ -1552,7 +1672,8 @@ def main():
 
     held_keys = {"fill": ("fill fwd", "fill bwd"), "mutscore": ("mutscore",),
                  "backtrace": (), "viterbi_sweep": (), "viterbi_sample": (),
-                 "viterbi_gumbel": ()}
+                 "viterbi_gumbel": (), "viterbi_obs": (), "likes": (),
+                 "geom": (), "windows": ()}
     entries = []
     for k in kernels:
         line = report[(k.name, False)]

@@ -98,17 +98,35 @@ def build_host(name: str) -> Path:
 #: every Kernel made, in the order their modules define them
 KERNELS: list = []
 
+# csrc/<src>.cu -> [lock, loaded library, build seconds, build log]: one
+# build and one load a source, however many Kernels it holds
+_SOURCES: dict = {}
+_SOURCES_LOCK = threading.Lock()
+
+
+def _load(src: str) -> tuple[ctypes.CDLL, float, str]:
+    with _SOURCES_LOCK:
+        entry = _SOURCES.setdefault(src, [threading.Lock(), None, 0.0, ""])
+    with entry[0]:
+        if entry[1] is None:
+            path, entry[2], entry[3] = build(src)
+            entry[1] = ctypes.CDLL(str(path))
+    return entry[1], entry[2], entry[3]
+
 
 class Kernel:
-    """One csrc/<name>.cu library: built and loaded on first use, with a
-    plain-integer ``launches`` count that its wrapper bumps once per kernel
-    launch (never for a twin call).  Distinct kernels build concurrently."""
+    """One kernel of a csrc/<src>.cu library (src defaults to the kernel's
+    name): built and loaded on first use, with a plain-integer ``launches``
+    count that its wrapper bumps once per kernel launch (never for a twin
+    call).  Distinct sources build concurrently."""
 
-    def __init__(self, name: str, replaces: str, signatures: dict):
+    def __init__(self, name: str, replaces: str, signatures: dict,
+                 src: str | None = None):
         KERNELS.append(self)
         self.name = name
         self.replaces = replaces
-        self.source = f"poreseq_tpu_torch/csrc/{name}.cu"
+        self.src = src or name
+        self.source = f"poreseq_tpu_torch/csrc/{self.src}.cu"
         self._signatures = signatures
         self._lib = None
         self.launches = 0
@@ -119,8 +137,7 @@ class Kernel:
     def lib(self) -> ctypes.CDLL:
         with self._lock:
             if self._lib is None:
-                path, self.build_seconds, self.build_log = build(self.name)
-                lib = ctypes.CDLL(str(path))
+                lib, self.build_seconds, self.build_log = _load(self.src)
                 for fn, argtypes in self._signatures.items():
                     getattr(lib, fn).argtypes = argtypes
                     getattr(lib, fn).restype = ctypes.c_int

@@ -23,6 +23,14 @@ template <> __device__ __forceinline__ double neg_big<double>() { return -1e300;
 template <typename T>
 __device__ __forceinline__ T mx(T a, T b) { return a > b ? a : b; }
 
+template <typename T> __device__ __forceinline__ T pos_inf();
+template <> __device__ __forceinline__ float pos_inf<float>() {
+  return __int_as_float(0x7f800000);
+}
+template <> __device__ __forceinline__ double pos_inf<double>() {
+  return __longlong_as_double(0x7ff0000000000000LL);
+}
+
 // x[i] inside [0, n), else 0 (a band shift with zero fill)
 template <typename T>
 __device__ __forceinline__ T at_or_zero(const T* x, int i, int n) {

@@ -7,8 +7,17 @@
 // implicit local restarts from the previous column (band shifts of at most
 // DMAX rows), the in-column (M, S) chain as a max-plus scan (reversed for the
 // backward fill, which runs in forward coordinates), uint8 backpointers
-// (forward), and the column's max and first argmax.  The running-best
-// bookkeeping stays in the Python wrapper (engine/fill.py).
+// (forward), the column's max and first argmax, and the running best of
+// make_pallas_fill's epilogue (pallas_fill.py:494-511; the twin is
+// engine/dp.py:finish_fill): the thread that finishes each column's argmax
+// carries the running max of the column maxima in processing order, writes
+// best_pfx = max(running, 0) for the column and keeps the column of the
+// last strict raise with its argmax; at the end it writes best = max(final,
+// 0), best_i = i0 + argmax and best_j = column + 1 of that raise (0, 0 when
+// the best is not above 0).  The first column in processing order whose max
+// reaches the final best is that raise, so this is finish_fill's answer,
+// by max and compare only (bit-equal in f32 and f64), with no block
+// barrier and one store a column.
 //
 // What bounds it on this card: the bytes it must move (M and S, 8 or 16
 // bytes a cell, and the step bytes) set a bound of about 0.02 ms for the
@@ -41,11 +50,12 @@
 //    after the previous-column buffers are written; the backward fill
 //    with steps has one more (each warp's first M, S for the warp below).
 // Shared memory per block: (2W + 6*32 + 32 + 64) T + 32 int, i.e. 6,088
-// bytes in f32 and 12,048 in f64 at W = 601.  Registers (nvcc -Xptxas -v,
-// sm_90a; chip_smoke.py prints them): the W <= 608 instances 66-75 in
-// f32 and 96 in f64, no spills but 36 bytes in the f64 backward fill with
-// steps; the wider instances are held to 64 by their 1024-thread launch
-// bound (59-64 used) and spill up to 24 bytes in f32 and 488 in f64.
+// bytes in f32 and 12,048 in f64 at W = 601.  Registers (nvcc 12.9
+// -Xptxas -v, sm_90a; chip_smoke.py prints them): the W <= 608 instances
+// 69-76 in f32 and 94-96 in f64, no spills but 8 and 40 bytes in the f64
+// fills with steps; the wider instances are held to 64 by their
+// 1024-thread launch bound and spill up to 28 bytes in f32 and 528 in
+// f64.
 //
 // Built with --fmad=false so the kernel evaluates the twin's expression
 // tree without fused multiply-adds.
@@ -72,6 +82,10 @@ struct FillArgs {
   uint8_t* steps_s;        // [C, E, W] (need_steps)
   void* cmax;              // [C, E]
   int* carg;               // [C, E]
+  void* best_pfx;          // [C, E] the running best, clamped at 0
+  void* best;              // [E]
+  int* best_i;             // [E]
+  int* best_j;             // [E]
   int C, E, W, Tlen, backward, need_steps;
   double lik_offset;
 };
@@ -173,12 +187,25 @@ __global__ void __launch_bounds__(XW ? 640 : 1024) fill_kernel(FillArgs a) {
     }
   };
 
+  // the running best, carried by the finisher: lane 0 of the warp that
+  // finishes the column argmax (the spare warp, else warp 0)
+  T run = T(0);
+  int c_star = 0, a_star = 0;
+  auto running = [&](int tt, int c, T cv, int ci) {
+    if (tt == 0 || cv > run) { run = cv; c_star = c; a_star = ci; }
+    static_cast<T*>(a.best_pfx)[(size_t)c * E + e] = mx(run, T(0));
+  };
   // the column's max and first argmax from the row warps' partials
-  auto finish_argmax = [&](size_t ce) {
+  auto finish_argmax = [&](int tt, int c) {
     T cv = lane < nwr ? red_v[lane] : NB;
     int ci = lane < nwr ? red_i[lane] : INT_MAX;
     warp_argmax(cv, ci);
-    if (lane == 0) { cmax[ce] = cv; a.carg[ce] = ci; }
+    if (lane == 0) {
+      const size_t ce = (size_t)c * E + e;
+      cmax[ce] = cv;
+      a.carg[ce] = ci;
+      running(tt, c, cv, ci);
+    }
   };
 
   if (has) { prevM[row] = T(0); prevO[row] = T(0); }
@@ -203,7 +230,9 @@ __global__ void __launch_bounds__(XW ? 640 : 1024) fill_kernel(FillArgs a) {
         }
         if (BWD && STEPS) __syncthreads();
         __syncthreads();        // C
-        finish_argmax(ce);
+        finish_argmax(tt, c);
+      } else if (lane == 0) {
+        running(tt, c, NB, 0);
       }
       cur = nxt;
       nxt = after;
@@ -219,7 +248,11 @@ __global__ void __launch_bounds__(XW ? 640 : 1024) fill_kernel(FillArgs a) {
         So[base] = T(0);
         if (STEPS) { a.steps_m[base] = 0; a.steps_s[base] = 0; }
       }
-      if (t == 0) { cmax[ce] = NB; a.carg[ce] = 0; }
+      if (t == 0) {
+        cmax[ce] = NB;
+        a.carg[ce] = 0;
+        if (!XW) running(tt, c, NB, 0);
+      }
       next_emission();
     } else {
       const int i0c = cur.i0, i1c = cur.i1, st = cur.st;
@@ -329,12 +362,18 @@ __global__ void __launch_bounds__(XW ? 640 : 1024) fill_kernel(FillArgs a) {
       p0 = i0c;
       p1 = i1c;
       __syncthreads();          // C: prevM/prevO and the partials
-      if (!XW && warp == 0) finish_argmax(ce);
+      if (!XW && warp == 0) finish_argmax(tt, c);
     }
     cur = nxt;
     nxt = after;
     ev = ev_n;
     esrc = esrc_n;
+  }
+  if (t == (XW ? 32 * nwr : 0)) {  // the finisher: the event's best
+    const bool hit = run > T(0);
+    static_cast<T*>(a.best)[e] = mx(run, T(0));
+    a.best_i[e] = hit ? a.i0[(size_t)e * (C + 1) + c_star + 1] + a_star : 0;
+    a.best_j[e] = hit ? c_star + 1 : 0;
   }
 }
 

@@ -1,10 +1,12 @@
-"""Fill wrapper: the banded pair-HMM fill on CPU (plain twin) or CUDA
-(hand kernel csrc/fill.cu), plus the running-best bookkeeping.
+"""Fill wrapper: the banded pair-HMM fill with its running best on CPU
+(plain twins ``dp.fill_reference`` + ``dp.finish_fill``) or CUDA (hand
+kernel csrc/fill.cu, which computes both).
 
 Counterpart of ``poreseq_tpu/engine/tpu/align.py:get_fill`` choosing
 between ``pallas_fill.make_pallas_fill`` and ``dp.make_fill``: here the
 operands' device decides.  CPU tensors go to ``dp.fill_reference``; CUDA
-tensors launch the kernel (f32 or f64) or raise.
+tensors launch the kernel (f32 or f64) or raise.  On either route the
+result is a ``FillResult``.
 """
 
 from __future__ import annotations
@@ -14,7 +16,8 @@ import ctypes
 import torch
 
 from .._build import Kernel, check, dtype_suffix, ptr, route, stream
-from .dp import MODEL_FIELDS, EventBatch, fill_reference, finish_fill
+from .dp import (MODEL_FIELDS, EventBatch, FillResult, fill_reference,
+                 finish_fill)
 
 
 class _FillArgs(ctypes.Structure):
@@ -29,7 +32,9 @@ class _FillArgs(ctypes.Structure):
         ("i1", ctypes.c_void_p), ("M", ctypes.c_void_p),
         ("S", ctypes.c_void_p), ("steps_m", ctypes.c_void_p),
         ("steps_s", ctypes.c_void_p), ("cmax", ctypes.c_void_p),
-        ("carg", ctypes.c_void_p),
+        ("carg", ctypes.c_void_p), ("best_pfx", ctypes.c_void_p),
+        ("best", ctypes.c_void_p), ("best_i", ctypes.c_void_p),
+        ("best_j", ctypes.c_void_p),
         ("C", ctypes.c_int), ("E", ctypes.c_int), ("W", ctypes.c_int),
         ("Tlen", ctypes.c_int), ("backward", ctypes.c_int),
         ("need_steps", ctypes.c_int), ("lik_offset", ctypes.c_double),
@@ -43,7 +48,10 @@ FILL = Kernel("fill", "poreseq_tpu/engine/tpu/pallas_fill.py:142 _kernel",
 
 def fill_cuda(batch: EventBatch, states, i0, i1, is_pad, lik_offset,
               backward: bool, W: int, need_steps: bool = True):
-    """Launch csrc/fill.cu: same raw outputs as dp.fill_reference."""
+    """Launch csrc/fill.cu: dp.fill_reference's raw outputs (M, S,
+    steps_m, steps_s, cmax, carg), then the running best that
+    dp.finish_fill derives from them (best_pfx [C, E], best [E], best_i,
+    best_j [E] int32)."""
     dev, dt = batch.mean.device, batch.mean.dtype
     if not 1 <= W <= 1024:
         raise ValueError(f"fill kernel needs 1 <= W <= 1024, got {W}")
@@ -71,16 +79,21 @@ def fill_cuda(batch: EventBatch, states, i0, i1, is_pad, lik_offset,
     ss = torch.empty((C, E, sw), dtype=torch.uint8, device=dev)
     cmax = torch.empty((C, E), dtype=dt, device=dev)
     carg = torch.empty((C, E), dtype=torch.int32, device=dev)
+    best_pfx = torch.empty((C, E), dtype=dt, device=dev)
+    best = torch.empty((E,), dtype=dt, device=dev)
+    best_i = torch.empty((E,), dtype=torch.int32, device=dev)
+    best_j = torch.empty((E,), dtype=torch.int32, device=dev)
     args = _FillArgs(
         ptr(batch.mean), ptr(batch.stdv), ptr(lsx),
         (ctypes.c_void_p * 6)(*[t.data_ptr() for t in model]),
         (ctypes.c_void_p * 4)(*[t.data_ptr() for t in lik]),
         ptr(batch.n0), ptr(active), ptr(states), ptr(pad), ptr(i0), ptr(i1),
         ptr(M), ptr(S), ptr(sm), ptr(ss), ptr(cmax), ptr(carg),
-        C, E, W, T, int(backward), int(need_steps), float(lik_offset))
+        ptr(best_pfx), ptr(best), ptr(best_i), ptr(best_j), C, E, W, T,
+        int(backward), int(need_steps), float(lik_offset))
     FILL.call(f"psq_fill_{dtype_suffix(dt)}", dev, ctypes.byref(args),
               stream(dev))
-    return M, S, sm, ss, cmax, carg
+    return M, S, sm, ss, cmax, carg, best_pfx, best, best_i, best_j
 
 
 def get_fill(width: int, need_steps: bool = True):
@@ -91,11 +104,13 @@ def get_fill(width: int, need_steps: bool = True):
     def fill(batch: EventBatch, states, i0, i1, is_pad, lik_offset,
              backward: bool):
         if route(batch.mean, states, i0, i1, is_pad) == "cuda":
-            raw = fill_cuda(batch, states, i0, i1, is_pad, lik_offset,
-                            backward, W, need_steps)
-        else:
-            raw = fill_reference(batch, states, i0, i1, is_pad, lik_offset,
-                                 backward, W, need_steps)
+            M, S, sm, ss, _, _, best_pfx, best, best_i, best_j = fill_cuda(
+                batch, states, i0, i1, is_pad, lik_offset, backward, W,
+                need_steps)
+            return FillResult(M, S, sm, ss, i0, i1, best, best_i, best_j,
+                              best_pfx)
+        raw = fill_reference(batch, states, i0, i1, is_pad, lik_offset,
+                             backward, W, need_steps)
         return finish_fill(*raw, i0, i1, backward)
 
     return fill

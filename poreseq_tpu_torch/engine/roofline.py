@@ -43,6 +43,12 @@ SAMPLE_OPS = 8
 # call shares: two logs, two negations, and the counter hash
 GUMBEL_OPS = 4
 HASH_OPS = 9              # one lowbias32 round and its xor (f64 draws two)
+# per (row, valid event, state) of the Viterbi observations: the emission
+# and its add to the kept sum or its compare against the drop threshold
+OBS_OPS = EMISSION_OPS + 1
+LIKES_OPS = 4             # a level's anchor test, two prefix maxima, a test
+INTERP_OPS = 8            # a level's interpolation (or flank line) and tests
+BAND_OPS = 8              # a column's clamps, band ends and rate-limit step
 
 
 def bound_ms(nbytes: float, ops: float, dtype: torch.dtype):
@@ -91,7 +97,9 @@ def fill_work(batch, states, is_pad, W: int, need_steps: bool):
     per_cell = (EMISSION_OPS + CANDIDATE_OPS + ELEMENT_OPS + MAX_OPS
                 + (STEP_OPS if need_steps else 0))
     ops = solved * (W * per_cell + COMBINE_OPS * scan_combines(W))
-    return nbytes, ops
+    # the running best: best_pfx a solved column, best, best_i, best_j an
+    # event, and a compare a column
+    return nbytes + solved * b + n_active * (b + 8), ops + solved
 
 
 def group_work(batch, Mf, Sf, Mb, Sb, i0f, i1f, i0r, i1r, win, bpf, bpb,
@@ -221,3 +229,69 @@ def viterbi_gumbel_work(valid_rows, nk: int, dtype: torch.dtype):
     n = valid_rows.long().sum(dim=1)
     rows = max(int(n.max()) - 1, 0) if len(n) else 0
     return nk * rows * 1024 * _size(dtype), _noise_ops(nk, rows, dtype)
+
+
+def viterbi_obs_work(lvl, valid, tabs):
+    """(bytes, operations) of one observation launch (engine/viterbi.py
+    obs_multi_cuda's operands): the level data of the valid (row, event)
+    pairs and the model tables of the events valid in any row read once,
+    the rows with a valid event written once, and per valid (row, event,
+    state) the emission and its add or compare (OBS_OPS), per trimmed row's
+    valid (event, state) one compare more (the drop threshold), per row
+    and state the divide; rows without a valid event (padding) are not
+    counted."""
+    from .viterbi import trim_counts
+
+    b = _size(lvl.dtype)
+    nlik, nskip = trim_counts(valid)                             # [B, R]
+    n_valid, rows = int(nlik.sum()), int((nlik > 0).sum())
+    tables = int(valid.any(dim=1).sum())                 # (region, event)
+    nbytes = n_valid * (2 * b + 1) + tables * 6 * 1024 * b + rows * 1024 * b
+    ops = 1024 * (n_valid * OBS_OPS + int(nlik[nskip > 0].sum()) + rows)
+    return nbytes, ops + n_valid                         # the stdv logs
+
+
+def likes_work(ral, n_like: int):
+    """(bytes, operations) of one per-base likes launch (engine/align.py
+    likes_cuda's operands): for the events with an anchor, ral read once up
+    to the last anchor, rlk at the anchors, and their n_like values written
+    once; rows with no anchor (padding, inactive events) and the levels
+    past the last anchor are not counted."""
+    b = _size(ral.dtype)
+    anchor = ral > 0
+    T = ral.shape[1]
+    last = torch.where(anchor, torch.arange(T, device=ral.device),
+                       -1).amax(dim=1)                         # [E]
+    levels = int((last + 1).sum())
+    walked = int((last >= 0).sum())
+    return (levels * b + int(anchor.sum()) * b + walked * n_like * b,
+            levels * LIKES_OPS)
+
+
+def geom_work(ral, n0, C: int):
+    """(bytes, operations) of one geometry launch (engine/mutscore.py
+    geom_cuda's operands): ral read once over the levels below n0 and i0,
+    i1 written once, for the events with an anchor there; per level the
+    interpolation, per column the bisection's levels and the band."""
+    b = _size(ral.dtype)
+    T = ral.shape[1]
+    n0 = n0.long()
+    has = ((ral > 0) & (torch.arange(T, device=ral.device)[None, :]
+                        < n0[:, None])).any(dim=1)
+    n_ev, levels = int(has.sum()), int(n0[has].sum())
+    nbytes = levels * b + n_ev * (8 + 8 * (C + 1))
+    search = sum(int(n).bit_length() for n in n0[has].tolist())
+    return nbytes, levels * INTERP_OPS + C * (search + n_ev * BAND_OPS)
+
+
+def windows_work(batch, i0r, Ws: int):
+    """(bytes, operations) of one windows launch (engine/mutscore.py
+    windows_cuda's operands): the active events' mean, stdv and log-stdv
+    levels and band starts read once and their three [Q1, Ws] windows
+    written once; a copy, no arithmetic.  Inactive rows are not counted."""
+    b = _size(batch.mean.dtype)
+    active = batch.active.bool()
+    Q1 = i0r.shape[1]
+    levels = int(batch.n0.long()[active].sum())
+    n_act = int(active.sum())
+    return 3 * levels * b + n_act * Q1 * (4 + 3 * Ws * b), 0

@@ -15,7 +15,7 @@ from poreseq_tpu.engine.tpu import pack as jp
 from poreseq_tpu.engine.types import AlignData
 from poreseq_tpu.sim import simulate_session
 from poreseq_tpu_torch.engine.align import (backtrace, backtrace_reference,
-                                            device_likes)
+                                            device_likes, likes_reference)
 
 # several pytest workers share the machine: one intra-op thread each keeps
 # torch's many small CPU ops from oversubscribing the cores
@@ -79,3 +79,51 @@ def test_device_likes_matches_jax(jax_fill):
     got = device_likes(torch.as_tensor(ral_j), torch.as_tensor(rlk_j), C)
     np.testing.assert_array_equal(got.numpy(), ref)
     assert np.count_nonzero(ref) > 100
+
+
+def _np_likes_walk(ral, rlk, n_like):
+    """NumPy model of csrc/likes.cu: one walk over the levels carrying A
+    (the largest anchor so far, 0 before any) and I (the last anchored
+    level); level j writes its value (rlk[I] when A > 0, else 0) at the k
+    with A[j] <= k < A[j+1], the last level at every k >= A, and the k below
+    A[0] get 0."""
+    E, T = ral.shape
+    vals = np.full((E, n_like), np.nan, dtype=ral.dtype)
+    ks = np.arange(1, n_like + 1)
+    anchor = np.where(ral > 0, ral, 0)
+    for e in range(E):
+        vals[e, ks < anchor[e, 0]] = 0
+        A, I = ral.dtype.type(0), -1
+        for j in range(T):
+            if ral[e, j] > 0:
+                A, I = max(A, ral[e, j]), j
+            nxt = max(A, anchor[e, j + 1]) if j + 1 < T else np.inf
+            vals[e, (ks >= A) & (ks < nxt)] = rlk[e, I] if A > 0 else 0
+    return vals
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+def test_likes_twin_equals_numpy_walk(dtype):
+    """likes_reference equals the kernel's one-walk merge bit for bit:
+    events with no anchor, a plateau (several levels anchored at the same
+    index k), anchors at level 0 and past n_like, inserts (-1) between."""
+    rng = np.random.default_rng(5)
+    E, T, n_like = 12, 70, 40
+    ral = np.zeros((E, T), dtype=dtype)
+    for e in range(1, E):
+        ref, t = int(rng.integers(0, 6)), int(rng.integers(0, 3))
+        while t < T:
+            u = rng.random()
+            if u < 0.45:
+                ref += int(rng.integers(0, 3))
+                ral[e, t] = ref if ref > 0 else 0
+            elif u < 0.55:
+                ral[e, t] = -1
+            t += 1
+    ral[2, :5] = 7                                # plateau at k = 7
+    ral[3, 0] = 1                                 # level 0 anchored
+    ral[4] = np.where(ral[4] > 0, ral[4] + n_like, ral[4])   # past n_like
+    rlk = rng.random((E, T)).astype(dtype)
+    got = likes_reference(torch.as_tensor(ral), torch.as_tensor(rlk), n_like)
+    np.testing.assert_array_equal(got.numpy(), _np_likes_walk(ral, rlk,
+                                                              n_like))

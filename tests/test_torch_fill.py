@@ -118,3 +118,63 @@ def test_fill_rejects_operands_off_cpu_and_cuda():
     with pytest.raises(ValueError, match="meta"):
         get_fill(12)(batch, t(states2), t(fi["i0"]), t(fi["i1"]),
                      t(fi["is_pad"]), 4.5, False)
+
+
+def _np_running_best(cmax, carg, i0, backward):
+    """NumPy model of csrc/fill.cu's running best: one pass over the
+    columns in processing order carrying the running max, best_pfx = max(it,
+    0) per column, the column and argmax of the last strict raise; best,
+    best_i, best_j from that raise when the final max is above 0, else 0."""
+    C, E = cmax.shape
+    pfx = np.zeros_like(cmax)
+    best = np.zeros(E, dtype=cmax.dtype)
+    best_i = np.zeros(E, dtype=np.int32)
+    best_j = np.zeros(E, dtype=np.int32)
+    for e in range(E):
+        run, c_star, a_star = None, 0, 0
+        for tt in range(C):
+            c = C - 1 - tt if backward else tt
+            if tt == 0 or cmax[c, e] > run:
+                run, c_star, a_star = cmax[c, e], c, carg[c, e]
+            pfx[c, e] = run if run > 0 else 0
+        if run > 0:
+            best[e] = run
+            best_i[e] = i0[e, c_star + 1] + a_star
+            best_j[e] = c_star + 1
+    return pfx, best, best_i, best_j
+
+
+@pytest.mark.parametrize("backward", [False, True])
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+def test_finish_fill_equals_one_pass_running_best(dtype, backward):
+    """dp.finish_fill (the twin) equals the kernel's one-pass running best
+    bit for bit: ties of the column max (the first in processing order
+    wins), events whose columns are all negative or padding (-1e30 in f32
+    and f64's sentinel), padded column suffixes, and a best reached on the
+    first or the last column."""
+    from poreseq_tpu_torch.engine.dp import finish_fill, neg_big
+
+    rng = np.random.default_rng(3)
+    C, E = 37, 24
+    nb = neg_big(torch.float64 if dtype == np.float64 else torch.float32)
+    pool = np.array([0.0, 1.5, 1.5, 2.25, 7.0, 7.0, 3.1, 0.7], dtype=dtype)
+    cmax = rng.choice(pool, (C, E)).astype(dtype)
+    cmax += (rng.random((C, E)) < 0.2) * rng.random((C, E)).astype(dtype)
+    carg = rng.integers(0, 41, (C, E)).astype(np.int32)
+    for e in range(E):
+        n_live = int(rng.integers(0, C + 1))
+        cmax[n_live:, e] = nb                      # padded suffix
+        carg[n_live:, e] = 0
+    cmax[:, 0] = -rng.random(C).astype(dtype) - 1.0   # all negative
+    cmax[:, 1] = nb                                     # all padding
+    cmax[:, 2] = 0.0                                    # best 0: no hit
+    cmax[0, 3] = cmax[-1, 4] = 99.0                     # ends
+    i0 = np.cumsum(rng.integers(0, 4, (E, C + 1)), axis=1).astype(np.int32)
+    t = torch.as_tensor
+    r = finish_fill(None, None, None, None, t(cmax), t(carg), t(i0), None,
+                    backward)
+    pfx, best, best_i, best_j = _np_running_best(cmax, carg, i0, backward)
+    np.testing.assert_array_equal(r.best_pfx.numpy(), pfx)
+    np.testing.assert_array_equal(r.best.numpy(), best)
+    np.testing.assert_array_equal(r.best_i.numpy(), best_i)
+    np.testing.assert_array_equal(r.best_j.numpy(), best_j)

@@ -33,10 +33,10 @@ def test_port_imports_nothing_of_the_jax_package():
     """No file of poreseq_tpu_torch/ (the device mesh, parallel/mesh.py,
     and the exact engine, engine/exact/ over engine/_native.py, among
     them) and no line of
-    chip_smoke.py imports poreseq_tpu (or jax), lazily inside a function or
-    not."""
+    chip_smoke.py or tools/profile_phase3.py imports poreseq_tpu (or jax),
+    lazily inside a function or not."""
     files = sorted((REPO / "poreseq_tpu_torch").rglob("*.py"))
-    files.append(REPO / "chip_smoke.py")
+    files += [REPO / "chip_smoke.py", REPO / "tools" / "profile_phase3.py"]
     port = REPO / "poreseq_tpu_torch"
     assert port / "parallel" / "mesh.py" in files
     assert port / "engine" / "_native.py" in files

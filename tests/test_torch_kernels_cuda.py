@@ -6,10 +6,14 @@ enough for the block without a spare warp), forward with steps and
 backward with and without, the group scorer at
 Ws = 41 and 201 (Refine's point width and Mutate's scoring width): f64 must
 equal the twin exactly, f32 within tolerances, with the step bytes, best
-coordinates and accept signs held.  The backtrace, the Viterbi sweep (with
-and without backpointers, one region with all rows real or none) and the
-sampler (1 and 16 candidates) and its Gumbel kernel alone must equal their
-twins exactly in f64 and f32.  A 2x2 mesh of the one card gives the single
+coordinates and accept signs held, and the fill's running best (best,
+best_i, best_j, best_pfx) equal to dp.finish_fill on its own column maxima.
+The backtrace, the Viterbi sweep (with and without backpointers, one region
+with all rows real or none), the sampler (1 and 16 candidates) and its
+Gumbel kernel alone, the Viterbi observations (E_pad 1, 16 and 64: the
+register drop list and the selection passes), the per-base likes, the
+scoring geometry (unsorted rows, C = 1) and its windows (T not a multiple of
+32) must equal their twins exactly in f64 and f32.  A 2x2 mesh of the one card gives the single
 device's group totals bit for bit, and the fill, backtrace and scorer on
 cuda:1 equal their twins (skipped with one card).  Marked `cuda`: they skip
 where torch sees no GPU.  Run them on the card with
@@ -76,6 +80,10 @@ def test_fill_kernel_matches_twin(engine, backward, steps, realign):
     n = FILL.launches
     got = fill_cuda(*args)
     assert FILL.launches == n + 1
+    i0, i1 = args[2], args[3]
+    own = finish_fill(*got[:6], i0, i1, backward)
+    for name, k in zip(("best_pfx", "best", "best_i", "best_j"), got[6:]):
+        assert torch.equal(k, getattr(own, name)), name
     ref = fill_reference(*args)
     if engine.dtype == torch.float64:
         for a, b in zip(got, ref):
@@ -87,9 +95,7 @@ def test_fill_kernel_matches_twin(engine, backward, steps, realign):
             torch.testing.assert_close(a, b, rtol=rtol, atol=atol)
         elif a.numel():                          # step bytes, when asked for
             assert (a == b).double().mean().item() > 0.9995
-    i0, i1 = args[2], args[3]
-    rg, rr = finish_fill(*got, i0, i1, backward), finish_fill(*ref, i0, i1,
-                                                              backward)
+    rg, rr = own, finish_fill(*ref, i0, i1, backward)
     assert torch.equal(rg.best_i, rr.best_i)
     assert torch.equal(rg.best_j, rr.best_j)
 
@@ -202,6 +208,146 @@ def test_viterbi_gumbel_kernel_matches_twin(engine):
     ref = gumbel_reference(7, 16, torch.arange(70, device="cuda"),
                            engine.dtype)
     assert torch.equal(got, ref)
+
+
+def _obs_inputs(E, dtype, seed=0, B=2, R=40):
+    """Observation operands [B, R, E] with plausible model tables: rows of
+    every valid count 0..E (so every nskip, both trim paths for E = 64),
+    event 1 a copy of event 0 (ties), stdv 0 now and then (the clamp)."""
+    rng = np.random.default_rng(seed)
+    lvl = rng.normal(60, 8, (B, R, E))
+    sd = np.where(rng.random((B, R, E)) < 0.05, 0.0,
+                  rng.uniform(0.5, 3, (B, R, E)))
+    valid = np.zeros((B, R, E), dtype=bool)
+    for b in range(B):
+        for r in range(R):
+            valid[b, r, rng.choice(E, r % (E + 1), replace=False)] = True
+    lm, ls = rng.normal(60, 8, (B, E, 1024)), rng.uniform(1, 3, (B, E, 1024))
+    sm, lam = rng.uniform(0.8, 2, (B, E, 1024)), rng.uniform(1, 4,
+                                                             (B, E, 1024))
+    tabs = np.stack([lm, ls, np.log(ls), sm, lam, np.log(lam)], 1)
+    if E > 1:
+        lvl[:, :, 1], sd[:, :, 1] = lvl[:, :, 0], sd[:, :, 0]
+        tabs[:, :, 1] = tabs[:, :, 0]
+    t = lambda x, d=dtype: torch.as_tensor(x, dtype=d, device="cuda")
+    return t(lvl), t(sd), t(valid, torch.bool), t(tabs)
+
+
+@pytest.mark.parametrize("engine", DTYPES, indirect=True)
+@pytest.mark.parametrize("E", [1, 16, 64])
+def test_viterbi_obs_kernel_matches_twin(engine, E):
+    from poreseq_tpu_torch.engine.viterbi import (VITERBI_OBS,
+                                                  obs_multi_cuda,
+                                                  obs_multi_reference,
+                                                  sweep_inputs)
+
+    args = _obs_inputs(E, engine.dtype)
+    n = VITERBI_OBS.launches
+    got = obs_multi_cuda(*args)
+    assert VITERBI_OBS.launches == n + 1
+    assert torch.equal(got, obs_multi_reference(*args))
+    # the sweep's operands of three real regions go through the kernel
+    n = VITERBI_OBS.launches
+    sweep_inputs(_viterbi_events(), "cuda", engine.dtype)
+    assert VITERBI_OBS.launches == n + 1
+
+
+@pytest.mark.parametrize("engine", DTYPES, indirect=True)
+@pytest.mark.parametrize("shape", ["backtrace", "edges"])
+def test_likes_kernel_matches_twin(engine, shape):
+    """A backtrace's ral/rlk at C columns, and edge shapes: one event, one
+    column, T = 70 (not a multiple of 32), no anchor, a plateau."""
+    from poreseq_tpu_torch.engine.align import (LIKES, backtrace_cuda,
+                                                likes_cuda, likes_reference)
+    from poreseq_tpu_torch.engine.fill import get_fill
+
+    if shape == "backtrace":
+        batch, states, i0, i1, pad, off, _, W, _ = _fill_args(
+            engine, _data(), False)
+        r = get_fill((W - 1) // 2)(batch, states, i0, i1, pad, off, False)
+        T = batch.mean.shape[1]
+        ral, rlk = backtrace_cuda(r.M, r.S, r.steps_m, r.steps_s, r.i0,
+                                  r.i1, r.best_i, r.best_j, T,
+                                  states.shape[0] + 2 * T + 8)
+        cases = [(ral, rlk, states.shape[0])]
+    else:
+        rng = np.random.default_rng(2)
+        ral = np.where(rng.random((5, 70)) < 0.5,
+                       np.cumsum(rng.integers(0, 3, (5, 70)), 1), 0.0)
+        ral[0] = 0.0
+        ral[1, :9] = 4.0
+        t = lambda x: torch.as_tensor(x, dtype=engine.dtype, device="cuda")
+        ral, rlk = t(ral), t(rng.random((5, 70)))
+        cases = [(ral, rlk, 40), (ral[2:3].contiguous(),
+                                  rlk[2:3].contiguous(), 1)]
+    for ral, rlk, n_like in cases:
+        n = LIKES.launches
+        got = likes_cuda(ral, rlk, n_like)
+        assert LIKES.launches == n + 1
+        assert torch.equal(got, likes_reference(ral, rlk, n_like))
+
+
+def _geom_rows(rng, E=48, T=70, C=50):
+    """ral [E, T], n0 [E], S_e [E]: one anchored level (NaN flanks), level
+    0 anchored then a gap (the level-0 quirk), no anchor, anchors only past
+    n0, inactive rows (n0 = 1) and plain monotone rows."""
+    ral = np.zeros((E, T))
+    n0 = rng.integers(T // 2, T + 1, E).astype(np.int32)
+    for e in range(E):
+        n, kind = int(n0[e]), e % 6
+        if kind == 0:
+            ral[e, int(rng.integers(0, n))] = rng.integers(1, C)
+        elif kind in (1, 5):
+            start = 0 if kind == 1 else 2
+            ral[e, start] = 2
+            ref = 2
+            for t in range(start + (6 if kind == 1 else 1), n):
+                if rng.random() < 0.5:
+                    ref += int(rng.integers(0, 3))
+                    ral[e, t] = ref
+                elif rng.random() < 0.2:
+                    ral[e, t] = -1
+        elif kind == 3:
+            n0[e] = T // 3
+            ral[e, T // 3 :] = np.arange(1, T - T // 3 + 1)
+        elif kind == 4:
+            n0[e] = 1
+    return ral, n0, rng.integers(0, C + 1, E).astype(np.int32)
+
+
+@pytest.mark.parametrize("engine", DTYPES, indirect=True)
+@pytest.mark.parametrize("C", [1, 50])
+def test_geom_kernel_matches_twin(engine, C):
+    from poreseq_tpu_torch.engine.mutscore import (GEOM, geom_cuda,
+                                                   geom_reference)
+
+    ral, n0, S_e = _geom_rows(np.random.default_rng(C), C=max(C, 8))
+    S_e = np.minimum(S_e, C).astype(np.int32)
+    t = lambda x: torch.as_tensor(x, device="cuda")
+    args = (t(ral).to(engine.dtype), t(n0), t(S_e), 8, C)
+    n = GEOM.launches
+    got = geom_cuda(*args)
+    assert GEOM.launches == n + 1
+    for a, b in zip(got, geom_reference(*args)):
+        assert torch.equal(a, b.to(torch.int32))
+
+
+@pytest.mark.parametrize("engine", DTYPES, indirect=True)
+@pytest.mark.parametrize("Ws", [41, 201])
+def test_windows_kernel_matches_twin(engine, Ws):
+    from poreseq_tpu_torch.engine.mutscore import (WINDOWS, windows_cuda,
+                                                   windows_reference)
+
+    rng = np.random.default_rng(Ws)
+    E, T, Q1 = 7, 70, 33
+    t = lambda x, d=engine.dtype: torch.as_tensor(x, dtype=d, device="cuda")
+    src = [t(rng.random((E, T))) for _ in range(3)]
+    i0r = t(rng.integers(-Ws, T + 5, (E, Q1)), torch.int32)
+    n = WINDOWS.launches
+    got = windows_cuda(*src, i0r, Ws)
+    assert WINDOWS.launches == n + 1
+    for a, b in zip(got, windows_reference(*src, i0r, Ws)):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("engine", DTYPES, indirect=True)

@@ -22,6 +22,7 @@ from poreseq_tpu_torch.engine.align import fwd_dev
 from poreseq_tpu_torch.engine.mutscore import (GROUP_FIELDS, geom_body,
                                                group_launches, group_totals)
 from poreseq_tpu_torch.engine.pack import fill_geometry, limited_geometry
+from test_torch_kernels_cuda import _geom_rows
 
 # several pytest workers share the machine: one intra-op thread each keeps
 # torch's many small CPU ops from oversubscribing the cores
@@ -150,3 +151,60 @@ def test_score_mutations_f32_sign_agreement():
                                               muts)])
     assert np.max(np.abs(sE - sP)) < 0.01
     assert np.all((sE > 0) == (sP > 0))
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_geom_body_equals_jax_on_unsorted_rows(x64, dtype, seed):
+    """The device geometry's bisection is JAX's on every row, the unsorted
+    ones too: a single anchored level (NaN flanks), the level-0 quirk, no
+    anchor, anchors past n0 and inactive rows give identical i0/i1."""
+    ral, n0, S_e = _geom_rows(np.random.default_rng(seed))
+    jdt = jnp.float64 if dtype == torch.float64 else jnp.float32
+    got = geom_body(torch.as_tensor(ral, dtype=dtype), torch.as_tensor(n0),
+                    torch.as_tensor(S_e), 8, 50)
+    ref = jm._geom_body(jnp.asarray(ral, jdt), jnp.asarray(n0),
+                        jnp.asarray(S_e), 8, 50)
+    for g, r in zip(got, ref):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(r))
+
+
+def _monotone_rows(rng, E, T, C):
+    """ral [E, T] as a backtrace leaves it: anchors (ral > 0) monotone,
+    level 0 and the last levels unanchored, inserts (-1) between."""
+    ral = np.zeros((E, T))
+    n0 = rng.integers(T // 2, T + 1, E).astype(np.int32)
+    for e in range(E):
+        ref = int(rng.integers(1, 8))
+        for t in range(int(rng.integers(1, 5)), int(n0[e]) - 2):
+            u = rng.random()
+            if u < 0.55:
+                ref += int(rng.integers(0, 3))
+                ral[e, t] = min(ref, C)
+            elif u < 0.65:
+                ral[e, t] = -1.0
+    return ral, n0
+
+
+def test_geom_body_f32_moves_rows_by_one_against_host():
+    """f32 device geometry against the host's f64 limited_geometry on
+    random monotone rows: f32 interpolation can move a band edge across a
+    reference index, so an entry of i0/i1 may differ, by one row only.
+    The count of moved entries is printed (ROADMAP §C)."""
+    rng = np.random.default_rng(7)
+    E, T, C, width = 64, 160, 120, 8
+    moved = total = 0
+    for _ in range(6):
+        ral, n0 = _monotone_rows(rng, E, T, C)
+        S_e = rng.integers(C // 2, C + 1, E).astype(np.int32)
+        got = geom_body(torch.as_tensor(ral, dtype=torch.float32),
+                        torch.as_tensor(n0), torch.as_tensor(S_e), width, C)
+        ris = [update_refs(ral[e, : n0[e]])[0] for e in range(E)]
+        host = limited_geometry(ris, n0, S_e, C, width)
+        for g, h in zip(got, host):
+            d = np.abs(g.numpy().astype(np.int64) - h)
+            assert d.max() <= 1
+            moved += int(np.count_nonzero(d))
+            total += d.size
+    print(f"f32 device geometry vs host f64: {moved} of {total} i0/i1 "
+          "entries moved by one row")

@@ -14,12 +14,15 @@ from poreseq_tpu_torch.engine.align import backtrace
 from poreseq_tpu_torch.engine.fill import get_fill
 from poreseq_tpu_torch.engine.pack import fill_geometry
 from poreseq_tpu_torch.engine.roofline import (SAMPLE_OPS, backtrace_work,
-                                               fill_work, viterbi_gumbel_work,
+                                               fill_work, geom_work,
+                                               likes_work, viterbi_gumbel_work,
+                                               viterbi_obs_work,
                                                viterbi_sample_work,
-                                               viterbi_sweep_work)
+                                               viterbi_sweep_work,
+                                               windows_work)
 from poreseq_tpu_torch.engine.types import AlignData
-from poreseq_tpu_torch.engine.viterbi import (sample_inputs, sweep_inputs,
-                                              viterbi_sweep)
+from poreseq_tpu_torch.engine.viterbi import (obs_inputs, sample_inputs,
+                                              sweep_inputs, viterbi_sweep)
 from poreseq_tpu_torch.sim import simulate_session
 
 torch.set_num_threads(1)
@@ -140,3 +143,52 @@ def test_sampler_work_counts_the_noise_once_per_call(dtype):
     assert noise == viterbi_gumbel_work(torch.cat([valid, valid]), 16, dtype)
     assert one[1] == draws * 1024 * SAMPLE_OPS + noise[1]
     assert noise[0] == 16 * 69 * 1024 * fwds.element_size()
+
+
+def _grown(x, rows, levels, fill=0):
+    """x [E, T] with `rows` more rows and `levels` more levels of `fill`."""
+    big = torch.full((x.shape[0] + rows, x.shape[1] + levels), fill,
+                     dtype=x.dtype)
+    big[: x.shape[0], : x.shape[1]] = x
+    return big
+
+
+@pytest.mark.parametrize("kernel", ["viterbi_obs", "likes", "geom",
+                                    "windows"])
+def test_prologue_work_counts_leave_out_padding(kernel):
+    """The observation, likes, geometry and windows launches: padded
+    regions, rows, events and levels change neither bytes nor operations."""
+    if kernel == "viterbi_obs":
+        evs = [simulate_session(np.random.default_rng(s), ref_len=n,
+                                coverage=3)[0].events
+               for s, n in ((1, 110), (2, 130))]
+        _, (lvl, sd, valid, tabs), _ = obs_inputs(evs, "cpu", torch.float32)
+        B, R, E = valid.shape
+        big_v = torch.zeros((B + 2, R + 64, E + 3), dtype=torch.bool)
+        big_v[:B, :R, :E] = valid
+        work = viterbi_obs_work(lvl, valid, tabs)
+        assert work == viterbi_obs_work(
+            torch.zeros(big_v.shape), big_v,
+            torch.zeros((B + 2, 6, E + 3, 1024)))
+        assert work[0] > 0 and work[1] > 0
+        return
+    batch, states, i0, i1, is_pad = _fill_inputs()
+    r = get_fill(WIDTH)(batch, states, i0, i1, is_pad, 4.5, False)
+    T = batch.mean.shape[1]
+    ral, _ = backtrace(r.M, r.S, r.steps_m, r.steps_s, r.i0, r.i1, r.best_i,
+                       r.best_j, T, states.shape[0] + 2 * T + 8)
+    C = states.shape[0]
+    big_ral = _grown(ral, 5, 64)
+    if kernel == "likes":
+        work, padded = likes_work(ral, C), likes_work(big_ral, C)
+    elif kernel == "geom":
+        big_n0 = torch.cat([batch.n0, torch.ones(5, dtype=batch.n0.dtype)])
+        work = geom_work(ral, batch.n0, C)
+        padded = geom_work(big_ral, big_n0, C)
+    else:
+        big, _, _ = _padded(batch, states, is_pad)
+        i0r = i0[:, : C + 1]
+        work = windows_work(batch, i0r, 2 * WIDTH + 1)
+        padded = windows_work(big, _grown(i0r, 5, 0), 2 * WIDTH + 1)
+    assert work == padded
+    assert work[0] > 0 and (work[1] > 0 or kernel == "windows")

@@ -541,3 +541,48 @@ def test_div_total_is_the_divide(dtype):
                     ~np.isnan(ref)], ref.view(f"u{ref.itemsize}")[
                     ~np.isnan(ref)])
                 assert np.array_equal(np.isnan(got), np.isnan(ref))
+
+
+def _np_trimmed_mean(per, valid):
+    """NumPy model of the observation trim, one (region, row, state) at a
+    time: the nskip smallest (value, event index) pairs of the valid events
+    dropped, the rest summed in event index order, over max(nlik - nskip,
+    1)."""
+    B, R, E, S = per.shape
+    one = per.dtype.type
+    out = np.zeros((B, R, S), dtype=per.dtype)
+    for b in range(B):
+        for r in range(R):
+            ev = np.nonzero(valid[b, r])[0]
+            nlik = len(ev)
+            nskip = nlik // 4
+            if nskip > nlik - 2 or nlik <= 1:
+                nskip = 0
+            for s in range(S):
+                order = np.lexsort((ev, per[b, r, ev, s]))
+                tot = one(0)
+                for e in np.sort(ev[order[nskip:]]):
+                    tot = tot + per[b, r, e, s]
+                out[b, r, s] = tot / one(max(nlik - nskip, 1))
+    return out
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+def test_trimmed_mean_twin_equals_numpy_model(dtype):
+    """The twin's drop rule and sum order, bit for bit: rows with nlik = 0,
+    1, 2, 3, 5, 8, 9 and 13 valid events of 16, values drawn from a few
+    magnitudes so that ties are common and the sum's order shows in its
+    bits."""
+    rng = np.random.default_rng(11)
+    B, E, S = 2, 16, 24
+    counts = [0, 1, 2, 3, 5, 8, 9, 13]
+    valid = np.zeros((B, len(counts), E), dtype=bool)
+    for b in range(B):
+        for r, n in enumerate(counts):
+            valid[b, r, rng.choice(E, n, replace=False)] = True
+    pool = np.array([-3.7, -3.7, -0.1, 0.3, 2.2, 1e7, -1e-3, 41.9])
+    per = rng.choice(pool, (B, len(counts), E, S)).astype(dtype)
+    per += (rng.random(per.shape) < 0.3) * rng.random(per.shape).astype(
+        dtype)
+    got = tv.trimmed_mean(torch.as_tensor(per), torch.as_tensor(valid))
+    np.testing.assert_array_equal(got.numpy(), _np_trimmed_mean(per, valid))
