@@ -589,6 +589,11 @@ def _differs(name: str, a, b) -> str:
 # the one-block designs' times at phase 2b's shape, f32 (PERF.md §6, the
 # proof run on an NVIDIA H100 80GB HBM3 at 700 W), printed beside this run's
 ONE_BLOCK_MS = {"viterbi_sweep": 2.005, "viterbi_sample": 3.680}
+# the earlier designs of the observations (a block a row, the tables read
+# for every row, trimmed rows' emissions computed twice) and the likes (a
+# warp an event walking its levels) at this phase's shapes, f32 (PERF.md
+# §6; NVIDIA H100 80GB HBM3 at 700 W), printed beside this run's
+EARLIER_MS = {"viterbi_obs": 0.424, "likes": 0.027}
 
 
 def check_viterbi(engine, events, seed: int, f64: bool, report: dict):
@@ -678,8 +683,9 @@ def check_viterbi(engine, events, seed: int, f64: bool, report: dict):
           f"(bucket {B}, rows {n_real.tolist()} of {R}), 16 candidates: "
           f"observations [{B}, {R}, 1024] over E_pad={ops[0].shape[2]} "
           f"events equal"
-          + (f" ({_timing(obs_line)}, twin {obs_line['plain_ms']:.1f} ms)"
-             if not f64 else "")
+          + (f" ({_timing(obs_line)}, a block a row: "
+             f"{EARLIER_MS['viterbi_obs']} ms, twin "
+             f"{obs_line['plain_ms']:.1f} ms)" if not f64 else "")
           + f"; sweep liks/fwds equal, with backpointers liks/fwds/bps equal, "
           f"sampler paths of {paths.shape[0] * paths.shape[1]} chains equal, "
           f"the Gumbel kernel's [{nk}, {R}, 1024] equal"
@@ -761,8 +767,10 @@ def check_prologue(engine, datas, f64: bool, report: dict):
           f"E={E} ({int(batch.active.sum())} active) T={T} C={C}: likes "
           f"[{E}, {C}], geometry i0/i1 [{E}, {C + 1}] (scoring width {sw}) "
           f"and windows 3 x [{C + 1}, {E}, {Ws}] equal their twins"
-          + "".join(f"; {n} {_timing(report[(n, f64)])}, twin "
-                    f"{report[(n, f64)]['plain_ms']:.1f} ms"
+          + "".join(f"; {n} {_timing(report[(n, f64)])}"
+                    + (f" (a warp an event: {EARLIER_MS[n]} ms)"
+                       if n in EARLIER_MS else "")
+                    + f", twin {report[(n, f64)]['plain_ms']:.1f} ms"
                     for n in runs if not f64)
           + (f" | {gpu_line()}" if not f64 else ""), flush=True)
 

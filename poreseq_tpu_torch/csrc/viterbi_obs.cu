@@ -13,28 +13,58 @@
 // emission is the twin's expression tree and the sum its order, so the
 // result equals the twin's bit for bit.
 //
-// What bounds it on this card: the operations, about 20 an emission over
-// B x R x E x 1024 (e.g. 8 x 1088 x 16 x 1024: 2.9 GFLOP, 0.04 ms at the f32
-// peak) against about 40 MB of bytes: the twin's sort moved its [B, R, E,
-// 1024] values and int64 indexes through device memory several times.  The
-// design never writes an emission: a block holds one row's 256 states (one
-// a thread), the row's level data (mean, clamped stdv, its log, the valid
-// flag) in shared memory, and reads the model tables coalesced along the
-// states.  A row without a trim sums in one pass.  A row with one finds the
-// drop threshold first, the nskip-th smallest (value, index), in a sorted
-// list of KBUF registers (nskip <= KBUF: up to 35 events) or, above that,
-// by nskip selection passes; a second pass recomputes each emission and
-// sums those after the threshold.  Every branch on the trim is uniform over
-// the block (one row).  Shared memory: E (3 sizeof(T) + 1) bytes, so a row
-// takes up to 8192 events (engine/viterbi.py:OBS_MAX_EVENTS).
+// What bounds it on this card: the operations, about 20 an emission (three
+// of them IEEE divides) over the valid (row, event, state) triples: at
+// phase 2b's shape (8 regions, 960 rows, E_pad 14, about 5 valid events a
+// real row) 36 M emissions, 0.011 ms at the f32 peak
+// (engine/roofline.py:viterbi_obs_work, which counts the model tables once
+// per valid (region, event)).  The tables [B, 6, E, 1024] belong to the
+// region, not the row, so the design reads them once per tile of rows and
+// computes each emission once:
+//
+// - The tiled path (E <= CAP = 32, which max_coverage = 30 reads keeps):
+//   a block owns one region, NS = 128 states and RT = 16 rows, with RG = 2
+//   threads a state (thread group g takes rows g, g + RG, ... of the tile:
+//   two warps a state slice double the warps that the staged tables allow
+//   an SM).  It stages the region's tables for its states in shared memory
+//   [6][E][NS] with cp.async (16 bytes a copy, all in flight at once; a
+//   thread reads its own column: no bank conflict) and each row's valid
+//   events, compacted in event order by one warp ballot (mean, clamped
+//   stdv, its log, the event index; every row's loads in flight before the
+//   ballots), then walks its rows.  A row's emissions go into registers
+//   v[CAP] (loops unrolled over the cap with an exit at the row's nlik, so
+//   no array is indexed dynamically); nskip passes over them mark the
+//   least not yet dropped, the first of equal values (a bit mask), and the
+//   kept values are summed in event order.  Every branch on the row is
+//   uniform over the thread group.  Shared memory: RT E 16 (f32) or 32
+//   (f64) bytes of row data and 6 E NS sizeof(T) of tables: 213 KB at
+//   E = 32 in f64.  The loop over a row's events is a chain of shared
+//   memory loads (the event, then its tables) and divides: it is bound by
+//   their latency, which the warps an SM can hold (32 at E_pad 14)
+//   hide only in part.
+// - The general path (E > CAP; the main path does not reach it): a block
+//   holds one row's 256 states and the row's level data in shared memory
+//   (E (3 sizeof(T) + 1) bytes, so a row takes up to 8192 events,
+//   engine/viterbi.py:OBS_MAX_EVENTS) and reads the tables from device
+//   memory.  A row with a trim finds the drop threshold, the nskip-th
+//   smallest (value, index), in a sorted list of KBUF registers (nskip <=
+//   KBUF) or by nskip selection passes, then recomputes each emission and
+//   sums those after the threshold.
 #include "common.cuh"
 
 namespace {
 
 using namespace psq;
 
-constexpr int NT = 256;     // states per block
-constexpr int KBUF = 8;     // the register drop list's length
+constexpr int CAP = 32;     // the tiled path's events a row at most
+constexpr int NS = 128;     // states per block, tiled path
+constexpr int RG = 2;       // row groups per block, tiled path
+constexpr int RT = 16;      // rows per block, tiled path
+constexpr int NW = NS * RG / 32;     // warps per block, tiled path
+constexpr int RW = RT / NW;          // rows each warp stages
+static_assert(RT % NW == 0, "a whole number of rows for each warp to stage");
+constexpr int NT = 256;     // states per block, general path
+constexpr int KBUF = 8;     // the general path's register drop list
 
 __device__ __forceinline__ float lg(float x) { return logf(x); }
 __device__ __forceinline__ double lg(double x) { return log(x); }
@@ -45,12 +75,122 @@ __device__ __forceinline__ bool before(T a, int ia, T b, int ib) {
   return a < b || (a == b && ia < ib);
 }
 
-// lvl, sd, valid [B, R, E]; tabs [B, 6, E, 1024]; obs [B, R, 1024]
+// 16 bytes from device to shared memory, asynchronously (cp.async)
+__device__ __forceinline__ void copy16_async(void* dst, const void* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(d), "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void copies_wait() {
+  asm volatile("cp.async.wait_all;" ::: "memory");
+}
+
+// one valid event of a row: mean, clamped stdv, its log, the event index
 template <typename T>
-__global__ void __launch_bounds__(NT)
+struct alignas(16) Ev {
+  T lvl, sdc, lsd;
+  int e;
+};
+
+// tiled path.  lvl, sd, valid [B, R, E]; tabs [B, 6, E, 1024]; obs [B, R,
+// 1024]; grid (1024 / NS, ceil(R / RT), B)
+template <typename T>
+__global__ void __launch_bounds__(NS * RG)
 obs_kernel(const T* __restrict__ lvl, const T* __restrict__ sd,
            const uint8_t* __restrict__ valid, const T* __restrict__ tabs,
            T* __restrict__ obs, int R, int E) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  Ev<T>* s_ev = reinterpret_cast<Ev<T>*>(smem_raw);          // [RT][E]
+  T* s_tab = reinterpret_cast<T*>(s_ev + RT * E);             // [6][E][NS]
+  int* s_nlik = reinterpret_cast<int*>(s_tab + 6 * E * NS);   // [RT]
+
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int s = t % NS, g = t / NS;
+  const int s0 = blockIdx.x * NS, r0 = blockIdx.y * RT, b = blockIdx.z;
+  const int nr = min(RT, R - r0);
+
+  // tabs[b, k, e, s0 + s] -> s_tab[(k E + e) NS + s], 16 bytes a copy, all
+  // in flight at once
+  constexpr int PER = 16 / sizeof(T), ROW = NS / PER;   // copies a (k, e)
+  const T* tb = tabs + (size_t)b * 6 * E * 1024 + s0;
+  for (int c = t; c < 6 * E * ROW; c += NS * RG) {
+    const int ke = c / ROW, w = (c % ROW) * PER;
+    copy16_async(s_tab + ke * NS + w, tb + (size_t)ke * 1024 + w);
+  }
+  // a warp stages rows warp, warp + NW, ...: lane e loads event e of
+  // each (all loads in flight), then a ballot a row ranks the valid ones
+  bool ok[RW];
+  T lv[RW], sv[RW];
+#pragma unroll
+  for (int i = 0; i < RW; ++i) {
+    const int r = warp + i * NW;
+    const size_t at = ((size_t)b * R + r0 + r) * E + lane;
+    ok[i] = r < nr && lane < E && valid[at];
+    if (ok[i]) { lv[i] = lvl[at]; sv[i] = sd[at]; }
+  }
+#pragma unroll
+  for (int i = 0; i < RW; ++i) {
+    const int r = warp + i * NW;
+    const unsigned m = __ballot_sync(FULL, ok[i]);
+    if (ok[i]) {
+      const T sdc = mx(sv[i], T(1e-30));
+      s_ev[r * E + __popc(m & ((1u << lane) - 1u))] =
+          Ev<T>{lv[i], sdc, lg(sdc), lane};
+    }
+    if (lane == 0 && r < nr) s_nlik[r] = __popc(m);
+  }
+  copies_wait();
+  __syncthreads();
+
+  const T* tt = s_tab + s;
+  const int kst = E * NS;
+  for (int r = g; r < nr; r += RG) {
+    const int nlik = s_nlik[r];
+    int nskip = nlik / 4;
+    if (nskip > nlik - 2 || nlik <= 1) nskip = 0;
+    const Ev<T>* ev = s_ev + r * E;
+    T v[CAP];
+#pragma unroll
+    for (int j = 0; j < CAP; ++j) {
+      if (j >= nlik) break;
+      const Ev<T> x = ev[j];
+      const T* q = tt + x.e * NS;
+      v[j] = emission<T>(x.lvl, x.sdc, x.lsd, q[0], q[kst], q[2 * kst],
+                         q[3 * kst], q[4 * kst], q[5 * kst], T(0));
+    }
+    // nskip passes, each dropping the least value not yet dropped (of equal
+    // values the first: the lower event index)
+    unsigned drop = 0;
+    for (int k = 0; k < nskip; ++k) {
+      T mv = pos_inf<T>();
+      int mj = -1;
+#pragma unroll
+      for (int j = 0; j < CAP; ++j) {
+        if (j >= nlik) break;
+        if (!((drop >> j) & 1u) && (mj < 0 || v[j] < mv)) {
+          mv = v[j];
+          mj = j;
+        }
+      }
+      drop |= 1u << mj;
+    }
+    T acc = T(0);
+#pragma unroll
+    for (int j = 0; j < CAP; ++j) {
+      if (j >= nlik) break;
+      if (!((drop >> j) & 1u)) acc = acc + v[j];
+    }
+    obs[((size_t)b * R + r0 + r) * 1024 + s0 + s] =
+        acc / T(max(nlik - nskip, 1));
+  }
+}
+
+// general path.  The same operands; grid (1024 / NT, R, B)
+template <typename T>
+__global__ void __launch_bounds__(NT)
+obs_rows_kernel(const T* __restrict__ lvl, const T* __restrict__ sd,
+                const uint8_t* __restrict__ valid, const T* __restrict__ tabs,
+                T* __restrict__ obs, int R, int E) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* s_lvl = reinterpret_cast<T*>(smem_raw);
   T* s_sdc = s_lvl + E;
@@ -133,16 +273,34 @@ template <typename T>
 int launch(const void* lvl, const void* sd, const void* valid,
            const void* tabs, void* obs, int B, int R, int E, void* stream) {
   if (B == 0 || R == 0) return 0;
-  if (E < 0 || R > 65535 || B > 65535) return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)E * (3 * sizeof(T) + 1);
-  cudaError_t err = cudaFuncSetAttribute(
-      obs_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
+  if (E < 0 || B > 65535) return (int)cudaErrorInvalidValue;
   const auto st = static_cast<cudaStream_t>(stream);
-  obs_kernel<T><<<dim3(1024 / NT, R, B), NT, smem, st>>>(
-      static_cast<const T*>(lvl), static_cast<const T*>(sd),
-      static_cast<const uint8_t*>(valid), static_cast<const T*>(tabs),
-      static_cast<T*>(obs), R, E);
+  const auto a = static_cast<const T*>(lvl);
+  const auto d = static_cast<const T*>(sd);
+  const auto ok = static_cast<const uint8_t*>(valid);
+  const auto tb = static_cast<const T*>(tabs);
+  const auto out = static_cast<T*>(obs);
+  if (E <= CAP) {
+    const int tiles = (R + RT - 1) / RT;
+    if (tiles > 65535) return (int)cudaErrorInvalidValue;
+    const size_t smem = (size_t)RT * E * sizeof(Ev<T>) +
+                        (size_t)6 * E * NS * sizeof(T) + RT * sizeof(int);
+    cudaError_t err = cudaFuncSetAttribute(
+        obs_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    obs_kernel<T><<<dim3(1024 / NS, tiles, B), NS * RG, smem, st>>>(
+        a, d, ok, tb, out, R, E);
+  } else {
+    if (R > 65535) return (int)cudaErrorInvalidValue;
+    const size_t smem = (size_t)E * (3 * sizeof(T) + 1);
+    cudaError_t err = cudaFuncSetAttribute(
+        obs_rows_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    obs_rows_kernel<T><<<dim3(1024 / NT, R, B), NT, smem, st>>>(
+        a, d, ok, tb, out, R, E);
+  }
   return (int)cudaGetLastError();
 }
 

@@ -188,16 +188,22 @@ def trimmed_mean(per, valid):
     return tot / torch.clamp(nlik - nskip, min=1)[..., None]
 
 
+def obs_emissions(lvl, sd, tabs):
+    """Every (region, row, event, state) emission [B, R, E, 1024] of the
+    observations: dp.emission with the stdv clamped to 1e-30, no offset.
+    lvl/sd [B, R, E]; tabs [B, 6, E, 1024] model tables."""
+    lm, ls, ll, sm, lam, llam = (tabs[:, t][:, None] for t in range(6))
+    sdc = torch.clamp(sd[..., None], min=1e-30)
+    return emission(lvl[..., None], sdc, torch.log(sdc), lm, ls, ll, sm,
+                    lam, llam, 0.0)
+
+
 def obs_multi_reference(lvl, sd, valid, tabs):
     """Plain twin of the observation kernel: per-state trimmed-mean
     observation log-likelihoods [B, R, 1024] (the emission + worst-25 %
     trim of Viterbi.cpp:300-349).  lvl/sd/valid [B, R, E]; tabs
     [B, 6, E, 1024] model tables."""
-    lm, ls, ll, sm, lam, llam = (tabs[:, t][:, None] for t in range(6))
-    sdc = torch.clamp(sd[..., None], min=1e-30)
-    per = emission(lvl[..., None], sdc, torch.log(sdc), lm, ls, ll, sm, lam,
-                   llam, 0.0)                             # [B, R, E, 1024]
-    return trimmed_mean(per, valid)
+    return trimmed_mean(obs_emissions(lvl, sd, tabs), valid)
 
 
 _OBS_SIG = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
@@ -221,6 +227,9 @@ def obs_multi_cuda(lvl, sd, valid, tabs):
     check("sd", sd, dt, (B, R, E), dev)
     check("valid", valid, torch.bool, (B, R, E), dev)
     check("tabs", tabs, dt, (B, 6, E, 1024), dev)
+    if tabs.data_ptr() % 16:
+        raise ValueError("tabs: must start on a 16-byte boundary (the "
+                         "kernel stages it 16 bytes a copy)")
     obs = torch.empty((B, R, 1024), dtype=dt, device=dev)
     VITERBI_OBS.call(f"psq_viterbi_obs_{dtype_suffix(dt)}", dev, ptr(lvl),
                      ptr(sd), ptr(valid), ptr(tabs), ptr(obs), B, R, E,

@@ -33,10 +33,13 @@ def test_port_imports_nothing_of_the_jax_package():
     """No file of poreseq_tpu_torch/ (the device mesh, parallel/mesh.py,
     and the exact engine, engine/exact/ over engine/_native.py, among
     them) and no line of
-    chip_smoke.py or tools/profile_phase3.py imports poreseq_tpu (or jax),
+    chip_smoke.py or the chip tools (tools/profile_phase3.py,
+    sweep_constants.py) imports poreseq_tpu (or jax),
     lazily inside a function or not."""
     files = sorted((REPO / "poreseq_tpu_torch").rglob("*.py"))
-    files += [REPO / "chip_smoke.py", REPO / "tools" / "profile_phase3.py"]
+    files += [REPO / "chip_smoke.py"] + [
+        REPO / "tools" / f"{t}.py"
+        for t in ("profile_phase3", "sweep_constants")]
     port = REPO / "poreseq_tpu_torch"
     assert port / "parallel" / "mesh.py" in files
     assert port / "engine" / "_native.py" in files

@@ -10,8 +10,9 @@ coordinates and accept signs held, and the fill's running best (best,
 best_i, best_j, best_pfx) equal to dp.finish_fill on its own column maxima.
 The backtrace, the Viterbi sweep (with and without backpointers, one region
 with all rows real or none), the sampler (1 and 16 candidates) and its
-Gumbel kernel alone, the Viterbi observations (E_pad 1, 16 and 64: the
-register drop list and the selection passes), the per-base likes, the
+Gumbel kernel alone, the Viterbi observations (E_pad 1 to 32: the tiled
+path, 33 and 64: the general path's register drop list and selection
+passes; ragged row tiles), the per-base likes (T up to 3000), the
 scoring geometry (unsorted rows, C = 1) and its windows (T not a multiple of
 32) must equal their twins exactly in f64 and f32.  A 2x2 mesh of the one card gives the single
 device's group totals bit for bit, and the fill, backtrace and scorer on
@@ -210,10 +211,12 @@ def test_viterbi_gumbel_kernel_matches_twin(engine):
     assert torch.equal(got, ref)
 
 
-def _obs_inputs(E, dtype, seed=0, B=2, R=40):
+def _obs_inputs(E, dtype, seed=0, B=2, R=70):
     """Observation operands [B, R, E] with plausible model tables: rows of
-    every valid count 0..E (so every nskip, both trim paths for E = 64),
-    event 1 a copy of event 0 (ties), stdv 0 now and then (the clamp)."""
+    every valid count 0..min(E, R - 1) (so every nskip: up to 8 on the
+    tiled path, E <= 32, and past the general path's register list of 8 at
+    E = 64), event 1 a copy of event 0 (ties), stdv 0 now and then (the
+    clamp)."""
     rng = np.random.default_rng(seed)
     lvl = rng.normal(60, 8, (B, R, E))
     sd = np.where(rng.random((B, R, E)) < 0.05, 0.0,
@@ -234,14 +237,18 @@ def _obs_inputs(E, dtype, seed=0, B=2, R=40):
 
 
 @pytest.mark.parametrize("engine", DTYPES, indirect=True)
-@pytest.mark.parametrize("E", [1, 16, 64])
-def test_viterbi_obs_kernel_matches_twin(engine, E):
+@pytest.mark.parametrize("E,R", [(1, 70), (16, 70), (31, 70), (32, 70),
+                                 (33, 70), (64, 70), (32, 1), (14, 960)])
+def test_viterbi_obs_kernel_matches_twin(engine, E, R):
+    """E_pad below, at and above the tiled path's cap of 32 events (33 and
+    64 take the general path; 64 has rows with nskip > 8), R = 70 (not a
+    multiple of the 16-row tile), 960 (phase 2b's rows) and 1."""
     from poreseq_tpu_torch.engine.viterbi import (VITERBI_OBS,
                                                   obs_multi_cuda,
                                                   obs_multi_reference,
                                                   sweep_inputs)
 
-    args = _obs_inputs(E, engine.dtype)
+    args = _obs_inputs(E, engine.dtype, R=R)
     n = VITERBI_OBS.launches
     got = obs_multi_cuda(*args)
     assert VITERBI_OBS.launches == n + 1
@@ -253,10 +260,35 @@ def test_viterbi_obs_kernel_matches_twin(engine, E):
 
 
 @pytest.mark.parametrize("engine", DTYPES, indirect=True)
-@pytest.mark.parametrize("shape", ["backtrace", "edges"])
+def test_viterbi_obs_kernel_refuses_misaligned_tables(engine):
+    """The tiled path stages tabs 16 bytes a copy: a contiguous view that
+    starts off a 16-byte boundary is refused before a launch, and the card
+    still runs the kernel on aligned tables after it."""
+    from poreseq_tpu_torch.engine.viterbi import (VITERBI_OBS,
+                                                  obs_multi_cuda,
+                                                  obs_multi_reference)
+
+    lvl, sd, valid, tabs = _obs_inputs(14, engine.dtype, R=16)
+    flat = torch.empty(tabs.numel() + 1, dtype=tabs.dtype, device="cuda")
+    off = flat[1:].view(tabs.shape)
+    off.copy_(tabs)
+    n = VITERBI_OBS.launches
+    with pytest.raises(ValueError, match="16-byte"):
+        obs_multi_cuda(lvl, sd, valid, off)
+    assert VITERBI_OBS.launches == n
+    got = obs_multi_cuda(lvl, sd, valid, tabs)
+    assert VITERBI_OBS.launches == n + 1
+    assert torch.equal(got, obs_multi_reference(lvl, sd, valid, tabs))
+
+
+@pytest.mark.parametrize("engine", DTYPES, indirect=True)
+@pytest.mark.parametrize("shape", ["backtrace", "edges", "long"])
 def test_likes_kernel_matches_twin(engine, shape):
     """A backtrace's ral/rlk at C columns, and edge shapes: one event, one
-    column, T = 70 (not a multiple of 32), no anchor, a plateau."""
+    column, T = 70 (not a multiple of 32), no anchor, a plateau; and long
+    rows: T = 1024 (one chunk of the block's 1024 levels), 1025 and 3000
+    (several chunks, the last ragged), each with n_like = 1 and n_like > T,
+    an event whose first anchor lies past n_like."""
     from poreseq_tpu_torch.engine.align import (LIKES, backtrace_cuda,
                                                 likes_cuda, likes_reference)
     from poreseq_tpu_torch.engine.fill import get_fill
@@ -270,7 +302,7 @@ def test_likes_kernel_matches_twin(engine, shape):
                                   r.i1, r.best_i, r.best_j, T,
                                   states.shape[0] + 2 * T + 8)
         cases = [(ral, rlk, states.shape[0])]
-    else:
+    elif shape == "edges":
         rng = np.random.default_rng(2)
         ral = np.where(rng.random((5, 70)) < 0.5,
                        np.cumsum(rng.integers(0, 3, (5, 70)), 1), 0.0)
@@ -280,6 +312,21 @@ def test_likes_kernel_matches_twin(engine, shape):
         ral, rlk = t(ral), t(rng.random((5, 70)))
         cases = [(ral, rlk, 40), (ral[2:3].contiguous(),
                                   rlk[2:3].contiguous(), 1)]
+    else:
+        rng = np.random.default_rng(3)
+        t = lambda x: torch.as_tensor(x, dtype=engine.dtype, device="cuda")
+        cases = []
+        for T in (1024, 1025, 3000):
+            steps = np.where(rng.random((6, T)) < 0.45,
+                             rng.integers(0, 3, (6, T)), 0)
+            ref = np.cumsum(steps, 1) + rng.integers(0, 6, (6, 1))
+            ral = np.where(steps > 0, ref, np.where(rng.random((6, T)) < 0.1,
+                                                    -1.0, 0.0))
+            ral[0] = 0.0                                  # no anchor
+            ral[1, :7] = 5.0                              # a plateau
+            ral[2] = np.where(ral[2] > 0, ral[2] + T + 7, ral[2])
+            for n_like in (1, T + 7):                     # event 2 past it
+                cases.append((t(ral), t(rng.random((6, T))), n_like))
     for ral, rlk, n_like in cases:
         n = LIKES.launches
         got = likes_cuda(ral, rlk, n_like)

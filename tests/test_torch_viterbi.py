@@ -4,6 +4,9 @@ string equal to the exact engine's, plausible stochastic candidates, the
 counter hash behind their draws, and candidates that do not depend on the
 batch a region is sampled in."""
 
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -586,3 +589,167 @@ def test_trimmed_mean_twin_equals_numpy_model(dtype):
         dtype)
     got = tv.trimmed_mean(torch.as_tensor(per), torch.as_tensor(valid))
     np.testing.assert_array_equal(got.numpy(), _np_trimmed_mean(per, valid))
+
+
+def _cu_consts(src, *names):
+    """The integer constants `constexpr int NAME = n;` of csrc/<src>.cu."""
+    text = (Path(tv.__file__).resolve().parents[1] / "csrc"
+            / f"{src}.cu").read_text()
+    return [int(re.search(rf"constexpr int {n} = (\d+);", text).group(1))
+            for n in names]
+
+
+def _np_obs_tiled_row(per, ok):
+    """NumPy model of one row of csrc/viterbi_obs.cu's tiled path on a slice
+    of states: per [E, S] the row's emissions, ok [E] its valid flags.  The
+    valid events compacted in event order, nskip passes each dropping the
+    first least value not yet dropped, the kept summed in that order."""
+    one = per.dtype.type
+    v = per[np.nonzero(ok)[0]]                          # [nlik, S]
+    nlik, S = v.shape
+    nskip = nlik // 4
+    if nskip > nlik - 2 or nlik <= 1:
+        nskip = 0
+    drop = np.zeros((nlik, S), dtype=bool)
+    for _ in range(nskip):
+        mv, mj = np.full(S, np.inf, per.dtype), np.full(S, -1)
+        for j in range(nlik):
+            take = ~drop[j] & ((mj < 0) | (v[j] < mv))
+            mv, mj = np.where(take, v[j], mv), np.where(take, j, mj)
+        drop[mj, np.arange(S)] = True
+    acc = np.zeros(S, dtype=per.dtype)
+    for j in range(nlik):
+        acc = np.where(drop[j], acc, acc + v[j])
+    return acc / one(max(nlik - nskip, 1))
+
+
+def _np_before(a, ia, b, ib):
+    return (a < b) | ((a == b) & (ia < ib))
+
+
+def _np_obs_general_row(per, ok, kbuf):
+    """NumPy model of one row of the general path: the drop threshold, the
+    nskip-th smallest (value, event index), from a sorted list of kbuf
+    (nskip <= kbuf) or nskip selection passes; the pairs after it summed in
+    event order."""
+    one = per.dtype.type
+    E, S = per.shape
+    ev = np.nonzero(ok)[0]
+    nlik = len(ev)
+    nskip = nlik // 4
+    if nskip > nlik - 2 or nlik <= 1:
+        nskip = 0
+    big = np.iinfo(np.int32).max
+    tv, ti = np.full(S, -np.inf, per.dtype), np.full(S, -1)
+    if 0 < nskip <= kbuf:
+        bv = np.full((kbuf, S), np.inf, per.dtype)
+        bi = np.full((kbuf, S), big)
+        for e in ev:
+            x, xi = per[e].copy(), np.full(S, e)
+            for j in range(kbuf):
+                sw = _np_before(x, xi, bv[j], bi[j])
+                bv[j], x = np.where(sw, x, bv[j]), np.where(sw, bv[j], x)
+                bi[j], xi = np.where(sw, xi, bi[j]), np.where(sw, bi[j], xi)
+        tv, ti = bv[nskip - 1], bi[nskip - 1]
+    elif nskip > 0:
+        for _ in range(nskip):
+            mv, mi = np.full(S, np.inf, per.dtype), np.full(S, big)
+            for e in ev:
+                take = (_np_before(tv, ti, per[e], e)
+                        & _np_before(per[e], e, mv, mi))
+                mv, mi = np.where(take, per[e], mv), np.where(take, e, mi)
+            tv, ti = mv, mi
+    acc = np.zeros(S, dtype=per.dtype)
+    for e in ev:
+        acc = np.where(_np_before(tv, ti, per[e], e), acc + per[e], acc)
+    return acc / one(max(nlik - nskip, 1))
+
+
+def _np_obs_grid(per, valid):
+    """NumPy model of csrc/viterbi_obs.cu's grid: E <= CAP takes the tiled
+    path (a block: NS states x RT rows of one region, its thread group g of
+    RG taking rows g, g + RG, ... of the tile), else the general path (a
+    block: NT states of one row).  Asserts that every (region, row, state)
+    is written exactly once; returns obs [B, R, 1024]."""
+    cap, ns, rg, rt, nt, kbuf = _cu_consts("viterbi_obs", "CAP", "NS", "RG",
+                                           "RT", "NT", "KBUF")
+    B, R, E, S = per.shape
+    out = np.full((B, R, S), np.nan, dtype=per.dtype)
+    hits = np.zeros((B, R, S), dtype=int)
+    if E <= cap:
+        blocks = [(z, range(y * rt + g, min(y * rt + rt, R), rg), x * ns, ns)
+                  for z in range(B) for y in range(-(-R // rt))
+                  for x in range(S // ns) for g in range(rg)]
+        row = _np_obs_tiled_row
+    else:
+        blocks = [(z, range(y, y + 1), x * nt, nt)
+                  for z in range(B) for y in range(R) for x in range(S // nt)]
+        row = lambda p, ok: _np_obs_general_row(p, ok, kbuf)
+    for z, rows, s0, n in blocks:
+        for r in rows:
+            out[z, r, s0:s0 + n] = row(per[z, r, :, s0:s0 + n], valid[z, r])
+            hits[z, r, s0:s0 + n] += 1
+    assert (hits == 1).all()
+    return out
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+@pytest.mark.parametrize("B,R,E", [(1, 1, 8), (8, 3, 31), (1, 33, 32),
+                                   (2, 37, 33), (1, 41, 40)])
+def test_obs_kernel_grid_model_equals_twin(B, R, E, dtype):
+    """The observation kernel's decomposition, bit for bit against
+    obs_multi_reference: R = 1, B = 8 and R not a multiple of the row tile;
+    E_pad 31 and 32 take the tiled path (at and below its cap), 33 and 40
+    the general one, whose rows reach nskip 9 and 10 (past its register
+    list: selection passes).  Each region has rows with no valid event and
+    with every event valid; event 1 is a copy of event 0 (ties), and a stdv
+    is 0 now and then (the clamp)."""
+    cap, = _cu_consts("viterbi_obs", "CAP")
+    assert (E <= cap) == (E in (8, 31, 32))
+    rng = np.random.default_rng(E)
+    lvl = rng.normal(60, 8, (B, R, E))
+    sd = np.where(rng.random((B, R, E)) < 0.05, 0.0,
+                  rng.uniform(0.5, 3, (B, R, E)))
+    counts = rng.integers(0, E + 1, (B, R))
+    counts[:, 0] = E
+    counts[:, -1] = 0 if R > 1 else E
+    if R > 2:
+        counts[:, 1] = min(E, 38)
+    valid = np.zeros((B, R, E), dtype=bool)
+    for b in range(B):
+        for r in range(R):
+            valid[b, r, rng.choice(E, counts[b, r], replace=False)] = True
+    lm, ls = rng.normal(60, 8, (B, E, 1024)), rng.uniform(1, 3, (B, E, 1024))
+    sm, lam = rng.uniform(0.8, 2, (B, E, 1024)), rng.uniform(1, 4,
+                                                             (B, E, 1024))
+    tabs = np.stack([lm, ls, np.log(ls), sm, lam, np.log(lam)], 1)
+    lvl[:, :, 1], sd[:, :, 1] = lvl[:, :, 0], sd[:, :, 0]
+    tabs[:, :, 1] = tabs[:, :, 0]
+    ops = [torch.as_tensor(x.astype(dtype)) for x in (lvl, sd)]
+    ops.insert(2, torch.as_tensor(valid))
+    ops.append(torch.as_tensor(tabs.astype(dtype)))
+    ref = tv.obs_multi_reference(*ops).numpy()
+    per = tv.obs_emissions(ops[0], ops[1], ops[3]).numpy()
+    np.testing.assert_array_equal(_np_obs_grid(per, valid), ref)
+    nlik = valid.sum(axis=2)
+    assert (nlik == E).any() and (R == 1 or (nlik == 0).any())
+    if E == 40:
+        assert (nlik // 4 > 8).any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_obs_kernel_wrapper_refuses_misaligned_tables(dtype):
+    """obs_multi_cuda refuses tables that start off a 16-byte boundary (the
+    kernel stages them 16 bytes a copy) before anything is launched; the
+    operand checks come first, so CPU operands reach the refusal too."""
+    B, R, E = 1, 4, 6
+    lvl, sd = torch.zeros((B, R, E), dtype=dtype), torch.ones((B, R, E),
+                                                               dtype=dtype)
+    valid = torch.ones((B, R, E), dtype=torch.bool)
+    flat = torch.zeros(B * 6 * E * 1024 + 1, dtype=dtype)
+    tabs = flat[1:].view(B, 6, E, 1024)
+    assert tabs.is_contiguous() and tabs.data_ptr() % 16
+    n = tv.VITERBI_OBS.launches
+    with pytest.raises(ValueError, match="16-byte"):
+        tv.obs_multi_cuda(lvl, sd, valid, tabs)
+    assert tv.VITERBI_OBS.launches == n
