@@ -87,7 +87,10 @@ last is a JSON object with one entry per kernel; the last line is
 {"ok": true, "device": {...}}.
 Kernel times are CUDA-event times of 20 launches after two warm-up
 launches, over 20; the twins' and the phases' are host walls closed by a
-synchronize.
+synchronize.  For the geometry and the Gumbel noise the kernels line also
+gives queued_ms: the same 20 launches queued behind a spin kernel, so they
+run back to back on the card where the wrapper's host time per call
+exceeds the kernel's (event times then read the host's pace).
 """
 
 from __future__ import annotations
@@ -133,6 +136,34 @@ def event_ms(fn, reps: int = 20) -> float:
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def queued_ms(fn, reps: int = 20) -> float:
+    """Device time of one call of fn in ms: CUDA events around reps calls,
+    after two warm-up calls, queued behind a spin kernel that keeps the card
+    busy for twice the host's time to enqueue them, so that the calls run
+    back to back on the card even where fn's host time exceeds its
+    kernel's (a copy of tools/profile_phase3.py:queued_ms)."""
+    import torch
+
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    # clock cycles of the spin at the H100's 1.98 GHz boost clock
+    torch.cuda._sleep(int(2 * host_s * 1.98e9) + 10000)
     start.record()
     for _ in range(reps):
         fn()
@@ -589,11 +620,24 @@ def _differs(name: str, a, b) -> str:
 # the one-block designs' times at phase 2b's shape, f32 (PERF.md §6, the
 # proof run on an NVIDIA H100 80GB HBM3 at 700 W), printed beside this run's
 ONE_BLOCK_MS = {"viterbi_sweep": 2.005, "viterbi_sample": 3.680}
-# the earlier designs of the observations (a block a row, the tables read
-# for every row, trimmed rows' emissions computed twice) and the likes (a
-# warp an event walking its levels) at this phase's shapes, f32 (PERF.md
-# §6; NVIDIA H100 80GB HBM3 at 700 W), printed beside this run's
-EARLIER_MS = {"viterbi_obs": 0.424, "likes": 0.027}
+# the earlier designs at this phase's shapes, f32, by event_ms (PERF.md
+# §6; NVIDIA H100 80GB HBM3 at 700 W), printed beside this run's: the
+# observations (a block a row, the tables read for every row, trimmed rows'
+# emissions computed twice), the likes (a warp an event walking its
+# levels), the Gumbel noise (an element a thread) and the geometry (serial
+# walks over the threads' summaries)
+EARLIER_MS = {"viterbi_obs": (0.424, "a block a row"),
+              "likes": (0.027, "a warp an event"),
+              "viterbi_gumbel": (0.0735, "an element a thread"),
+              "geom": (0.036, "serial summary walks")}
+# the kernels whose line also gives queued_ms: short launches whose
+# wrapper's host time may exceed the kernel's, so event_ms reads the host
+QUEUED = ("viterbi_gumbel", "geom")
+
+
+def _earlier(name: str) -> str:
+    ms, design = EARLIER_MS[name]
+    return f"{design}: {ms} ms"
 
 
 def check_viterbi(engine, events, seed: int, f64: bool, report: dict):
@@ -670,9 +714,10 @@ def check_viterbi(engine, events, seed: int, f64: bool, report: dict):
             viterbi_sample_work(args[0], args[1], args[3]), dt))
         sample["plain_ms"] = cuda_ms(
             lambda: sample_paths_reference(T, *args, seed), reps=2)
-        gumbel.update(timed(
-            event_ms(lambda: gumbel_cuda(seed, nk, R, dt, engine.device)),
-            viterbi_gumbel_work(args[1], nk, dt), dt))
+        launch = lambda: gumbel_cuda(seed, nk, R, dt, engine.device)
+        gumbel.update(timed(event_ms(launch),
+                            viterbi_gumbel_work(args[1], nk, dt), dt))
+        gumbel["queued_ms"] = queued_ms(launch)
         gumbel["plain_ms"] = cuda_ms(
             lambda: gumbel_reference(seed, nk, rows, dt), reps=2)
     report[("viterbi_sweep", f64)] = sweep
@@ -683,8 +728,7 @@ def check_viterbi(engine, events, seed: int, f64: bool, report: dict):
           f"(bucket {B}, rows {n_real.tolist()} of {R}), 16 candidates: "
           f"observations [{B}, {R}, 1024] over E_pad={ops[0].shape[2]} "
           f"events equal"
-          + (f" ({_timing(obs_line)}, a block a row: "
-             f"{EARLIER_MS['viterbi_obs']} ms, twin "
+          + (f" ({_timing(obs_line)}, {_earlier('viterbi_obs')}, twin "
              f"{obs_line['plain_ms']:.1f} ms)" if not f64 else "")
           + f"; sweep liks/fwds equal, with backpointers liks/fwds/bps equal, "
           f"sampler paths of {paths.shape[0] * paths.shape[1]} chains equal, "
@@ -696,7 +740,9 @@ def check_viterbi(engine, events, seed: int, f64: bool, report: dict):
              f"{_timing(sample)} with its Gumbel launch (one-block design: "
              f"{ONE_BLOCK_MS['viterbi_sample']} ms), twin "
              f"{sample['plain_ms']:.1f} ms; Gumbel kernel alone "
-             f"{_timing(gumbel)}, twin {gumbel['plain_ms']:.1f} ms | "
+             f"{_timing(gumbel)}, queued {gumbel['queued_ms']:.4f} ms "
+             f"({_earlier('viterbi_gumbel')}), twin "
+             f"{gumbel['plain_ms']:.1f} ms | "
              f"{gpu_line()}"
              if not f64 else ""), flush=True)
 
@@ -760,6 +806,8 @@ def check_prologue(engine, datas, f64: bool, report: dict):
         line = dict(max_abs_err=0.0)
         if not f64:
             line.update(timed(event_ms(lambda: kern(*args)), work, dt))
+            if name in QUEUED:
+                line["queued_ms"] = queued_ms(lambda: kern(*args))
             line["plain_ms"] = cuda_ms(lambda: twin(*args), reps=2)
         report[(name, f64)] = line
     E, T = ral.shape
@@ -768,8 +816,9 @@ def check_prologue(engine, datas, f64: bool, report: dict):
           f"[{E}, {C}], geometry i0/i1 [{E}, {C + 1}] (scoring width {sw}) "
           f"and windows 3 x [{C + 1}, {E}, {Ws}] equal their twins"
           + "".join(f"; {n} {_timing(report[(n, f64)])}"
-                    + (f" (a warp an event: {EARLIER_MS[n]} ms)"
-                       if n in EARLIER_MS else "")
+                    + (f", queued {report[(n, f64)]['queued_ms']:.4f} ms"
+                       if n in QUEUED else "")
+                    + (f" ({_earlier(n)})" if n in EARLIER_MS else "")
                     + f", twin {report[(n, f64)]['plain_ms']:.1f} ms"
                     for n in runs if not f64)
           + (f" | {gpu_line()}" if not f64 else ""), flush=True)

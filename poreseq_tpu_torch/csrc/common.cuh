@@ -392,6 +392,16 @@ __device__ __forceinline__ T shuffle_total(T v) {
   return v;
 }
 
+// 16 bytes from device to shared memory, asynchronously (cp.async)
+__device__ __forceinline__ void copy16_async(void* dst, const void* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(d), "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void copies_wait() {
+  asm volatile("cp.async.wait_all;" ::: "memory");
+}
+
 // block-wide max (exact in any order): each warp reduces by shuffles, warp
 // 0 reduces the warps' partials (red holds 32 values).  The result is valid
 // in warp 0 only.  Every thread must call it; red must not be written again

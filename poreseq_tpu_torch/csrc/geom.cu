@@ -21,17 +21,34 @@
 // the twin's in f32 and f64, NaN flanks and unsorted rows included.
 //
 // What bounds it on this card: the bytes (ral read once, i0 and i1 written
-// once: 0.8 MB at E = 64, T = 1280, C = 1024 in f32), and the latency of
-// one block an event.  A thread takes a contiguous run of levels (then of
-// columns): the anchors' carries across runs come from per-thread
-// summaries in shared memory, so each thread walks its run once forward
-// (left anchors) and once back (right anchors, then ri); ri sits in shared
-// memory (the left anchors pass through it first), where every column's
-// bisection reads it; the rate limit's prefix minimum takes a per-thread
-// minimum and a carry the same way, with i0 and i1 staged in their
-// outputs.  Shared memory: T sizeof(T) + 3 NT ints, so T is at most
-// 57,344 levels in f32 and 28,672 in f64
-// (engine/mutscore.py:GEOM_MAX_LEVELS).
+// once: about 1 MB at a Mutate round's E = 96, T = 1024, C = 1024 in f32,
+// engine/roofline.py:geom_work), and the latency of
+// one block an event, a chain of dependent phases with a barrier between
+// each.  The design keeps each phase short.  (1) The event's ral row is
+// staged in shared memory first, by 16-byte cp.async copies that are all
+// in flight at once (the row's misaligned ends by plain loads), and no
+// pass reads ral from device memory again.  (2) A thread takes a run of
+// ceil(T / GNT) levels and finds its first and last anchors; four block
+// scans of those, each a warp-shuffle step and then the NW warp totals
+// through shared memory, give the carries: the exclusive prefix max of
+// the last anchors (the left anchor before the run), the exclusive suffix
+// min of the first anchors (the right anchor after it), and the block's
+// min and max (ra0, ra1).  They are integer min and max, so their order
+// does not matter.  (3) ri replaces ral in the same buffer: an anchor's ri
+// is its own ral, and the interpolation reads anchors only (ra[left],
+// ra[right], ra[ra0], ra[ra1]), so each thread overwrites the non-anchor
+// levels of its own run as it walks it, reading its own levels' flags
+// before it writes them; the right anchor comes from a look-ahead in the
+// run, else the carry.  (4) The columns 1..min(S_e, C) go in passes of
+// GNT CPT: a thread bisects its CPT consecutive columns together, their
+// levels advancing in step so that CPT shared loads are in flight at
+// once, then a block scan of the threads' run minima (with the earlier
+// passes' carry) gives the rate limit's prefix minimum.  Columns past S_e
+// are stored as column S_e's start with empty bands, unsearched.  Shared
+// memory: T sizeof(T) + 16 bytes, so T is at most 57,344 levels in f32
+// and 28,672 in f64 (engine/mutscore.py:GEOM_MAX_LEVELS); the launch
+// raises the dynamic shared memory limit once per card and dtype, when a
+// row needs more than 48 KB.
 //
 // windows_kernel replaces mutscore.py:build_windows (XLA gathers); the twin
 // is engine/mutscore.py:windows_reference.  out[q, e, w] = src[e, i0r[e, q] - 1
@@ -47,109 +64,187 @@ namespace {
 
 using namespace psq;
 
-constexpr int NT = 256;
+constexpr int NT = 256;     // threads a windows block
+// a geometry block's threads and the columns a thread bisects together
+// (tools/sweep_constants.py, PERF.md §6)
+constexpr int GNT = 512;
+constexpr int CPT = 2;
+constexpr int NW = GNT / 32;
+// the longest ral row staged: 57,344 f32 or 28,672 f64 levels
+constexpr int ROW_BYTES = 229376;
 
-// ral [E, Tn]; n0, S_e [E]; i0, i1 [E, C+1]
+// an event's ral row [Tn] into shared memory at buf (Tn sizeof(T) + 16
+// bytes): the 16-byte aligned body by cp.async, placed so that its shared
+// address is 16-byte aligned too, and the few levels before and after it
+// by plain loads; returns the staged row
 template <typename T>
-__global__ void __launch_bounds__(NT)
+__device__ __forceinline__ T* stage_row(unsigned char* buf, const T* ra,
+                                        int Tn) {
+  constexpr int V = 16 / sizeof(T);
+  const int k = threadIdx.x;
+  const int head = min(
+      Tn, (int)((16 - ((uintptr_t)ra & 15)) & 15) / (int)sizeof(T));
+  T* s = reinterpret_cast<T*>(buf + ((16 - head * (int)sizeof(T)) & 15));
+  const int nv = (Tn - head) / V, tail = head + nv * V;
+  for (int j = k; j < nv; j += GNT)
+    copy16_async(s + head + j * V, ra + head + j * V);
+  if (k < head) s[k] = ra[k];
+  if (k < Tn - tail) s[tail + k] = ra[tail + k];
+  copies_wait();
+  __syncthreads();
+  return s;
+}
+
+// ral [E, Tn]; n0, S_e [E]; i0, i1 [E, C+1]; one block an event
+template <typename T>
+__global__ void __launch_bounds__(GNT)
 geom_kernel(const T* __restrict__ ral, const int* __restrict__ n0p,
             const int* __restrict__ S_ep, int* __restrict__ i0,
             int* __restrict__ i1, int Tn, int C, int width) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  int* s_first = reinterpret_cast<int*>(smem_raw);   // [NT] run summaries
-  int* s_last = s_first + NT;
-  int* s_min = s_last + NT;
-  T* sri = reinterpret_cast<T*>(s_min + NT);          // [Tn]
-
-  const int k = threadIdx.x, e = blockIdx.x;
+  __shared__ int s_first[NW], s_last[NW], s_min[2][NW], s_anchor;
+  const int k = threadIdx.x, lane = k & 31, warp = k >> 5, e = blockIdx.x;
   const int n0 = n0p[e], S_e = S_ep[e];
-  const T* ra = ral + (size_t)e * Tn;
   int* o0 = i0 + (size_t)e * (C + 1);
   int* o1 = i1 + (size_t)e * (C + 1);
-  auto anch = [&](int t) { return t < n0 && ra[t] > T(0); };
+  T* s = stage_row(smem_raw, ral + (size_t)e * Tn, Tn);
+  // an anchor, read from a level its thread has not rewritten
+  auto anch = [&](int t) { return t < n0 && s[t] > T(0); };
 
-  // levels [t0, t1) of this thread
-  const int L = (Tn + NT - 1) / NT;
+  // this thread's run of levels [t0, t1): its first and last anchors
+  const int L = (Tn + GNT - 1) / GNT;
   const int t0 = min(k * L, Tn), t1 = min(t0 + L, Tn);
-  int first = INT_MAX, last = -1;
+  int first = Tn, last = -1;
   for (int t = t0; t < t1; ++t) {
     if (anch(t)) { first = min(first, t); last = t; }
   }
-  s_first[k] = first;
-  s_last[k] = last;
+  // the carries: prefix max of the last anchors, suffix min of the first
+  int pmax = last, smin = first;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int a = __shfl_up_sync(FULL, pmax, d);
+    const int b = __shfl_down_sync(FULL, smin, d);
+    if (lane >= d) pmax = max(pmax, a);
+    if (lane + d < 32) smin = min(smin, b);
+  }
+  if (lane == 31) s_last[warp] = pmax;
+  if (lane == 0) s_first[warp] = smin;
+  int left = __shfl_up_sync(FULL, pmax, 1);
+  int right = __shfl_down_sync(FULL, smin, 1);
+  if (lane == 0) left = -1;
+  if (lane == 31) right = Tn;
   __syncthreads();
-  int ra0 = INT_MAX, ra1 = -1, left = -1, right = Tn;
-  for (int j = 0; j < NT; ++j) {
-    ra0 = min(ra0, s_first[j]);
-    ra1 = max(ra1, s_last[j]);
-    if (j < k) left = max(left, s_last[j]);
-    if (j > k) right = min(right, s_first[j]);
+  int ra0 = Tn, ra1 = -1;
+#pragma unroll
+  for (int w = 0; w < NW; ++w) {
+    const int wf = s_first[w], wl = s_last[w];
+    ra0 = min(ra0, wf);
+    ra1 = max(ra1, wl);
+    if (w < warp) left = max(left, wl);
+    if (w > warp) right = min(right, wf);
   }
   const bool has = ra1 >= 0;
-  if (!has) { ra0 = 0; ra1 = Tn - 1; }
-  const T f0 = ra[ra0], f1 = ra[ra1];
-  const T al_m = (f1 - f0) / T(ra1 - ra0);
-  const T al_b = f0 - al_m * T(ra0);
-  for (int t = t0; t < t1; ++t) {            // left anchors, through sri
-    if (anch(t)) left = t;
-    sri[t] = T(left);
+  T al_m = T(0), al_b = T(0);
+  if (has) {                                 // anchors: never rewritten
+    const T f0 = s[ra0], f1 = s[ra1];
+    al_m = (f1 - f0) / T(ra1 - ra0);
+    al_b = f0 - al_m * T(ra0);
   }
-  for (int t = t1 - 1; t >= t0; --t) {       // right anchors, then ri
-    if (anch(t)) right = t;
-    const int lt = (int)sri[t];
+
+  // ri over the run, in place: lt the last anchor before t, rt the first
+  // after it once looked up
+  int lt = left, rt = -1;
+  for (int t = t0; t < t1; ++t) {
+    const T x = s[t];
+    if (t < n0 && x > T(0)) {                // an anchor keeps its ral
+      lt = t;
+      continue;
+    }
     T v;
     if (!(t < n0 && has)) {
       v = pos_inf<T>();
     } else if (t < ra0 || t > ra1) {
       v = al_m * T(t) + al_b;
-    } else if (!anch(t) && lt > 0) {
-      const T lv = ra[min(max(lt, 0), Tn - 1)];
-      const T rv = ra[min(max(right, 0), Tn - 1)];
-      const T m = (rv - lv) / T(right - lt);
+    } else if (lt > 0) {
+      if (rt < t) {
+        rt = t + 1;
+        while (rt < t1 && !anch(rt)) ++rt;
+        if (rt == t1) rt = right;
+      }
+      const T lv = s[lt], rv = s[rt];
+      const T m = (rv - lv) / T(rt - lt);
       v = m * T(t - lt) + lv;
     } else {
-      v = ra[t];
+      continue;                              // the level-0 quirk: ral stays
     }
-    sri[t] = v;
+    s[t] = v;
   }
   __syncthreads();
 
-  // columns [q0, q1) of 1..C: band, then the rate limit's run minimum
+  // columns 1..qmax: the band by CPT bisections in step, then the rate
+  // limit's prefix minimum by a block scan with the earlier passes' carry
   const int nlev = 32 - __clz(Tn);
-  const int Lc = (C + NT - 1) / NT;
-  const int q0 = 1 + min(k * Lc, C), q1 = 1 + min(k * Lc + Lc, C);
-  int run = INT_MAX;
-  for (int q = q0; q < q1; ++q) {
-    const T qv = T(q);
-    int low = 0, high = Tn;
-    for (int l = 0; l < nlev; ++l) {
-      const int mid = (low + high) >> 1;
-      if (!(sri[min(mid, Tn - 1)] < qv)) high = mid;
-      else low = mid;
+  const int qmax = max(min(S_e, C), 0);
+  int carry = INT_MAX;
+  for (int base = 0, p = 0; base < qmax; base += GNT * CPT, p ^= 1) {
+    const int q0 = base + 1 + k * CPT;
+    int low[CPT], high[CPT];
+#pragma unroll
+    for (int j = 0; j < CPT; ++j) {
+      low[j] = 0;
+      high[j] = Tn;
     }
-    const int imid = min(max(high, 1), max(n0, 1));
-    const int lo = max(imid - width, 1);
-    o0[q] = lo;
-    o1[q] = min(imid + width, n0);
-    run = min(run, lo - q * DMAX);
-  }
-  s_min[k] = run;
-  __syncthreads();
-  run = INT_MAX;
-  for (int j = 0; j < k; ++j) run = min(run, s_min[j]);
-  for (int q = q0; q < q1; ++q) {
-    run = min(run, o0[q] - q * DMAX);
-    const int lo = q * DMAX + run;
-    o0[q] = lo;
-    o1[q] = min(o1[q], lo + 2 * width);
+    for (int l = 0; l < nlev; ++l) {
+#pragma unroll
+      for (int j = 0; j < CPT; ++j) {
+        const int mid = (low[j] + high[j]) >> 1;
+        if (!(s[min(mid, Tn - 1)] < T(q0 + j))) high[j] = mid;
+        else low[j] = mid;
+      }
+    }
+    int lo[CPT], hi[CPT], run = INT_MAX;
+#pragma unroll
+    for (int j = 0; j < CPT; ++j) {
+      const int imid = min(max(high[j], 1), max(n0, 1));
+      lo[j] = max(imid - width, 1);
+      hi[j] = min(imid + width, n0);
+      run = min(run, lo[j] - (q0 + j) * DMAX);
+    }
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const int a = __shfl_up_sync(FULL, run, d);
+      if (lane >= d) run = min(run, a);
+    }
+    if (lane == 31) s_min[p][warp] = run;
+    int ex = __shfl_up_sync(FULL, run, 1);
+    if (lane == 0) ex = INT_MAX;
+    __syncthreads();
+    ex = min(ex, carry);
+#pragma unroll
+    for (int w = 0; w < NW; ++w) {
+      const int wm = s_min[p][w];
+      if (w < warp) ex = min(ex, wm);
+      carry = min(carry, wm);
+    }
+#pragma unroll
+    for (int j = 0; j < CPT; ++j) {
+      const int q = q0 + j;
+      ex = min(ex, lo[j] - q * DMAX);
+      const int start = q * DMAX + ex;
+      if (q <= qmax) {
+        o0[q] = start;
+        o1[q] = min(hi[j], start + 2 * width);
+        if (q == qmax) s_anchor = start;
+      }
+    }
   }
   if (k == 0) {
     o0[0] = 0;
     o1[0] = min(n0, 2 * width);
   }
   __syncthreads();
-  const int anchor = o0[min(S_e, C)];        // never a column rewritten below
-  for (int c = S_e + 1 + k; c <= C; c += NT) {
+  const int anchor = qmax > 0 ? s_anchor : 0;
+  for (int c = qmax + 1 + k; c <= C; c += GNT) {
     o0[c] = anchor;
     o1[c] = 0;
   }
@@ -181,14 +276,25 @@ template <typename T>
 int launch_geom(const void* ral, const void* n0, const void* S_e, void* i0,
                 void* i1, int E, int Tn, int C, int width, void* stream) {
   if (E == 0) return 0;
-  if (Tn < 1 || C < 1) return (int)cudaErrorInvalidValue;
-  const size_t smem = 3 * NT * sizeof(int) + (size_t)Tn * sizeof(T);
-  cudaError_t err = cudaFuncSetAttribute(
-      geom_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
+  if (Tn < 1 || C < 1 || (size_t)Tn * sizeof(T) > ROW_BYTES)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = (size_t)Tn * sizeof(T) + 16;
+  if (smem > 48 * 1024) {
+    // raise the limit to the longest row once per card (and dtype)
+    static bool raised[64];
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return (int)err;
+    if (dev >= 64 || !raised[dev]) {
+      err = cudaFuncSetAttribute(geom_kernel<T>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 ROW_BYTES + 16);
+      if (err != cudaSuccess) return (int)err;
+      if (dev < 64) raised[dev] = true;
+    }
+  }
   const auto st = static_cast<cudaStream_t>(stream);
-  geom_kernel<T><<<E, NT, smem, st>>>(
+  geom_kernel<T><<<E, GNT, smem, st>>>(
       static_cast<const T*>(ral), static_cast<const int*>(n0),
       static_cast<const int*>(S_e), static_cast<int*>(i0),
       static_cast<int*>(i1), Tn, C, width);

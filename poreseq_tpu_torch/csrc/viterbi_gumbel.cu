@@ -11,16 +11,31 @@
 // bit.  The noise depends on (k, i, s) only, so one launch serves every
 // region of a sampler call (csrc/viterbi_sample.cu reads it).
 //
-// What bounds it on this card: the bytes it writes (nk x R x 4 KB in f32);
-// an elementwise grid-stride loop, 256 threads a block, at most 16 blocks
-// per SM.
+// What bounds it on this card: the instruction slots of its arithmetic.
+// The f32 kernel is about 315 SASS instructions, nearly all of them a
+// thread's 4 states of a row, so under 80 a state (the hash, the uniform
+// and two accurate logs, whose polynomials use fused multiply-adds of
+// their own; tools/sweep_constants.py counts them, PERF.md §6): they take
+// about twice as long as writing the state's 4 bytes.  The design keeps
+// every instruction that is not the state's own out of the inner work: a
+// row r = k R + i of 1024 states is taken by 256 threads (NT / 256 rows a
+// block at once, a grid-stride loop over rows), which derive k and i with
+// one 32-bit divide and the row's hash hki = mix(mix(h0 ^ k) ^ i) once per
+// row; each thread makes 4 consecutive states with 32-bit indexes and
+// stores them as one float4 (f32) or two double2 (f64).  The grid is
+// SM_BLOCKS blocks for each of the card's 132 SMs at most
+// (tools/sweep_constants.py timed NT 256-1024 and SM_BLOCKS 2-32 within
+// 1.2 % of one another at 256 threads, PERF.md §6).
 #include <algorithm>
 
 #include "common.cuh"
 
 namespace {
 
-constexpr int NT = 256;
+constexpr int NT = 256;          // threads a block
+constexpr int SM_BLOCKS = 16;    // blocks an SM, at most
+constexpr int RB = NT / 256;     // rows a block takes at once
+static_assert(NT % 256 == 0, "a row is 256 threads of 4 states");
 
 __device__ __forceinline__ float lg(float x) { return logf(x); }
 __device__ __forceinline__ double lg(double x) { return log(x); }
@@ -50,28 +65,48 @@ template <> __device__ __forceinline__ double uniform<double>(uint32_t hki,
   return ((double)x + 0.5) * 2.220446049250313e-16;              // 2^-52
 }
 
-// element e = (k R + i) 1024 + s
+template <typename T>
+__device__ __forceinline__ T gumbel(uint32_t hki, int s) {
+  return -lg(-lg(uniform<T>(hki, s)));
+}
+
+// states s .. s + 3 of a row, one 16-byte store (f32) or two (f64)
+__device__ __forceinline__ void store4(float* g, uint32_t hki, int s) {
+  *reinterpret_cast<float4*>(g + s) = make_float4(
+      gumbel<float>(hki, s), gumbel<float>(hki, s + 1),
+      gumbel<float>(hki, s + 2), gumbel<float>(hki, s + 3));
+}
+__device__ __forceinline__ void store4(double* g, uint32_t hki, int s) {
+  *reinterpret_cast<double2*>(g + s) = make_double2(
+      gumbel<double>(hki, s), gumbel<double>(hki, s + 1));
+  *reinterpret_cast<double2*>(g + s + 2) = make_double2(
+      gumbel<double>(hki, s + 2), gumbel<double>(hki, s + 3));
+}
+
+// g [nk R, 1024]: row r = k R + i
 template <typename T>
 __global__ void __launch_bounds__(NT)
-gumbel_kernel(T* __restrict__ g, int nk, int R, uint32_t seed) {
-  const size_t n = (size_t)nk * R * 1024;
+gumbel_kernel(T* __restrict__ g, int rows, int R, uint32_t seed) {
   const uint32_t h0 = mix32(seed ^ 0x9E3779B9u);
-  for (size_t e = (size_t)blockIdx.x * NT + threadIdx.x; e < n;
-       e += (size_t)gridDim.x * NT) {
-    const size_t ki = e >> 10;
-    const uint32_t k = (uint32_t)(ki / R), i = (uint32_t)(ki % R);
-    const uint32_t hki = mix32(mix32(h0 ^ k) ^ i);
-    g[e] = -lg(-lg(uniform<T>(hki, (int)(e & 1023))));
+  const int s = (threadIdx.x & 255) * 4;
+  for (int r = blockIdx.x * RB + (threadIdx.x >> 8); r < rows;
+       r += gridDim.x * RB) {
+    const uint32_t k = (uint32_t)r / (uint32_t)R;
+    const uint32_t i = (uint32_t)r - k * (uint32_t)R;
+    store4(g + (size_t)r * 1024, mix32(mix32(h0 ^ k) ^ i), s);
   }
 }
 
 template <typename T>
 int launch(void* g, int nk, int R, unsigned seed, void* stream) {
-  const size_t n = (size_t)nk * R * 1024;
-  if (n == 0) return 0;
-  const int blocks = (int)std::min<size_t>((n + NT - 1) / NT, 132 * 16);
+  const long long rows = (long long)nk * R;
+  if (rows == 0) return 0;
+  if (nk < 0 || R < 0 || rows > INT_MAX) return (int)cudaErrorInvalidValue;
+  const int blocks = (int)std::min<long long>((rows + RB - 1) / RB,
+                                              132 * SM_BLOCKS);
   const auto st = static_cast<cudaStream_t>(stream);
-  gumbel_kernel<T><<<blocks, NT, 0, st>>>(static_cast<T*>(g), nk, R, seed);
+  gumbel_kernel<T><<<blocks, NT, 0, st>>>(static_cast<T*>(g), (int)rows, R,
+                                          seed);
   return (int)cudaGetLastError();
 }
 

@@ -75,16 +75,6 @@ __device__ __forceinline__ bool before(T a, int ia, T b, int ib) {
   return a < b || (a == b && ia < ib);
 }
 
-// 16 bytes from device to shared memory, asynchronously (cp.async)
-__device__ __forceinline__ void copy16_async(void* dst, const void* src) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(d), "l"(src)
-               : "memory");
-}
-__device__ __forceinline__ void copies_wait() {
-  asm volatile("cp.async.wait_all;" ::: "memory");
-}
-
 // one valid event of a row: mean, clamped stdv, its log, the event index
 template <typename T>
 struct alignas(16) Ev {

@@ -308,7 +308,7 @@ _GEOM_SIG = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
              + [ctypes.c_void_p])
 GEOM = Kernel("geom", "poreseq_tpu/engine/tpu/mutscore.py:171 _geom_body",
               {"psq_geom_f32": _GEOM_SIG, "psq_geom_f64": _GEOM_SIG})
-# the kernel holds an event's ri in shared memory beside 3 x 256 ints
+# the kernel stages an event's ral row (then its ri) in shared memory
 GEOM_MAX_LEVELS = {torch.float32: 57344, torch.float64: 28672}
 
 

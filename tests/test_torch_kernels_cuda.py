@@ -10,10 +10,12 @@ coordinates and accept signs held, and the fill's running best (best,
 best_i, best_j, best_pfx) equal to dp.finish_fill on its own column maxima.
 The backtrace, the Viterbi sweep (with and without backpointers, one region
 with all rows real or none), the sampler (1 and 16 candidates) and its
-Gumbel kernel alone, the Viterbi observations (E_pad 1 to 32: the tiled
+Gumbel kernel alone (R = 1, nk = 1, rows below, at and above one pass of
+its grid), the Viterbi observations (E_pad 1 to 32: the tiled
 path, 33 and 64: the general path's register drop list and selection
 passes; ragged row tiles), the per-base likes (T up to 3000), the
-scoring geometry (unsorted rows, C = 1) and its windows (T not a multiple of
+scoring geometry (unsorted rows; T 1 to 4000 levels, C 1 to 3000 columns)
+and its windows (T not a multiple of
 32) must equal their twins exactly in f64 and f32.  A 2x2 mesh of the one card gives the single
 device's group totals bit for bit, and the fill, backtrace and scorer on
 cuda:1 equal their twins (skipped with one card).  Marked `cuda`: they skip
@@ -21,6 +23,9 @@ where torch sees no GPU.  Run them on the card with
 
     PSQ_TPU_TESTS=1 python -m pytest -m cuda tests/test_torch_kernels_cuda.py
 """
+
+import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -195,18 +200,43 @@ def test_viterbi_kernels_one_region_match_twins(engine, real):
                        sample_paths_reference(T, *args, 3))
 
 
+def _gumbel_grid_rows():
+    """Rows the Gumbel kernel's grid takes in one pass: 132 SM_BLOCKS
+    blocks of NT / 256 rows (constants read from csrc/viterbi_gumbel.cu)."""
+    text = (Path(__file__).resolve().parents[1] / "poreseq_tpu_torch"
+            / "csrc" / "viterbi_gumbel.cu").read_text()
+    nt, sm_blocks = (int(re.search(rf"constexpr int {n} = (\d+);",
+                                   text).group(1))
+                     for n in ("NT", "SM_BLOCKS"))
+    return 132 * sm_blocks * (nt // 256)
+
+
+# (nk, R) of the Gumbel kernel's edges, for G rows a grid pass
+GUMBEL_SHAPES = {"one row": lambda G: (1, 1),
+                 "one candidate": lambda G: (1, 700),
+                 "one row each": lambda G: (16, 1),
+                 "below the grid": lambda G: (16, 40),
+                 "the grid": lambda G: (4, G // 4),
+                 "above the grid": lambda G: (3, G // 2 + 1)}
+
+
 @pytest.mark.parametrize("engine", DTYPES, indirect=True)
-def test_viterbi_gumbel_kernel_matches_twin(engine):
+@pytest.mark.parametrize("shape", ["16 x 70"] + list(GUMBEL_SHAPES))
+def test_viterbi_gumbel_kernel_matches_twin(engine, shape):
     """The sampler's Gumbel kernel equals -log(-log(u)) on the counter
-    uniforms, bit for bit, and counts its own launches only."""
+    uniforms, bit for bit, and counts its own launches only: 16 candidates
+    of 70 rows, R = 1, nk = 1, and nk R below, equal to and above (about
+    1.5 passes) the rows its grid takes in one pass."""
     from poreseq_tpu_torch.engine.viterbi import (VITERBI_GUMBEL,
                                                   VITERBI_SAMPLE, gumbel_cuda,
                                                   gumbel_reference)
 
+    nk, R = ((16, 70) if shape == "16 x 70"
+             else GUMBEL_SHAPES[shape](_gumbel_grid_rows()))
     n, g = VITERBI_SAMPLE.launches, VITERBI_GUMBEL.launches
-    got = gumbel_cuda(7, 16, 70, engine.dtype, "cuda")
+    got = gumbel_cuda(7, nk, R, engine.dtype, "cuda")
     assert (VITERBI_SAMPLE.launches, VITERBI_GUMBEL.launches) == (n, g + 1)
-    ref = gumbel_reference(7, 16, torch.arange(70, device="cuda"),
+    ref = gumbel_reference(7, nk, torch.arange(R, device="cuda"),
                            engine.dtype)
     assert torch.equal(got, ref)
 
@@ -337,15 +367,16 @@ def test_likes_kernel_matches_twin(engine, shape):
 def _geom_rows(rng, E=48, T=70, C=50):
     """ral [E, T], n0 [E], S_e [E]: one anchored level (NaN flanks), level
     0 anchored then a gap (the level-0 quirk), no anchor, anchors only past
-    n0, inactive rows (n0 = 1) and plain monotone rows."""
+    n0, inactive rows (n0 = 1) and plain monotone rows (C >= 2; at T < 3
+    the rows are cut to fit, as n0 = 0 may be)."""
     ral = np.zeros((E, T))
     n0 = rng.integers(T // 2, T + 1, E).astype(np.int32)
     for e in range(E):
         n, kind = int(n0[e]), e % 6
-        if kind == 0:
+        if kind == 0 and n > 0:
             ral[e, int(rng.integers(0, n))] = rng.integers(1, C)
         elif kind in (1, 5):
-            start = 0 if kind == 1 else 2
+            start = min(0 if kind == 1 else 2, T - 1)
             ral[e, start] = 2
             ref = 2
             for t in range(start + (6 if kind == 1 else 1), n):
@@ -362,14 +393,48 @@ def _geom_rows(rng, E=48, T=70, C=50):
     return ral, n0, rng.integers(0, C + 1, E).astype(np.int32)
 
 
+def _geom_edge_rows(T, C):
+    """_geom_rows for the geometry kernel's edges (S_e up to C), plus an
+    anchor at level 0 alone, below n0 = 1 and below n0 = T, and a row whose
+    reference index slows to one in 20 levels over refs 500-560 and from
+    994 on, so that band starts rise faster than DMAX a column across a
+    warp's columns (512) and a pass's end (1024) and the rate limit's
+    carries bind there."""
+    rng = np.random.default_rng(T * 11 + C)
+    ral, n0, S_e = _geom_rows(rng, E=12 if T < 1024 else 6, T=T,
+                              C=max(C, 8))
+    extra = np.zeros((3, T))
+    extra[:2, 0] = 3.0
+    t = np.arange(T)
+    slow = ((t >= 500) & (t < 1700)) | (t >= 2134)
+    extra[2] = np.floor(np.cumsum(np.where(slow, 0.05, 1.0)) + 1e-6)
+    return (np.concatenate([ral, extra]),
+            np.concatenate([n0, [1, T, T]]).astype(np.int32),
+            np.concatenate([np.minimum(S_e, C),
+                            [C, max(C - 3, 0), C]]).astype(np.int32))
+
+
+GEOM_EDGES = ([(70, 1), (70, 50)]
+              + [(T, C) for T in (1, 31, 255, 256, 257, 1024, 4000)
+                 for C in (1, 255, 256, 257, 1024, 1025, 3000)])
+
+
 @pytest.mark.parametrize("engine", DTYPES, indirect=True)
-@pytest.mark.parametrize("C", [1, 50])
-def test_geom_kernel_matches_twin(engine, C):
+@pytest.mark.parametrize("T,C", GEOM_EDGES)
+def test_geom_kernel_matches_twin(engine, T, C):
+    """The geometry kernel equals its twin exactly: at T = 70 on
+    _geom_rows' unsorted rows (C = 1 and 50), and at the CPU model's edges
+    (_geom_edge_rows: T from 1 to 4000 levels, rows off 16-byte
+    boundaries, C from 1 to 3000 columns, S_e < C, the carries across
+    warps and passes; odd T puts rows off 16-byte boundaries)."""
     from poreseq_tpu_torch.engine.mutscore import (GEOM, geom_cuda,
                                                    geom_reference)
 
-    ral, n0, S_e = _geom_rows(np.random.default_rng(C), C=max(C, 8))
-    S_e = np.minimum(S_e, C).astype(np.int32)
+    if T == 70:
+        ral, n0, S_e = _geom_rows(np.random.default_rng(C), C=max(C, 8))
+        S_e = np.minimum(S_e, C).astype(np.int32)
+    else:
+        ral, n0, S_e = _geom_edge_rows(T, C)
     t = lambda x: torch.as_tensor(x, device="cuda")
     args = (t(ral).to(engine.dtype), t(n0), t(S_e), 8, C)
     n = GEOM.launches
@@ -377,6 +442,30 @@ def test_geom_kernel_matches_twin(engine, C):
     assert GEOM.launches == n + 1
     for a, b in zip(got, geom_reference(*args)):
         assert torch.equal(a, b.to(torch.int32))
+
+
+@pytest.mark.parametrize("engine", DTYPES, indirect=True)
+def test_geom_kernel_at_the_level_cap(engine):
+    """At GEOM_MAX_LEVELS (57,344 f32 / 28,672 f64 levels, 224 KB of
+    staged row) the geometry kernel equals its twin, on its first launch
+    (which raises the card's shared memory limit) and its second; one level
+    more is refused before any launch."""
+    from poreseq_tpu_torch.engine.mutscore import (GEOM, GEOM_MAX_LEVELS,
+                                                   geom_cuda, geom_reference)
+
+    T, C = GEOM_MAX_LEVELS[engine.dtype], 1024
+    ral, n0, S_e = _geom_rows(np.random.default_rng(3), E=6, T=T, C=C)
+    t = lambda x: torch.as_tensor(x, device="cuda")
+    args = (t(ral).to(engine.dtype), t(n0), t(np.minimum(S_e, C)), 8, C)
+    ref = geom_reference(*args)
+    for _ in range(2):
+        for a, b in zip(geom_cuda(*args), ref):
+            assert torch.equal(a, b.to(torch.int32))
+    n = GEOM.launches
+    wide = torch.zeros((6, T + 1), dtype=engine.dtype, device="cuda")
+    with pytest.raises(ValueError, match="at most"):
+        geom_cuda(wide, *args[1:])
+    assert GEOM.launches == n
 
 
 @pytest.mark.parametrize("engine", DTYPES, indirect=True)

@@ -21,6 +21,7 @@ from poreseq_tpu.engine.types import AlignData
 from poreseq_tpu.sim import simulate_session
 from poreseq_tpu_torch.engine import TorchEngine
 from poreseq_tpu_torch.engine import viterbi as tv
+from test_torch_kernels_cuda import GUMBEL_SHAPES, _gumbel_grid_rows
 
 # several pytest workers share the machine: one intra-op thread each keeps
 # torch's many small CPU ops from oversubscribing the cores
@@ -432,45 +433,58 @@ def _np_mix32(x):
 
 
 def _gumbel_kernel_model(seed, nk, R, dtype):
-    """NumPy model of gumbel_kernel's launch: min(ceil(n / 256), 132 * 16)
-    blocks of 256 threads, thread t of block b visits e = b 256 + t +
-    j * blocks * 256 < n, decodes k = (e >> 10) / R, i = (e >> 10) % R,
-    s = e & 1023 and writes -log(-log(u)) of its own hash chain to g[e].
-    Returns (g flattened, how often each e was written)."""
-    n = nk * R * 1024
-    blocks = min(-(-n // 256), 132 * 16)
-    stride = blocks * 256
-    e = (np.arange(stride)[None, :]
-         + stride * np.arange(-(-n // stride))[:, None]).ravel()
-    e = e[e < n]
-    ki = e >> 10
-    k, i, s = ki // R, ki % R, e & 1023
+    """NumPy model of gumbel_kernel's launch: rows = nk R rows of 1024
+    states, min(ceil(rows / RB), 132 SM_BLOCKS) blocks of NT threads, RB =
+    NT / 256 rows a block at once; thread t of block b takes the rows r =
+    b RB + t // 256 + j blocks RB < rows, decodes k = r / R, i = r - k R
+    once per row (uint32) with the row's hash, and writes the states s =
+    4 (t % 256) .. + 3 of the row, -log(-log(u)) of its own hash chain.
+    Returns (g flattened, how often each element was written)."""
+    nt, sm_blocks = _cu_consts("viterbi_gumbel", "NT", "SM_BLOCKS")
+    rb = nt // 256
+    rows = nk * R
+    blocks = min(-(-rows // rb), 132 * sm_blocks)
+    t = np.arange(nt)
+    r = (np.arange(blocks)[:, None] * rb + t[None, :] // 256)   # [b, t]
+    steps = -(-rows // (blocks * rb))
+    r = r[None] + blocks * rb * np.arange(steps)[:, None, None]
+    s = np.broadcast_to(4 * (t % 256), r.shape)
+    keep = r < rows
+    r, s = r[keep].astype(np.uint32), s[keep].astype(np.uint32)
+    k = r // np.uint32(R)
+    i = r - k * np.uint32(R)
     with np.errstate(over="ignore"):
         h0 = _np_mix32(np.uint32(seed) ^ np.uint32(0x9E3779B9))
-        hki = _np_mix32(_np_mix32(h0 ^ k.astype(np.uint32))
-                        ^ i.astype(np.uint32))
-        hi = _np_mix32(hki ^ s.astype(np.uint32))
+        hki = _np_mix32(_np_mix32(h0 ^ k) ^ i)
+        # a thread's 4 consecutive states
+        s = (s[:, None] + np.arange(4, dtype=np.uint32)).ravel()
+        hki = np.repeat(hki, 4)
+        e = np.repeat(r.astype(np.int64), 4) * 1024 + s
+        hi = _np_mix32(hki ^ s)
         if dtype == torch.float64:
-            lo = _np_mix32(hki ^ (s + 1024).astype(np.uint32))
+            lo = _np_mix32(hki ^ (s + np.uint32(1024)))
             x = ((hi.astype(np.uint64) >> np.uint64(12)) << np.uint64(32)) \
                 | lo.astype(np.uint64)
             u = (x.astype(np.float64) + 0.5) * 2.0 ** -52
         else:
             u = ((hi >> np.uint32(9)).astype(np.float32) + np.float32(0.5)) \
                 * np.float32(2.0 ** -23)
+    n = rows * 1024
     g = np.full(n, np.nan, u.dtype)
-    t = torch.from_numpy(u)
-    g[e] = (-torch.log(-torch.log(t))).numpy()
+    g[e] = (-torch.log(-torch.log(torch.from_numpy(u)))).numpy()
     return g, np.bincount(e, minlength=n)
 
 
-@pytest.mark.parametrize("nk,R", [(1, 3), (16, 40), (3, 700)])
+@pytest.mark.parametrize("shape", list(GUMBEL_SHAPES))
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
-def test_gumbel_kernel_indexing_model(nk, R, dtype):
-    """A model of the Gumbel kernel's grid-stride launch (its block count,
-    its index decode, its uint32 hash) writes every element of the twin's
-    [nk, R, 1024] block once, equal element by element; (16, 40) and
-    (3, 700) take 2 and 4 strides of the grid."""
+def test_gumbel_kernel_indexing_model(shape, dtype):
+    """A model of the Gumbel kernel's row layout (its block count, each
+    row's decode and hash, a thread's 4 states, the grid-stride loop over
+    rows) writes every element of the twin's [nk, R, 1024] block once,
+    equal element by element: nk R below, equal to and above the rows the
+    grid takes in one pass (about 1.5 passes), R = 1 and nk = 1
+    (test_torch_kernels_cuda.GUMBEL_SHAPES, held on the card there)."""
+    nk, R = GUMBEL_SHAPES[shape](_gumbel_grid_rows())
     g, visits = _gumbel_kernel_model(7, nk, R, dtype)
     assert np.all(visits == 1)
     ref = tv.gumbel_reference(7, nk, torch.arange(R), dtype)

@@ -1,23 +1,25 @@
 #!/usr/bin/env python3
 """Time variants of a hand kernel's compile-time constants on one card.
 
-    python3 tools/sweep_constants.py {viterbi_obs,likes} NAME=V1,V2 ...
-                                     [--seed N]
+    python3 tools/sweep_constants.py KERNEL NAME=V1,V2 ... [--seed N]
 
-For every combination of the values given, a copy of
-poreseq_tpu_torch/csrc/<kernel>.cu with each `constexpr int NAME = n;` line
-set to the value is built with _build.py's nvcc flags (all variants at
-once; a combination the source's static_asserts refuse is reported as not
-built), loaded with ctypes and launched on the operands of chip_smoke.py's
-phase 2 in f32: the observations on phase 2b's 8 regions (960 rows, E_pad
-14), the likes on a Mutate round's 8-region batch (E = 96, T = 1024, C =
-1024).  Each variant's output must equal the plain twin's; its time is
-profile_phase3.queued_ms of a bare launch (CUDA events around 20 launches
-queued behind a spin kernel).  For each variant one line
-`[sweep] {json}` follows: the constants, built or not, equal, ms, what
-ptxas reports for its f32 kernels (registers, spills), and the card's
-name and power limit.  Needs a CUDA card and nvcc; exits non-zero when a
-variant that builds differs from the twin.
+KERNEL is one of viterbi_obs, likes, viterbi_gumbel, geom.  For every
+combination of the values given, a copy of poreseq_tpu_torch/csrc/<src>.cu
+with each `constexpr int NAME = n;` line set to the value is built with
+_build.py's nvcc flags (all variants at once; a combination the source's
+static_asserts refuse is reported as not built), loaded with ctypes and
+launched on the operands of chip_smoke.py's phase 2 in f32 and in f64:
+the observations and the Gumbel noise on phase 2b's 8 regions (960 rows,
+E_pad 14; 16 candidates), the likes and the geometry on a Mutate round's
+8-region batch (E = 96, T = 1024, C = 1024).  Each variant's outputs must
+equal the plain twin's; its time is profile_phase3.queued_ms of a bare
+launch (CUDA events around 20 launches queued behind a spin kernel).  For
+each variant one line `[sweep] {json}` follows: the constants, built or
+not, and per dtype whether it is equal, its ms, what ptxas reports for
+its kernels (registers, spills) and their static SASS instruction counts
+(cuobjdump -sass, NOPs left out), and the card's name and power limit.
+Needs a CUDA card, nvcc and cuobjdump; exits non-zero when a variant that
+builds differs from the twin.
 """
 
 from __future__ import annotations
@@ -56,35 +58,71 @@ def build(src: str, lib: str) -> tuple[bool, str]:
     return proc.returncode == 0, proc.stderr
 
 
-def operands(kernel: str, seed: int):
-    """(C entry's arguments after the pointers, inputs, twin's output,
-    output shape) at phase 2's shapes, f32."""
+def sass_counts(lib: str) -> dict:
+    """{kernel<f|d>: static SASS instructions, NOPs left out} of each
+    kernel instance in a built library (cuobjdump -sass)."""
+    from poreseq_tpu_torch import _build
+
+    exe = os.path.join(os.path.dirname(_build.nvcc()), "cuobjdump")
+    sass = subprocess.run([exe, "-sass", lib], capture_output=True,
+                          text=True, check=True).stdout
+    counts = {}
+    for fn in re.split(r"\n\s*Function : ", sass)[1:]:
+        m = re.search(r"([a-z_]+_kernel)I([fd])E", fn.split("\n", 1)[0])
+        ops = re.findall(r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9_]+)",
+                         fn)
+        if m:
+            counts[f"{m.group(1)}<{m.group(2)}>"] = sum(o != "NOP"
+                                                        for o in ops)
+    return counts
+
+
+# each kernel's source and its C entry without the dtype suffix
+SOURCES = {"viterbi_obs": ("viterbi_obs", "psq_viterbi_obs"),
+           "likes": ("likes", "psq_likes"),
+           "viterbi_gumbel": ("viterbi_gumbel", "psq_viterbi_gumbel"),
+           "geom": ("geom", "psq_geom")}
+
+
+def operands(kernel: str, seed: int, dtype):
+    """(inputs, the twin's outputs, the C entry's int arguments after the
+    pointers) at phase 2's shapes in dtype; the entry takes the inputs'
+    and then the outputs' pointers."""
     import torch
 
     import chip_smoke
     from poreseq_tpu_torch.engine import TorchEngine
 
-    engine = TorchEngine("cuda", torch.float32)
-    if kernel == "viterbi_obs":
-        from poreseq_tpu_torch.engine.viterbi import (obs_inputs,
+    engine = TorchEngine("cuda", dtype)
+    if kernel in ("viterbi_obs", "viterbi_gumbel"):
+        from poreseq_tpu_torch.engine.viterbi import (gumbel_reference,
+                                                      obs_inputs,
                                                       obs_multi_reference)
 
         regions = chip_smoke._mut_regions(seed)["refine"][0]
-        events = [d.events for d in regions]
-        _, ops, _ = obs_inputs(events, engine.device, torch.float32)
+        _, ops, _ = obs_inputs([d.events for d in regions], engine.device,
+                               dtype)
         B, R, E = ops[0].shape
-        return (B, R, E), ops, obs_multi_reference(*ops), (B, R, 1024)
+        if kernel == "viterbi_obs":
+            return ops, (obs_multi_reference(*ops),), (B, R, E)
+        nk = chip_smoke.SAMPLE_ARGS[0]
+        rows = torch.arange(R, device=engine.device)
+        return [], (gumbel_reference(seed, nk, rows, dtype),), (nk, R, seed)
     from poreseq_tpu_torch.engine.align import likes_reference
+    from poreseq_tpu_torch.engine.mutscore import geom_reference
 
-    _, ral, rlk, _, C, _, _ = chip_smoke._scoring_operands(
+    batch, ral, rlk, S_e, C, sw, _ = chip_smoke._scoring_operands(
         engine, chip_smoke._mut_regions(seed)["mutate"][0])
     E, T = ral.shape
-    return (E, T, C), [ral, rlk], likes_reference(ral, rlk, C), (E, C)
+    if kernel == "likes":
+        return [ral, rlk], (likes_reference(ral, rlk, C),), (E, T, C)
+    ins = [ral, batch.n0, S_e]
+    return ins, geom_reference(*ins, sw, C), (E, T, C, sw)
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("kernel", choices=("viterbi_obs", "likes"))
+    ap.add_argument("kernel", choices=tuple(SOURCES))
     ap.add_argument("constants", nargs="+", metavar="NAME=V1,V2")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
@@ -101,8 +139,8 @@ def main():
             for c in args.constants]
     combos = [dict(zip([a for a, _ in axes], vs))
               for vs in itertools.product(*(v for _, v in axes))]
-    text = (_build.CSRC / f"{args.kernel}.cu").read_text()
-    fn = f"psq_{args.kernel}_f32"
+    src_name, fn = SOURCES[args.kernel]
+    text = (_build.CSRC / f"{src_name}.cu").read_text()
     P = ctypes.c_void_p
     with tempfile.TemporaryDirectory(prefix="psq_sweep_") as tmp:
         paths = []
@@ -113,28 +151,37 @@ def main():
             paths.append((src, os.path.join(tmp, f"libv{i}.so")))
         with ThreadPoolExecutor(len(paths)) as ex:
             built = list(ex.map(lambda p: build(*p), paths))
-        ints, ins, ref, shape = operands(args.kernel, args.seed)
+        ops = {d: operands(args.kernel, args.seed, dt)
+               for d, dt in (("f32", torch.float32), ("f64", torch.float64))}
         stream = P(torch.cuda.current_stream().cuda_stream)
         bad = 0
         for values, (_, lib), (ok, log) in zip(combos, paths, built):
             line = dict(kernel=args.kernel, constants=values, built=ok)
             if ok:
-                line["ptxas_f32"] = [u.split(": ")[1]
-                                     for u in chip_smoke.ptxas_usage(log)
-                                     if "IfE" in u.split(":")[0]]
-                entry = getattr(ctypes.CDLL(lib), fn)
-                entry.argtypes = [P] * (len(ins) + 1) + [ctypes.c_int] * 3 \
-                    + [P]
-                entry.restype = ctypes.c_int
-                out = torch.empty(shape, device="cuda")
-                call = lambda: entry(*(P(x.data_ptr()) for x in ins),
-                                     P(out.data_ptr()), *ints, stream)
-                if call() != 0:
-                    raise SystemExit(f"sweep_constants: {values} refused")
-                torch.cuda.synchronize()
-                line["equal"] = bool(torch.equal(out, ref))
-                bad += not line["equal"]
-                line["ms"] = queued_ms(call)
+                sass = sass_counts(lib)
+                for d, (ins, refs, ints) in ops.items():
+                    c = "f" if d == "f32" else "d"     # the template's type
+                    entry = getattr(ctypes.CDLL(lib), f"{fn}_{d}")
+                    entry.argtypes = [P] * (len(ins) + len(refs)) \
+                        + [ctypes.c_int] * len(ints) + [P]
+                    entry.restype = ctypes.c_int
+                    outs = [torch.empty_like(r) for r in refs]
+                    call = lambda: entry(*(P(x.data_ptr())
+                                           for x in ins + outs), *ints,
+                                         stream)
+                    if call() != 0:
+                        raise SystemExit(f"sweep_constants: {values} {d} "
+                                         "refused")
+                    torch.cuda.synchronize()
+                    equal = all(torch.equal(o, r) for o, r in zip(outs, refs))
+                    bad += not equal
+                    line[d] = dict(
+                        equal=equal, ms=queued_ms(call),
+                        ptxas=[u.split(": ")[1]
+                               for u in chip_smoke.ptxas_usage(log)
+                               if f"I{c}E" in u.split(":")[0]],
+                        sass={k: n for k, n in sass.items()
+                              if k.endswith(f"<{c}>")})
             line["card"] = chip_smoke.gpu_line()
             print("[sweep] " + json.dumps(line), flush=True)
     if bad:
