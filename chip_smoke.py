@@ -26,7 +26,15 @@ non-zero, nothing runs on the CPU instead):
                 fill's running best equal to dp.finish_fill on the kernel's
                 own column maxima), with each kernel's device time (CUDA
                 events), its least time on the card (engine/roofline.py)
-                and the twin's time;
+                and the twin's time; then the wide instances: the fill at
+                realign widths 700 and 2047 (W = 1401 and 4095: two and
+                four band rows a thread; forward with steps, backward
+                without) within the same tolerances, the group scorer on
+                a Mutate call's groups at scoring width 600 (Ws = 1201),
+                and the geometry at 256 levels past its staged cap and at
+                twice the cap (the instance that reads the row from device
+                memory), equal; each timed in f32 (event and queued ms)
+                under the kernel's "wide" key;
   2b. viterbi — the sampler's counter hash on the card equals its pinned
                 values bit for bit, and in f64 each of the 8 regions of
                 phase 2's batch gets the same candidates inside the batch
@@ -77,9 +85,16 @@ non-zero, nothing runs on the CPU instead):
                 Refine; per card engine, the regions whose sequence first
                 differs from the exact engine's after each step, and the
                 degraded ones (accuracy there 0.5 points or more from the
-                exact engine's, or below 99 %), which fail the run.
+                exact engine's, or below 99 %), which fail the run;
+  9. wide     — phase 3's consensus at widths 700/600/20 from its params
+                file (W = 1401, Ws = 1201): wall, mean accuracy (>= 99.0 %),
+                launches and peak device memory beside phase 3's, every
+                kernel of the path launched, and the largest forward and
+                backward fill and the largest group-scorer launch of each
+                window width (Refine's 41, Mutate's 1201) held to their
+                twins (phase 2's tolerances) and timed.
 Phase 2 also holds the fill, backtrace and group scorer on cuda:1 in f64
-when torch sees a second card.  Phases 2b-8 reset the kernels' launch
+when torch sees a second card.  Phases 2b-9 reset the kernels' launch
 counters before they start and report them after; each must have launched
 the kernels of its path (phase 3: every kernel; phase 7: all but the
 geometry, which a mesh takes from the host).  The line before the
@@ -475,14 +490,17 @@ def check_backtrace(engine, data, f64: bool, report: dict):
 # last region's row slice (fewer rows than the largest region's) overruns
 # it and is clamped to E - E_g, as jax.lax.dynamic_slice_in_dim clamps
 MUT_COVERAGE = (11, 13, 12, 14, 10, 12, 13, 11)
-TWIN_GROUPS = 512     # the twin's joins hold [G, P, E_g, W] temporaries
+# the twin's joins hold [G, P, E_g, W] temporaries: 512 groups a call at
+# W <= 601, proportionally fewer at wider bands or windows
+TWIN_GROUPS = 512
 
 
-def _mut_regions(seed: int):
+def _mut_regions(seed: int, widths: dict = P_WIDTHS):
     """The group scorer's inputs at main-path shapes: 8 simulated 1 kb
     regions in one lockstep batch, each as a Refine call sees it (point
     width 20, every point mutation) and as a Mutate round sees it (scoring
-    width 100, 300 random indels and substitutions)."""
+    width 100, 300 random indels and substitutions); `widths` replaces the
+    main path's (phase 2's wide holds: WIDE_WIDTHS)."""
     from poreseq_tpu_torch.core.regions import MutationInfo
     from poreseq_tpu_torch.engine.driver import find_point_mutations
     from poreseq_tpu_torch.engine.types import AlignData
@@ -494,9 +512,9 @@ def _mut_regions(seed: int):
         pa, _ = simulate_session(np.random.default_rng(seed + 100 + r),
                                  ref_len=1000, coverage=cov,
                                  draft_error=0.02)
-        pa.params.update(P_WIDTHS)
+        pa.params.update(widths)
         data = AlignData.from_session(pa)
-        data.params.scoring_width = P_WIDTHS["point_width"]
+        data.params.scoring_width = widths["point_width"]
         refine[0].append(data)
         refine[1].append(find_point_mutations(data))
         data = AlignData.from_session(pa)
@@ -520,7 +538,8 @@ def _mut_regions(seed: int):
 
 def _twin_totals(args):
     """The group scorer's plain twin over every group, TWIN_GROUPS at a
-    time: totals [G, P]."""
+    time (fewer past W = 601: groups are independent in the twin, so the
+    totals do not depend on the split): totals [G, P]."""
     import torch
 
     from poreseq_tpu_torch.engine.mutscore import (group_deltas_reference,
@@ -528,9 +547,10 @@ def _twin_totals(args):
 
     gp = args[13]
     G = gp["g_start"].shape[0]
+    step = max(1, TWIN_GROUPS * 601 // max(args[15], args[16], 601))
     out = []
-    for at in range(0, G, TWIN_GROUPS):
-        sub = {k: v[at : at + TWIN_GROUPS] for k, v in gp.items()}
+    for at in range(0, G, step):
+        sub = {k: v[at : at + step] for k, v in gp.items()}
         out.append(sum_rows_reference(group_deltas_reference(
             *args[:13], sub, *args[14:])))
     return torch.cat(out)
@@ -824,6 +844,126 @@ def check_prologue(engine, datas, f64: bool, report: dict):
           + (f" | {gpu_line()}" if not f64 else ""), flush=True)
 
 
+# phase 2's holds past one band row a thread and past the geometry's staged
+# level cap: the fill at realign widths 700 and 2047 (W = 1401, two rows a
+# thread; W = 4095, four), the group scorer at scoring width 600 (Ws =
+# 1201, two) and the geometry at GEOM_MAX_LEVELS + 256 and twice it (the
+# instance that reads the row from device memory)
+WIDE_FILL = (700, 2047)
+WIDE_WIDTHS = dict(realign_width=700, scoring_width=600, point_width=20)
+
+
+def _long_rows(rng, E: int, T: int):
+    """Geometry operands of reads T levels long on a region of about T
+    bases (C = T columns): ral [E, T] (a level's reference index rises by
+    0-2, one level in ten unanchored), n0 and S_e [E]; row 0 has no anchor,
+    row 1 one anchor, row 2 an anchor at level 0 then a gap (the level-0
+    quirk) and row 3 ends at T / 3 levels."""
+    ral = np.cumsum(rng.integers(0, 3, (E, T)), axis=1) + 1.0
+    ral[rng.random((E, T)) < 0.1] = -1.0
+    n0 = np.full(E, T, dtype=np.int32)
+    ral[0] = 0.0
+    ral[1] = 0.0
+    ral[1, T // 2] = T // 2
+    ral[2, 1:9] = 0.0
+    n0[3] = T // 3
+    S_e = np.minimum(ral.max(axis=1) + 1, T).clip(0).astype(np.int32)
+    return ral, n0, S_e
+
+
+def check_wide(engine, seed: int, f64: bool, report: dict):
+    """The wide instances held to their twins: the fill at WIDE_FILL
+    (forward with steps, backward without: the main path's) with phase 2's
+    tolerances, the group scorer on a Mutate call's groups at WIDE_WIDTHS
+    (8 regions), the geometry past its staged cap bit-equal; in f32 each
+    wide launch timed (event and queued ms) beside its bound, under the
+    kernel's "wide" key."""
+    import torch
+
+    from poreseq_tpu_torch.engine.fill import fill_cuda
+    from poreseq_tpu_torch.engine.mutscore import (GEOM_MAX_LEVELS,
+                                                   geom_cuda, geom_reference,
+                                                   group_launches,
+                                                   group_totals_cuda)
+    from poreseq_tpu_torch.engine.roofline import (fill_work, geom_work,
+                                                   group_work)
+
+    t0 = time.perf_counter()
+    dt = engine.dtype
+    wide = {"fill": {}, "mutscore": {}, "geom": {}}
+    errs = {k: 0.0 for k in wide}
+
+    def time_it(fn, work, **shape):
+        return dict(shape, queued_ms=queued_ms(fn),
+                    **timed(event_ms(fn), work, dt))
+
+    for width in WIDE_FILL:
+        W = 2 * width + 1
+        batch, states, i0, i1, pad, off = _fill_inputs(
+            engine, _session(seed, width))
+        shape = dict(E=batch.mean.shape[0], C=states.shape[0])
+        for name, backward, steps in (("forward", False, True),
+                                      ("backward", True, False)):
+            args = (batch, states, i0, i1, pad, off, backward, W, steps)
+            errs["fill"] = max(errs["fill"],
+                               hold_fill(args, f"kernels wide W={W}"))
+            if not f64:
+                wide["fill"].setdefault(f"W={W}", {})[name] = time_it(
+                    lambda: fill_cuda(*args),
+                    fill_work(batch, states, pad, W, steps), **shape)
+
+    datas, mlists = _mut_regions(seed, WIDE_WIDTHS)["mutate"]
+    n_groups = 0
+    for gp, _, args in group_launches(engine, datas, mlists,
+                                      [True] * len(datas)):
+        if args[16] != 2 * WIDE_WIDTHS["scoring_width"] + 1:
+            fail(f"kernels wide: a Mutate launch at Ws={args[16]}")
+        n_groups += gp["G"]
+        errs["mutscore"] = max(errs["mutscore"],
+                               hold_mutscore(args, "kernels wide"))
+        if not f64:
+            wide["mutscore"].setdefault(f"Ws={args[16]}", []).append(
+                time_it(lambda: group_totals_cuda(*args), group_work(*args),
+                        G=gp["G"], C=args[1].shape[0], E=args[1].shape[1]))
+
+    cap = GEOM_MAX_LEVELS[dt]
+    for T in (cap + 256, 2 * cap):
+        ral, n0, S_e = _long_rows(np.random.default_rng(seed + T), 8, T)
+        t = lambda x: torch.as_tensor(x, device="cuda")
+        args = (t(ral).to(dt), t(n0), t(S_e), WIDE_WIDTHS["scoring_width"],
+                T)
+        for a, b in zip(geom_cuda(*args), geom_reference(*args)):
+            if not torch.equal(a, b):
+                fail(f"kernels wide geom T={T} (f64={f64}) "
+                     + _differs("geom", a, b))
+        if not f64:
+            wide["geom"][f"T={T}"] = time_it(
+                lambda: geom_cuda(*args), geom_work(args[0], args[1], T),
+                E=ral.shape[0], C=T)
+    for k, err in errs.items():
+        report[(k, f64)]["max_abs_err"] = max(
+            report[(k, f64)]["max_abs_err"], err)
+        if not f64:
+            report[(k, f64)]["wide"] = wide[k]
+    fmt = lambda d: f"E={d['E']} " + _timing(d) + \
+        f", queued {d['queued_ms']:.4f} ms"
+    print(f"[kernels] wide f{'64' if f64 else '32'}: fill W="
+          f"{[2 * w + 1 for w in WIDE_FILL]} forward with steps and "
+          f"backward held to the twin (max |diff| {errs['fill']:.3e}); "
+          f"mutscore Ws={2 * WIDE_WIDTHS['scoring_width'] + 1} on "
+          f"{n_groups} groups of {len(datas)} regions held (max |diff| "
+          f"{errs['mutscore']:.3e}); geom T={cap + 256} and {2 * cap} equal "
+          f"the twin; {time.perf_counter() - t0:.1f} s"
+          + ("".join(f"; fill {w} {n} {fmt(d)}"
+                     for w, runs in wide["fill"].items()
+                     for n, d in runs.items())
+             + "".join(f"; mutscore {w} G={d['G']} {fmt(d)}"
+                       for w, runs in wide["mutscore"].items() for d in runs)
+             + "".join(f"; geom {w} {fmt(d)}"
+                       for w, d in wide["geom"].items())
+             + f" | {gpu_line()}" if not f64 else ""), flush=True)
+
+
 def phase_kernels(seed: int):
     import torch
 
@@ -841,6 +981,7 @@ def phase_kernels(seed: int):
         check_mutscore(engine, regions, f64, report)
         check_viterbi(engine, events, seed, f64, report)
         check_prologue(engine, _mut_regions(seed)["mutate"][0], f64, report)
+        check_wide(engine, seed, f64, report)
     if torch.cuda.device_count() < 2:
         print(f"[kernels] cuda:1: skipped, torch sees "
               f"{torch.cuda.device_count()} card", flush=True)
@@ -911,11 +1052,12 @@ def _copied(x):
 
 
 @contextlib.contextmanager
-def largest_launches():
+def largest_launches(by_width: bool = False):
     """Inside the block, keep a copy of the operands of the largest forward
     fill, the largest backward fill (C x E cells) and the largest group-scorer
     launch (G x C x E) that the path makes, the first of equals, under the
-    keys "fill fwd", "fill bwd" and "mutscore".  They are held to their twins
+    keys "fill fwd", "fill bwd" and "mutscore" (by_width: the largest of
+    each window width, "mutscore Ws=N").  They are held to their twins
     after the path's launch counts are read."""
     import inspect
 
@@ -940,8 +1082,8 @@ def largest_launches():
     fill.fill_cuda = keeper(real[0], lambda a: (
         "fill bwd" if a["backward"] else "fill fwd", a["states"].numel()))
     mutscore.group_totals_cuda = keeper(real[1], lambda a: (
-        "mutscore", a["gp"]["g_start"].shape[0] * a["Mf"].shape[0]
-        * a["Mf"].shape[1]))
+        f"mutscore Ws={a['Ws']}" if by_width else "mutscore",
+        a["gp"]["g_start"].shape[0] * a["Mf"].shape[0] * a["Mf"].shape[1]))
     try:
         yield kept
     finally:
@@ -955,12 +1097,15 @@ def hold_path_launches(kept: dict, phase: str):
     from poreseq_tpu_torch.engine.mutscore import group_totals_cuda
     from poreseq_tpu_torch.engine.roofline import fill_work, group_work
 
-    for key in ("fill fwd", "fill bwd", "mutscore"):
+    scorer = sorted((k for k in kept if k.startswith("mutscore")),
+                    key=lambda k: kept[k][16]) or ["mutscore"]
+    for key in ("fill fwd", "fill bwd", *scorer):
         if key not in kept:
             fail(f"{phase}: no {key} launch was kept to hold to its twin")
     t0 = time.perf_counter()
     errs = {k: hold_fill(kept[k], phase) for k in ("fill fwd", "fill bwd")}
-    errs["mutscore"] = hold_mutscore(kept["mutscore"], phase)
+    for k in scorer:
+        errs[k] = hold_mutscore(kept[k], phase)
     secs = time.perf_counter() - t0
     times = {}
     for k in ("fill fwd", "fill bwd"):
@@ -968,16 +1113,18 @@ def hold_path_launches(kept: dict, phase: str):
         times[k] = timed(event_ms(lambda: fill_cuda(*a)),
                          fill_work(a[0], a[1], a[4], a[7], a[8]),
                          a[0].mean.dtype)
-    a = kept["mutscore"]
-    times["mutscore"] = timed(event_ms(lambda: group_totals_cuda(*a)),
-                              group_work(*a), a[1].dtype)
+    for k in scorer:
+        a = kept[k]
+        times[k] = timed(event_ms(lambda: group_totals_cuda(*a)),
+                         group_work(*a), a[1].dtype)
     batch, states = kept["fill fwd"][:2]
-    mf, gp = kept["mutscore"][1], kept["mutscore"][13]
     line = (f"held to the twins: fill fwd/bwd C={states.shape[0]} "
             f"E={states.shape[1]} max |diff| {errs['fill fwd']:.3e}/"
-            f"{errs['fill bwd']:.3e}, mutscore G={gp['g_start'].shape[0]} "
-            f"C={mf.shape[0]} E={mf.shape[1]} max |diff| "
-            f"{errs['mutscore']:.3e}, {secs:.2f} s; timed: "
+            f"{errs['fill bwd']:.3e}, "
+            + ", ".join(f"{k} G={kept[k][13]['g_start'].shape[0]} "
+                        f"C={kept[k][1].shape[0]} E={kept[k][1].shape[1]} "
+                        f"max |diff| {errs[k]:.3e}" for k in scorer)
+            + f", {secs:.2f} s; timed: "
             + "; ".join(f"{k} {_timing(v)}" for k, v in times.items()))
     return line, times
 
@@ -1007,8 +1154,9 @@ CONF_WIDTHS = ("realign_width = 300\nscoring_width = 100\npoint_width = 20\n"
                "max_length = 10000\nlik_offset = 4.5\n")
 
 
-def _e2e_run(d: str, seed: int):
-    """Phase 3's synthetic run: 8 x 1 kb regions at 10X, 2 % draft error."""
+def _e2e_run(d: str, seed: int, conf_text: str = CONF_WIDTHS):
+    """Phase 3's synthetic run: 8 x 1 kb regions at 10X, 2 % draft error
+    (conf_text: the params file's text, phase 9's WIDE_CONF)."""
     from poreseq_tpu_torch.sim import write_run
 
     R, L, cov = E2E_REGIONS, 1000, 10
@@ -1017,7 +1165,7 @@ def _e2e_run(d: str, seed: int):
         n_reads=(cov // 2) * R, read_len=L + 200, draft_error=0.02)
     conf = os.path.join(d, "params.conf")
     with open(conf, "w") as f:
-        f.write(CONF_WIDTHS)
+        f.write(conf_text)
     regions = ["synthref:{}:{}".format(r * L, (r + 1) * L) for r in range(R)]
     return truth, fasta, bam, reads_dir, conf, regions
 
@@ -1118,12 +1266,22 @@ def engine_seconds():
             setattr(TorchEngine, m, fn)
 
 
+def _accuracies(seqs: dict, truth: str) -> list:
+    """Each region's accuracy against the truth: regions are draft
+    coordinates, so the truth window is widened by 400 b on each side that
+    draft indel drift does not push a region out of it (bench.py's)."""
+    from poreseq_tpu_torch.api import swalign
+
+    return [swalign(s, truth[max(int(n.split(":")[1]) - 400, 0)
+                             : int(n.split(":")[2]) + 400])[0]
+            for n, s in seqs.items()]
+
+
 def phase_e2e(seed: int, profile: str | None = None):
     import glob
 
     import torch
 
-    from poreseq_tpu_torch.api import swalign
     from poreseq_tpu_torch.io.fasta import read_fasta
     from poreseq_tpu_torch import cli
 
@@ -1153,11 +1311,7 @@ def phase_e2e(seed: int, profile: str | None = None):
                 trace_summary.main([path])
         launches = _launches()
         seqs = read_fasta(out)
-        # regions are draft coordinates: widen the truth window so draft
-        # indel drift does not push a region out of it
-        accs = [swalign(s, truth[max(int(n.split(":")[1]) - 400, 0)
-                                 : int(n.split(":")[2]) + 400])[0]
-                for n, s in seqs.items()]
+        accs = _accuracies(seqs, truth)
     finally:
         shutil.rmtree(d, ignore_errors=True)
     if len(seqs) != R:
@@ -1461,7 +1615,6 @@ def phase_mesh(seed: int, e2e: dict, e2e_launches: dict):
     import torch
 
     from poreseq_tpu_torch import pipeline
-    from poreseq_tpu_torch.api import swalign
     from poreseq_tpu_torch.core.params import load_params
     from poreseq_tpu_torch.engine import TorchEngine
     from poreseq_tpu_torch.parallel.mesh import make_mesh
@@ -1490,9 +1643,7 @@ def phase_mesh(seed: int, e2e: dict, e2e_launches: dict):
     if any(r is None for r in results):
         fail(f"mesh: {sum(r is None for r in results)} regions skipped")
     seqs = dict(zip(regions, (r[0] for r in results)))
-    accs = [swalign(s, truth[max(int(n.split(":")[1]) - 400, 0)
-                             : int(n.split(":")[2]) + 400])[0]
-            for n, s in seqs.items()]
+    accs = _accuracies(seqs, truth)
     acc = float(np.mean(accs))
     differ = sum(seqs[n] != e2e["seqs"].get(n) for n in regions)
     shards = mesh.shard_launches()
@@ -1699,6 +1850,72 @@ PINNED_HASH = [((0, 0, 0, 0), 1106484830), ((7, 0, 0, 0), 993596527),
                ((123456789, 1, 7, 2047), 767034526)]
 
 
+# phase 9's params file: phase 3's with realign width 700 and scoring width
+# 600 (W = 1401, Ws = 1201: the fill and the group scorer two rows a thread)
+WIDE_CONF = (CONF_WIDTHS
+             .replace("realign_width = 300", "realign_width = 700")
+             .replace("scoring_width = 100", "scoring_width = 600"))
+
+
+def phase_wide(seed: int, e2e: dict):
+    """9: phase 3's consensus (the same run, -i 4 --region-batch 8, f32)
+    at widths 700/600/20 from its params file: accuracy, launches, peak
+    memory, and its largest forward and backward fill and each window
+    width's largest group-scorer launch held to the twins."""
+    import torch
+
+    from poreseq_tpu_torch.io.fasta import read_fasta
+    from poreseq_tpu_torch import cli
+
+    _fast5_io()
+    t_phase = time.perf_counter()
+    W = 2 * WIDE_WIDTHS["realign_width"] + 1
+    Ws = 2 * WIDE_WIDTHS["scoring_width"] + 1
+    d = tempfile.mkdtemp(prefix="psq_smoke_wide_")
+    try:
+        truth, fasta, bam, reads_dir, conf, regions = _e2e_run(d, seed,
+                                                               WIDE_CONF)
+        rf = _write_lines(os.path.join(d, "regions.txt"), regions)
+        out = os.path.join(d, "out.fasta")
+        _reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with largest_launches(by_width=True) as kept:
+            cli.main(["consensus", fasta, bam, reads_dir, "-R", rf, "-p",
+                      conf, "-o", out, "-i", "4", "--region-batch", "8",
+                      "--device", "cuda"])
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        launches = _launches()
+        seqs = read_fasta(out)
+        accs = _accuracies(seqs, truth)
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    if len(seqs) != E2E_REGIONS:
+        fail(f"wide: {len(seqs)} output records, expected {E2E_REGIONS}")
+    widths = {k: kept[k][7] for k in ("fill fwd", "fill bwd") if k in kept}
+    if set(widths.values()) != {W} or f"mutscore Ws={Ws}" not in kept:
+        fail(f"wide: the path's largest launches are at fill widths "
+             f"{widths} and window widths "
+             f"{sorted(k for k in kept if k.startswith('mutscore'))}, not "
+             f"W={W} and Ws={Ws}")
+    held, times = hold_path_launches(kept, "wide")
+    acc = float(np.mean(accs))
+    print(f"[wide] consensus {E2E_REGIONS} x 1 kb (phase 3's run), widths "
+          f"700/600/20 (W={W}, Ws={Ws}) from the params file, -i 4 "
+          f"--region-batch 8: wall {wall:.2f} s (phase 3 {e2e['wall']:.2f} "
+          f"s), mean accuracy {acc:.3f}% (min {min(accs):.3f}%; phase 3 "
+          f"{e2e['acc']:.3f}%), launches {launches}, peak device memory "
+          f"{peak / 2**20:.1f} MiB (phase 3 {e2e['peak'] / 2**20:.1f} MiB); "
+          f"{held}; phase wall {time.perf_counter() - t_phase:.1f} s | "
+          f"{gpu_line()}", flush=True)
+    if acc < 99.0:
+        fail(f"wide mean accuracy {acc:.3f}% < 99.0%")
+    _need_launches("wide", launches)
+    return launches, times
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1726,11 +1943,11 @@ def main():
     by_phase["multihost"] = phase_multihost(args.seed)
     by_phase["mesh"] = phase_mesh(args.seed, e2e, by_phase["e2e"])
     by_phase["f32_equiv"] = phase_f32_equiv(args.f32_regions)
+    by_phase["wide"], held["wide"] = phase_wide(args.seed, e2e)
 
-    held_keys = {"fill": ("fill fwd", "fill bwd"), "mutscore": ("mutscore",),
-                 "backtrace": (), "viterbi_sweep": (), "viterbi_sample": (),
-                 "viterbi_gumbel": (), "viterbi_obs": (), "likes": (),
-                 "geom": (), "windows": ()}
+    # the held launches' keys of each kernel: "fill fwd", "fill bwd",
+    # "mutscore" (phase 9: "mutscore Ws=N")
+    held_keys = {"fill": "fill", "mutscore": "mutscore"}
     entries = []
     for k in kernels:
         line = report[(k.name, False)]
@@ -1742,7 +1959,9 @@ def main():
                             report[(k.name, True)]["max_abs_err"]),
             library_ms=None, library_note=LIBRARY_NOTE[k.name],
             **{key: v for key, v in line.items() if key != "max_abs_err"},
-            held_launches={p: {hk: t[hk] for hk in held_keys[k.name]}
+            held_launches={p: {hk: v for hk, v in t.items()
+                               if k.name in held_keys
+                               and hk.startswith(held_keys[k.name])}
                            for p, t in held.items()}))
     print(json.dumps({"kernels": entries}), flush=True)
     # the run needs one card (phases 6 and 7 put every process and shard on

@@ -94,46 +94,66 @@ __device__ __forceinline__ bool down_dst(int p, int L, int n) {
 }
 
 // dp.column_solve: inclusive max-plus scan over logical positions [0, n),
-// n <= 1024, with the combine tree of jax.lax.associative_scan (the twin's
-// _assoc_scan): the up-sweep combines position (k+1)*2^(L+1)-1 with
+// n <= 1024 RPT, with the combine tree of jax.lax.associative_scan (the
+// twin's _assoc_scan): the up-sweep combines position (k+1)*2^(L+1)-1 with
 // (2k+1)*2^L-1 at level L, the down-sweep (2m+1)*2^L-1 with 2m*2^L-1.
-// Thread t (< 32*ceil(n/32)) holds position t in v (a reversed scan is the
-// caller's mapping of rows to positions).  Levels L <= 4 pair positions
-// inside one aligned chunk of 32, so each warp runs them on its chunk in
-// registers with shuffles (scan_up, scan_down); every combine of a level
-// L >= 5 touches only the chunk tails (positions = 31 mod 32), which one
-// warp scans in registers between two block barriers (scan_tails).  In the
-// down-sweep the only source in another warp is the previous chunk's tail,
-// final by then.  The guards are exactly those of the tree (a destination
-// below n), so the same combines happen on the same operands and the result
-// is bit-equal to the twin's in its u part (M, S); the down-sweep computes
-// only that part (mp_combine_u), so a final A part is stale.  mp_scan runs
-// the three parts with warp 0 on the tails; a kernel with a warp to spare
-// calls them itself.
+// Thread t (< 32*ceil(n/(32 RPT))) holds the RPT adjacent positions t RPT +
+// j in v[j] (RPT = 1, 2 or 4; a reversed scan is the caller's mapping of
+// rows to positions).  Levels L < LR = log2(RPT) pair positions inside one
+// thread, so they run in its registers (up before, down after the rest);
+// levels LR..LR+4 pair the threads' last positions (t RPT + RPT - 1) inside
+// one aligned chunk of 32 RPT, so each warp runs them on its chunk with
+// shuffles (scan_up, scan_down); every combine of a level L >= LR+5 touches
+// only the chunk tails (positions = -1 mod 32 RPT), which one warp scans in
+// registers between two block barriers (scan_tails).  In the down-sweep the
+// only source in another warp is the previous chunk's tail, and the only
+// source of an in-thread level in another thread is the previous thread's
+// last position, both final by then.  The guards are exactly those of the
+// tree (a destination below n), so the same combines happen on the same
+// operands and the result is bit-equal to the twin's in its u part (M, S);
+// the down-sweep computes only that part (mp_combine_u), so a final A part
+// is stale.  mp_scan runs the three parts with warp 0 on the tails; a
+// kernel with a warp to spare calls them itself.  RPT = 1 is the one-row-a-
+// thread scan of the kernels' narrow instances (n <= 1024).
 
-// up-sweep levels 0-4 on this warp's chunk; its last lane writes the
+template <int RPT>
+__host__ __device__ constexpr int log2_rpt() {
+  static_assert(RPT == 1 || RPT == 2 || RPT == 4, "RPT is 1, 2 or 4");
+  return RPT == 1 ? 0 : RPT == 2 ? 1 : 2;
+}
+
+// up-sweep levels 0-(LR+4) on this warp's chunk; its last lane writes the
 // chunk's tail to tails[k*32 + warp] (k < 6).  Every lane must call it.
-template <typename T>
-__device__ __forceinline__ void scan_up(T v[6], T* tails, int n) {
+template <typename T, int RPT>
+__device__ __forceinline__ void scan_up(T (&v)[RPT][6], T* tails, int n) {
+  constexpr int LR = log2_rpt<RPT>();
   const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int last = t * RPT + RPT - 1;
+#pragma unroll
+  for (int L = 0; L < LR; ++L) {
+#pragma unroll
+    for (int j = (2 << L) - 1; j < RPT; j += 2 << L)
+      if (up_dst(last - (RPT - 1) + j, L, n)) mp_combine(v[j - (1 << L)], v[j]);
+  }
+  T* x = v[RPT - 1];
   T s[6];
 #pragma unroll
   for (int L = 0; L < 5; ++L) {
-    shfl_up6(v, s, 1 << L);
-    if (up_dst(t, L, n)) mp_combine(s, v);
+    shfl_up6(x, s, 1 << L);
+    if (up_dst(last, L + LR, n)) mp_combine(s, x);
   }
   if (lane == 31) {
 #pragma unroll
-    for (int k = 0; k < 6; ++k) tails[k * 32 + warp] = v[k];
+    for (int k = 0; k < 6; ++k) tails[k * 32 + warp] = x[k];
   }
 }
 
-// levels >= 5, up and down, on the full chunks' tails (lane q holds chunk
-// q's), in one warp, their u parts written back final; a level with no
-// destination below nt is skipped (a uniform branch)
-template <typename T>
+// levels >= LR+5, up and down, on the full chunks' tails (lane q holds
+// chunk q's), in one warp, their u parts written back final; a level with
+// no destination below nt is skipped (a uniform branch)
+template <typename T, int RPT = 1>
 __device__ __forceinline__ void scan_tails(T* tails, int n) {
-  const int lane = threadIdx.x & 31, nt = n >> 5;
+  const int lane = threadIdx.x & 31, nt = n >> (5 + log2_rpt<RPT>());
   T x[6], s[6];
 #pragma unroll
   for (int k = 0; k < 6; ++k) x[k] = lane < nt ? tails[k * 32 + lane] : T(0);
@@ -156,48 +176,71 @@ __device__ __forceinline__ void scan_tails(T* tails, int n) {
   }
 }
 
-// down-sweep levels 4-0 on this warp's chunk, after scan_tails (or right
-// after scan_up's barrier when n < 64: one tail, already final); the last
-// lane takes its final tail, lane 2^L - 1 reads the previous chunk's.
+// down-sweep levels (LR+4)-0 on this warp's chunk, after scan_tails (or
+// right after scan_up's barrier when n < 64 RPT: one tail, already final);
+// the last lane takes its final tail, lane 2^L - 1 reads the previous
+// chunk's; then the in-thread levels, whose one outside source is the
+// previous thread's last position (lane 0: the previous chunk's tail).
 // tails keeps the full chunks' final u parts (k = 4, 5) until the next
 // scan_up.
-template <typename T>
-__device__ __forceinline__ void scan_down(T v[6], const T* tails, int n) {
+template <typename T, int RPT>
+__device__ __forceinline__ void scan_down(T (&v)[RPT][6], const T* tails,
+                                          int n) {
+  constexpr int LR = log2_rpt<RPT>();
   const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
-  if (lane == 31 && warp < (n >> 5)) {
-    v[4] = tails[4 * 32 + warp];
-    v[5] = tails[5 * 32 + warp];
+  const int last = t * RPT + RPT - 1;
+  T* x = v[RPT - 1];
+  if (lane == 31 && warp < (n >> (5 + LR))) {
+    x[4] = tails[4 * 32 + warp];
+    x[5] = tails[5 * 32 + warp];
   }
 #pragma unroll
   for (int L = 4; L >= 0; --L) {
-    T s4 = __shfl_up_sync(FULL, v[4], 1 << L);
-    T s5 = __shfl_up_sync(FULL, v[5], 1 << L);
+    T s4 = __shfl_up_sync(FULL, x[4], 1 << L);
+    T s5 = __shfl_up_sync(FULL, x[5], 1 << L);
     if (lane == (1 << L) - 1 && warp > 0) {   // source: the previous
       s4 = tails[4 * 32 + warp - 1];           // chunk's final tail
       s5 = tails[5 * 32 + warp - 1];
     }
-    if (down_dst(t, L, n)) mp_combine_u(s4, s5, v);
+    if (down_dst(last, L + LR, n)) mp_combine_u(s4, s5, x);
+  }
+  if constexpr (RPT > 1) {
+    T q4 = __shfl_up_sync(FULL, x[4], 1);
+    T q5 = __shfl_up_sync(FULL, x[5], 1);
+    if (lane == 0 && warp > 0) {
+      q4 = tails[4 * 32 + warp - 1];
+      q5 = tails[5 * 32 + warp - 1];
+    }
+#pragma unroll
+    for (int L = LR - 1; L >= 0; --L) {
+#pragma unroll
+      for (int j = (1 << L) - 1; j < RPT - 1; j += 2 << L) {
+        if (!down_dst(last - (RPT - 1) + j, L, n)) continue;
+        if (j < (1 << L)) mp_combine_u(q4, q5, v[j]);
+        else mp_combine_u(v[j - (1 << L)][4], v[j - (1 << L)][5], v[j]);
+      }
+    }
   }
 }
 
 // the whole scan: block barrier A after scan_up; with two or more full
 // chunks, warp 0 scans their tails and barrier B follows.  idle() runs once
 // in every warp: in the others while warp 0 scans, in warp 0 after.  Every
-// thread of the block (blockDim = 32 * ceil(n/32)) must call it.
-template <typename T, typename Idle>
-__device__ void mp_scan(T v[6], T* tails, int n, Idle idle) {
-  scan_up(v, tails, n);
+// thread of the block (blockDim = 32 * ceil(n/(32 RPT))) must call it.
+template <typename T, int RPT, typename Idle>
+__device__ void mp_scan(T (&v)[RPT][6], T* tails, int n, Idle idle) {
+  scan_up<T, RPT>(v, tails, n);
   __syncthreads();
-  if (n >= 64) {
+  if (n >= 64 * RPT) {
     const bool w0 = (threadIdx.x >> 5) == 0;
-    if (w0) scan_tails(tails, n);
+    if (w0) scan_tails<T, RPT>(tails, n);
     else idle();
     __syncthreads();
     if (w0) idle();
   } else {
     idle();
   }
-  scan_down(v, tails, n);
+  scan_down<T, RPT>(v, tails, n);
 }
 
 template <typename T>

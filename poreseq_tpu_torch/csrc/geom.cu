@@ -45,10 +45,13 @@
 // once, then a block scan of the threads' run minima (with the earlier
 // passes' carry) gives the rate limit's prefix minimum.  Columns past S_e
 // are stored as column S_e's start with empty bands, unsearched.  Shared
-// memory: T sizeof(T) + 16 bytes, so T is at most 57,344 levels in f32
-// and 28,672 in f64 (engine/mutscore.py:GEOM_MAX_LEVELS); the launch
-// raises the dynamic shared memory limit once per card and dtype, when a
-// row needs more than 48 KB.
+// memory: T sizeof(T) + 16 bytes, so the staged instance takes at most
+// 57,344 levels in f32 and 28,672 in f64 (engine/mutscore.py:
+// GEOM_MAX_LEVELS); the launch raises the dynamic shared memory limit once
+// per card and dtype, when a row needs more than 48 KB.  A longer row runs
+// the second instance (STAGED false): the same phases on the row in device
+// memory, ri written to a scratch row [E, T] that the wrapper allocates,
+// every bisection level a load from L2 or device memory.
 //
 // windows_kernel replaces mutscore.py:build_windows (XLA gathers); the twin
 // is engine/mutscore.py:windows_reference.  out[q, e, w] = src[e, i0r[e, q] - 1
@@ -95,19 +98,33 @@ __device__ __forceinline__ T* stage_row(unsigned char* buf, const T* ra,
   return s;
 }
 
-// ral [E, Tn]; n0, S_e [E]; i0, i1 [E, C+1]; one block an event
-template <typename T>
+// ral [E, Tn]; n0, S_e [E]; i0, i1 [E, C+1]; one block an event.
+// STAGED: the row is staged in shared memory and ri rewrites it in place
+// (Tn sizeof(T) <= ROW_BYTES); else the row is read from device memory and
+// ri written to the event's row of scratch [E, Tn], every level of it (an
+// anchor's and the level-0 quirk's ral too), with the same phases, scans,
+// divides and bisection levels
+template <typename T, bool STAGED>
 __global__ void __launch_bounds__(GNT)
 geom_kernel(const T* __restrict__ ral, const int* __restrict__ n0p,
             const int* __restrict__ S_ep, int* __restrict__ i0,
-            int* __restrict__ i1, int Tn, int C, int width) {
+            int* __restrict__ i1, T* scratch, int Tn, int C, int width) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ int s_first[NW], s_last[NW], s_min[2][NW], s_anchor;
   const int k = threadIdx.x, lane = k & 31, warp = k >> 5, e = blockIdx.x;
   const int n0 = n0p[e], S_e = S_ep[e];
   int* o0 = i0 + (size_t)e * (C + 1);
   int* o1 = i1 + (size_t)e * (C + 1);
-  T* s = stage_row(smem_raw, ral + (size_t)e * Tn, Tn);
+  // the row read (s) and ri's (ri): one shared buffer when staged
+  const T* s;
+  T* ri;
+  if constexpr (STAGED) {
+    ri = stage_row(smem_raw, ral + (size_t)e * Tn, Tn);
+    s = ri;
+  } else {
+    s = ral + (size_t)e * Tn;
+    ri = scratch + (size_t)e * Tn;
+  }
   // an anchor, read from a level its thread has not rewritten
   auto anch = [&](int t) { return t < n0 && s[t] > T(0); };
 
@@ -158,6 +175,7 @@ geom_kernel(const T* __restrict__ ral, const int* __restrict__ n0p,
     const T x = s[t];
     if (t < n0 && x > T(0)) {                // an anchor keeps its ral
       lt = t;
+      if constexpr (!STAGED) ri[t] = x;
       continue;
     }
     T v;
@@ -174,10 +192,11 @@ geom_kernel(const T* __restrict__ ral, const int* __restrict__ n0p,
       const T lv = s[lt], rv = s[rt];
       const T m = (rv - lv) / T(rt - lt);
       v = m * T(t - lt) + lv;
-    } else {
-      continue;                              // the level-0 quirk: ral stays
+    } else {                                 // the level-0 quirk: ral stays
+      if constexpr (!STAGED) ri[t] = x;
+      continue;
     }
-    s[t] = v;
+    ri[t] = v;
   }
   __syncthreads();
 
@@ -198,7 +217,7 @@ geom_kernel(const T* __restrict__ ral, const int* __restrict__ n0p,
 #pragma unroll
       for (int j = 0; j < CPT; ++j) {
         const int mid = (low[j] + high[j]) >> 1;
-        if (!(s[min(mid, Tn - 1)] < T(q0 + j))) high[j] = mid;
+        if (!(ri[min(mid, Tn - 1)] < T(q0 + j))) high[j] = mid;
         else low[j] = mid;
       }
     }
@@ -272,12 +291,25 @@ windows_kernel(const T* __restrict__ mean, const T* __restrict__ stdv,
   }
 }
 
+// scratch null: the staged instance (Tn sizeof(T) <= ROW_BYTES); else the
+// instance that reads the row from device memory and writes ri to scratch
+// [E, Tn] (engine/mutscore.py:geom_cuda allocates it past GEOM_MAX_LEVELS)
 template <typename T>
 int launch_geom(const void* ral, const void* n0, const void* S_e, void* i0,
-                void* i1, int E, int Tn, int C, int width, void* stream) {
+                void* i1, void* scratch, int E, int Tn, int C, int width,
+                void* stream) {
   if (E == 0) return 0;
-  if (Tn < 1 || C < 1 || (size_t)Tn * sizeof(T) > ROW_BYTES)
+  if (Tn < 1 || C < 1 ||
+      (!scratch && (size_t)Tn * sizeof(T) > ROW_BYTES))
     return (int)cudaErrorInvalidValue;
+  const auto st = static_cast<cudaStream_t>(stream);
+  if (scratch) {
+    geom_kernel<T, false><<<E, GNT, 0, st>>>(
+        static_cast<const T*>(ral), static_cast<const int*>(n0),
+        static_cast<const int*>(S_e), static_cast<int*>(i0),
+        static_cast<int*>(i1), static_cast<T*>(scratch), Tn, C, width);
+    return (int)cudaGetLastError();
+  }
   const size_t smem = (size_t)Tn * sizeof(T) + 16;
   if (smem > 48 * 1024) {
     // raise the limit to the longest row once per card (and dtype)
@@ -286,18 +318,17 @@ int launch_geom(const void* ral, const void* n0, const void* S_e, void* i0,
     cudaError_t err = cudaGetDevice(&dev);
     if (err != cudaSuccess) return (int)err;
     if (dev >= 64 || !raised[dev]) {
-      err = cudaFuncSetAttribute(geom_kernel<T>,
+      err = cudaFuncSetAttribute(geom_kernel<T, true>,
                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
                                  ROW_BYTES + 16);
       if (err != cudaSuccess) return (int)err;
       if (dev < 64) raised[dev] = true;
     }
   }
-  const auto st = static_cast<cudaStream_t>(stream);
-  geom_kernel<T><<<E, GNT, smem, st>>>(
+  geom_kernel<T, true><<<E, GNT, smem, st>>>(
       static_cast<const T*>(ral), static_cast<const int*>(n0),
       static_cast<const int*>(S_e), static_cast<int*>(i0),
-      static_cast<int*>(i1), Tn, C, width);
+      static_cast<int*>(i1), nullptr, Tn, C, width);
   return (int)cudaGetLastError();
 }
 
@@ -320,15 +351,17 @@ int launch_windows(const void* mean, const void* stdv, const void* lsr,
 }  // namespace
 
 extern "C" int psq_geom_f32(const void* ral, const void* n0, const void* S_e,
-                            void* i0, void* i1, int E, int Tn, int C,
-                            int width, void* stream) {
-  return launch_geom<float>(ral, n0, S_e, i0, i1, E, Tn, C, width, stream);
+                            void* i0, void* i1, void* scratch, int E, int Tn,
+                            int C, int width, void* stream) {
+  return launch_geom<float>(ral, n0, S_e, i0, i1, scratch, E, Tn, C, width,
+                            stream);
 }
 
 extern "C" int psq_geom_f64(const void* ral, const void* n0, const void* S_e,
-                            void* i0, void* i1, int E, int Tn, int C,
-                            int width, void* stream) {
-  return launch_geom<double>(ral, n0, S_e, i0, i1, E, Tn, C, width, stream);
+                            void* i0, void* i1, void* scratch, int E, int Tn,
+                            int C, int width, void* stream) {
+  return launch_geom<double>(ral, n0, S_e, i0, i1, scratch, E, Tn, C, width,
+                             stream);
 }
 
 extern "C" int psq_windows_f32(const void* mean, const void* stdv,

@@ -23,7 +23,9 @@
 // Ws rows and the K steps of a slot are sequential, so the latency of a
 // step bounds a block; the joins stream 4 lattice columns of W values from
 // L2/DRAM per slot.  The design gives every (group, event row) its own block
-// of ceil32(Ws) threads (tens of thousands of blocks fill the card), keeps
+// of ceil32(Ws) threads (tens of thousands of blocks fill the card; past
+// 1024 window rows a thread holds RPT = 2 or 4 adjacent rows, so
+// ceil32(Ws / RPT) threads), keeps
 // the carried column and the selected column in shared memory, precomputes
 // the band anchor each step shifts from, and lets a slot stop at its last
 // active step.  A step runs the warp-shuffle scan of common.cuh:mp_scan
@@ -35,7 +37,8 @@
 // warp 0 scans the tails.  Rows of other regions and invalid slots exit at
 // once.  Shared memory per block: (3Ws + 6*32 + 64) T + K int; registers
 // (nvcc -Xptxas -v, sm_90a, held to 64 by the 1024-thread launch bound):
-// f32 spills 32 bytes, f64 188.
+// f32 spills 28 bytes at one and two rows a thread and 160 at four, f64
+// 192, 300 and 1,204.
 //
 // Built with --fmad=false so the kernel evaluates the twin's expression
 // tree without fused multiply-adds.
@@ -62,7 +65,11 @@ struct MutArgs {
   void* totals;                         // [G, P]
   int C1, E, W, Ws, Q1, RS, K, P, DM, E_g, G;
   double lik_offset;
+  int rpt;                              // window rows a thread: 1, 2 or 4
 };
+
+// the widest scoring window: scoring_width 2047 (engine/mutscore.py MAX_WS)
+constexpr int MAX_WS = 4095;
 
 __device__ __forceinline__ int clampi(int x, int lo, int hi) {
   return min(max(x, lo), hi);
@@ -74,14 +81,16 @@ struct Step {
 };
 
 // a step's loaded emission operands: model values at its state and the
-// row's data window
-template <typename T>
+// data window at each of the thread's rows
+template <typename T, int RPT>
 struct StepData {
   T m[6];
-  T w[3];
+  T w[RPT][3];
 };
 
-template <typename T>
+// RPT: window rows a thread (1 for Ws <= 1024, 2 up to 2048, 4 up to
+// 4095), adjacent scan positions (common.cuh:mp_scan)
+template <typename T, int RPT>
 __global__ void __launch_bounds__(1024) group_kernel(MutArgs a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int Ws = a.Ws, W = a.W, P = a.P, K = a.K, E = a.E, C1 = a.C1;
@@ -96,6 +105,10 @@ __global__ void __launch_bounds__(1024) group_kernel(MutArgs a) {
   const int g = blockIdx.x / a.E_g, el = blockIdx.x % a.E_g;
   const int r = threadIdx.x, nt = blockDim.x;
   const int lane = r & 31, warp = r >> 5, nw = nt >> 5;
+  // the thread's window rows r RPT + j
+  int wr[RPT];
+#pragma unroll
+  for (int j = 0; j < RPT; ++j) wr[j] = r * RPT + j;
   T* out = static_cast<T*>(a.deltas) + (size_t)g * P * a.E_g + el;
   const int greg = a.g_region[g];
   const int e = clampi(a.g_evoff[g], 0, E - a.E_g) + el;
@@ -185,7 +198,13 @@ __global__ void __launch_bounds__(1024) group_kernel(MutArgs a) {
     const int Lf = startind + nfill;
     const int refind_used = min(start + mlen + 1, max(Lf, startind));
     const int k_star = refind_used - startind - 1;   // -1: copied column
-    if (r < Ws) { Mc[r] = T(0); selM[r] = T(0); selS[r] = T(0); }
+#pragma unroll
+    for (int j = 0; j < RPT; ++j)
+      if (wr[j] < Ws) {
+        Mc[wr[j]] = T(0);
+        selM[wr[j]] = T(0);
+        selS[wr[j]] = T(0);
+      }
     int sa = wi0 + a.RS;
     T sbest = wbest, cbest = wbest;   // meaningful in warp 0
 
@@ -198,24 +217,33 @@ __global__ void __launch_bounds__(1024) group_kernel(MutArgs a) {
                         : -1};
     };
     auto load = [&](int k, const Step& s) {
-      StepData<T> d;
+      StepData<T, RPT> d;
       const int stc = clampi(s.st, 0, 1023);
 #pragma unroll
       for (int j = 0; j < 6; ++j) d.m[j] = mdl[j][stc];
       const int qw = clampi(st0 + 1 + k, 0, a.Q1 - 1);
-      const size_t wi = ((size_t)qw * E + e) * Ws + r;
-      d.w[0] = r < Ws ? wm[wi] : T(0);
-      d.w[1] = r < Ws ? wsd[wi] : T(1);
-      d.w[2] = r < Ws ? wl[wi] : T(0);
+#pragma unroll
+      for (int j = 0; j < RPT; ++j) {
+        const size_t wi = ((size_t)qw * E + e) * Ws + wr[j];
+        d.w[j][0] = wr[j] < Ws ? wm[wi] : T(0);
+        d.w[j][1] = wr[j] < Ws ? wsd[wi] : T(1);
+        d.w[j][2] = wr[j] < Ws ? wl[wi] : T(0);
+      }
       return d;
     };
-    auto emit = [&](const StepData<T>& d, const Step& s) {
-      const T em = emission<T>(d.w[0], d.w[1], d.w[2], d.m[0], d.m[1],
-                               d.m[2], d.m[3], d.m[4], d.m[5], off);
-      return r < Ws && s.i0 + r <= s.i1 && s.st >= 0 ? em : T(0);
+    auto emit = [&](const StepData<T, RPT>& d, const Step& s,
+                    T (&eo)[RPT]) {
+#pragma unroll
+      for (int j = 0; j < RPT; ++j) {
+        const T em = emission<T>(d.w[j][0], d.w[j][1], d.w[j][2], d.m[0],
+                                 d.m[1], d.m[2], d.m[3], d.m[4], d.m[5],
+                                 off);
+        eo[j] = wr[j] < Ws && s.i0 + wr[j] <= s.i1 && s.st >= 0 ? em : T(0);
+      }
     };
     Step cur = step(0), nxt = step(1);
-    T eo = emit(load(0, cur), cur);
+    T eo[RPT];
+    emit(load(0, cur), cur, eo);
     __syncthreads();
 
     for (int k = 0; k < K; ++k) {
@@ -223,21 +251,22 @@ __global__ void __launch_bounds__(1024) group_kernel(MutArgs a) {
       if (!(k < mlen + 6 && startind + 1 + k <= nst && k < nfill)) break;
       // loads for the next two steps, in flight while this one is solved
       const Step after = step(k + 2);
-      const StepData<T> dn = load(k + 1, nxt);
-      T eo_n;
-      auto next_emission = [&]() { eo_n = emit(dn, nxt); };
+      const StepData<T, RPT> dn = load(k + 1, nxt);
+      T eo_n[RPT];
+      auto next_emission = [&]() { emit(dn, nxt, eo_n); };
 
       const int i0c = cur.i0, i1c = cur.i1;
-      const int i = i0c + r;
-      const bool live = r < Ws && i <= i1c && cur.st >= 0;
-      T pm_i, pm_im1;
+      T pm_i[RPT], pm_im1[RPT];
       int p0, p1;
       if (k == 0) {
         // wide copy of the forward column through the seam offset
         const int s = i0c - wi0 - 1;
         const bool inr = s >= FSMIN - 1 && s <= FSMAX;
-        pm_im1 = inr ? at_or_zero(Mw, r + s, W) : T(0);
-        pm_i = inr ? at_or_zero(Mw, r + s + 1, W) : T(0);
+#pragma unroll
+        for (int j = 0; j < RPT; ++j) {
+          pm_im1[j] = inr ? at_or_zero(Mw, wr[j] + s, W) : T(0);
+          pm_i[j] = inr ? at_or_zero(Mw, wr[j] + s + 1, W) : T(0);
+        }
         p0 = wi0;
         p1 = wi1;
       } else {
@@ -245,31 +274,50 @@ __global__ void __launch_bounds__(1024) group_kernel(MutArgs a) {
         const int ci0 = cik[k];
         const int d = i0c - ci0;
         const bool okd = d >= 0 && d <= DMAX;
-        pm_i = okd ? at_or_zero(Mc, r + d, Ws) : T(0);
-        pm_im1 = okd ? at_or_zero(Mc, r + d - 1, Ws) : T(0);
+#pragma unroll
+        for (int j = 0; j < RPT; ++j) {
+          pm_i[j] = okd ? at_or_zero(Mc, wr[j] + d, Ws) : T(0);
+          pm_im1[j] = okd ? at_or_zero(Mc, wr[j] + d - 1, Ws) : T(0);
+        }
         p0 = ci0;
         p1 = ci0 + Ws - 1;
       }
-      const bool valid_i = i >= p0 && i <= p1;
-      const bool valid_ul = i > p0 && i <= p1;
-      const T skip_c = (valid_i ? pm_i : T(0)) + lsk;
-      const T match_c = (valid_ul ? pm_im1 : T(0)) + eo;
-      const T ignore_c = valid_ul ? pm_im1 + lin : T(0);
-      const T D = mx(mx(T(0), skip_c), mx(match_c, ignore_c));
-      const T a_stay = eo + lst, a_ext = eo + lex;
-      const bool cut = r == 0;
-      T v[6] = {cut ? NB : mx(lin, a_stay), cut ? NB : a_ext,
-                cut ? NB : a_stay, cut ? NB : a_ext, D, cut ? NB : T(0)};
-      mp_scan<T>(v, tails, Ws, next_emission);
-      const T Mn = live ? v[4] : T(0);
-      const T Sn = live ? v[5] : T(0);
-      const T wmax = warp_max(live ? Mn : NB);
-      if (lane == 0) red_s[warp] = wmax;
-      if (r < Ws) Mc[r] = Mn;   // its readers passed barrier A
-      if (k == k_star) {
-        if (r < Ws) { selM[r] = Mn; selS[r] = Sn; }
-        sa = i0c;
+      T v[RPT][6];
+      bool live[RPT];
+#pragma unroll
+      for (int j = 0; j < RPT; ++j) {
+        const int i = i0c + wr[j];
+        live[j] = wr[j] < Ws && i <= i1c && cur.st >= 0;
+        const bool valid_i = i >= p0 && i <= p1;
+        const bool valid_ul = i > p0 && i <= p1;
+        const T skip_c = (valid_i ? pm_i[j] : T(0)) + lsk;
+        const T match_c = (valid_ul ? pm_im1[j] : T(0)) + eo[j];
+        const T ignore_c = valid_ul ? pm_im1[j] + lin : T(0);
+        const T D = mx(mx(T(0), skip_c), mx(match_c, ignore_c));
+        const T a_stay = eo[j] + lst, a_ext = eo[j] + lex;
+        const bool cut = wr[j] == 0;
+        v[j][0] = cut ? NB : mx(lin, a_stay);
+        v[j][1] = cut ? NB : a_ext;
+        v[j][2] = cut ? NB : a_stay;
+        v[j][3] = cut ? NB : a_ext;
+        v[j][4] = D;
+        v[j][5] = cut ? NB : T(0);
       }
+      mp_scan<T, RPT>(v, tails, Ws, next_emission);
+      T lmax = live[0] ? v[0][4] : NB;   // the thread's column max
+#pragma unroll
+      for (int j = 0; j < RPT; ++j) {
+        const T Mn = live[j] ? v[j][4] : T(0);
+        const T Sn = live[j] ? v[j][5] : T(0);
+        if (j > 0) lmax = mx(lmax, live[j] ? Mn : NB);
+        if (wr[j] < Ws) {
+          Mc[wr[j]] = Mn;       // its readers passed barrier A
+          if (k == k_star) { selM[wr[j]] = Mn; selS[wr[j]] = Sn; }
+        }
+      }
+      const T wmax = warp_max(lmax);
+      if (lane == 0) red_s[warp] = wmax;
+      if (k == k_star) sa = i0c;
       __syncthreads();          // Mc and the partial maxima visible
       if (warp == 0) {
         const T cmax = warp_max(lane < nw ? red_s[lane] : NB);
@@ -279,7 +327,8 @@ __global__ void __launch_bounds__(1024) group_kernel(MutArgs a) {
       }
       cur = nxt;
       nxt = after;
-      eo = eo_n;
+#pragma unroll
+      for (int j = 0; j < RPT; ++j) eo[j] = eo_n[j];
     }
 
     // new score: the selected refill column (or the copied column) vs the
@@ -323,23 +372,33 @@ __global__ void sum_rows_kernel(const T* deltas, T* totals, int GP, int E_g) {
   totals[idx] = acc;
 }
 
-template <typename T>
-static int launch(const MutArgs* a, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (a->Ws < 1 || a->Ws > 1024) return (int)cudaErrorInvalidValue;
-  const int threads = ((a->Ws + 31) / 32) * 32;
+template <typename T, int RPT>
+static int launch_groups(const MutArgs* a, cudaStream_t st) {
+  const int threads = ((a->Ws + RPT - 1) / RPT + 31) / 32 * 32;
   const size_t smem = (size_t)(3 * a->Ws + 6 * 32 + 64) * sizeof(T) +
                       (size_t)a->K * sizeof(int);
   cudaError_t err = cudaFuncSetAttribute(
-      group_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      group_kernel<T, RPT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
   const long long blocks = (long long)a->G * a->E_g;
-  if (blocks > 0) {
-    group_kernel<T><<<(unsigned)blocks, threads, smem, st>>>(*a);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-  }
+  if (blocks > 0)
+    group_kernel<T, RPT><<<(unsigned)blocks, threads, smem, st>>>(*a);
+  return (int)cudaGetLastError();
+}
+
+// the group kernel's instance of a->rpt window rows a thread
+// (engine/mutscore.py:rows_per_thread): Ws <= 1024 rpt, at most MAX_WS
+template <typename T>
+static int launch(const MutArgs* a, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (a->Ws < 1 || a->Ws > MAX_WS ||
+      !(a->rpt == 1 || a->rpt == 2 || a->rpt == 4) || a->Ws > 1024 * a->rpt)
+    return (int)cudaErrorInvalidValue;
+  const int err = a->rpt == 1   ? launch_groups<T, 1>(a, st)
+                  : a->rpt == 2 ? launch_groups<T, 2>(a, st)
+                                : launch_groups<T, 4>(a, st);
+  if (err != cudaSuccess) return err;
   const int GP = a->G * a->P;
   if (GP > 0 && a->totals)       // no totals: the deltas are summed later
     sum_rows_kernel<T><<<(GP + 255) / 256, 256, 0, st>>>(

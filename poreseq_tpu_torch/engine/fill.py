@@ -38,7 +38,25 @@ class _FillArgs(ctypes.Structure):
         ("C", ctypes.c_int), ("E", ctypes.c_int), ("W", ctypes.c_int),
         ("Tlen", ctypes.c_int), ("backward", ctypes.c_int),
         ("need_steps", ctypes.c_int), ("lik_offset", ctypes.c_double),
+        ("rpt", ctypes.c_int),
     ]
+
+
+#: the widest band a kernel instance takes: realign_width 2047
+MAX_W = 4095
+
+
+def rows_per_thread(n: int, what: str = "fill") -> int:
+    """Band rows a thread of csrc/fill.cu (and window rows of
+    csrc/mutscore.cu's group kernel) holds at width n: the kernels' scan
+    (common.cuh:mp_scan) covers 1024 rows a block at one row a thread, so
+    1 for n <= 1024, 2 up to 2048, 4 up to MAX_W; past it, or below 1,
+    ValueError."""
+    if not 1 <= n <= MAX_W:
+        raise ValueError(f"{what} kernel needs 1 <= width <= {MAX_W} band "
+                         f"rows (realign/scoring width <= {MAX_W // 2}), "
+                         f"got {n}")
+    return 1 if n <= 1024 else 2 if n <= 2048 else 4
 
 
 _SIG = [ctypes.POINTER(_FillArgs), ctypes.c_void_p]
@@ -53,8 +71,7 @@ def fill_cuda(batch: EventBatch, states, i0, i1, is_pad, lik_offset,
     dp.finish_fill derives from them (best_pfx [C, E], best [E], best_i,
     best_j [E] int32)."""
     dev, dt = batch.mean.device, batch.mean.dtype
-    if not 1 <= W <= 1024:
-        raise ValueError(f"fill kernel needs 1 <= W <= 1024, got {W}")
+    rpt = rows_per_thread(W)
     C, E = states.shape
     T = batch.mean.shape[1]
     f = lambda n, t, shape: check(n, t, dt, shape, dev)
@@ -90,7 +107,7 @@ def fill_cuda(batch: EventBatch, states, i0, i1, is_pad, lik_offset,
         ptr(batch.n0), ptr(active), ptr(states), ptr(pad), ptr(i0), ptr(i1),
         ptr(M), ptr(S), ptr(sm), ptr(ss), ptr(cmax), ptr(carg),
         ptr(best_pfx), ptr(best), ptr(best_i), ptr(best_j), C, E, W, T,
-        int(backward), int(need_steps), float(lik_offset))
+        int(backward), int(need_steps), float(lik_offset), rpt)
     FILL.call(f"psq_fill_{dtype_suffix(dt)}", dev, ctypes.byref(args),
               stream(dev))
     return M, S, sm, ss, cmax, carg, best_pfx, best, best_i, best_j

@@ -32,6 +32,7 @@ from ..core.sequence import (_POW4, apply_mutation, seq_to_codes,
 from .align import both_dev, both_dev_sharded
 from .dp import (DMAX, MODEL_FIELDS, column_solve, emission,
                  level_windows, neg_big, window)
+from .fill import rows_per_thread
 from .pack import (event_ref_indexes, fill_geometry, limited_geometry,
                    place_full, round_up)
 from .types import make_mutscores
@@ -304,11 +305,13 @@ def geom_reference(ral, n0, S_e, width: int, C: int):
     return i0.to(torch.int32), i1.to(torch.int32)
 
 
-_GEOM_SIG = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
+_GEOM_SIG = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
              + [ctypes.c_void_p])
 GEOM = Kernel("geom", "poreseq_tpu/engine/tpu/mutscore.py:171 _geom_body",
               {"psq_geom_f32": _GEOM_SIG, "psq_geom_f64": _GEOM_SIG})
-# the kernel stages an event's ral row (then its ri) in shared memory
+# the longest row the kernel's first instance stages (then rewrites to ri)
+# in shared memory; a longer one runs its second instance, which reads the
+# row from device memory and writes ri to a scratch row
 GEOM_MAX_LEVELS = {torch.float32: 57344, torch.float64: 28672}
 
 
@@ -316,16 +319,17 @@ def geom_cuda(ral, n0, S_e, width: int, C: int):
     """Launch csrc/geom.cu's geometry kernel: the twin's (i0, i1)."""
     E, T = ral.shape
     dev, dt = ral.device, ral.dtype
-    if T > GEOM_MAX_LEVELS[dt]:
-        raise ValueError(f"geom kernel takes at most {GEOM_MAX_LEVELS[dt]} "
-                         f"levels an event in {dt}, got {T}")
     check("ral", ral, dt, (E, T), dev)
     check("n0", n0, torch.int32, (E,), dev)
     check("S_e", S_e, torch.int32, (E,), dev)
     i0 = torch.empty((E, C + 1), dtype=torch.int32, device=dev)
     i1 = torch.empty((E, C + 1), dtype=torch.int32, device=dev)
+    scratch = (torch.empty((E, T), dtype=dt, device=dev)
+               if T > GEOM_MAX_LEVELS[dt] else None)
     GEOM.call(f"psq_geom_{dtype_suffix(dt)}", dev, ptr(ral), ptr(n0),
-              ptr(S_e), ptr(i0), ptr(i1), E, T, C, width, stream(dev))
+              ptr(S_e), ptr(i0), ptr(i1),
+              None if scratch is None else ptr(scratch), E, T, C, width,
+              stream(dev))
     return i0, i1
 
 
@@ -588,7 +592,7 @@ class _MutArgs(ctypes.Structure):
         + [("deltas", ctypes.c_void_p), ("totals", ctypes.c_void_p)]
         + [(n, ctypes.c_int) for n in
            ("C1", "E", "W", "Ws", "Q1", "RS", "K", "P", "DM", "E_g", "G")]
-        + [("lik_offset", ctypes.c_double)])
+        + [("lik_offset", ctypes.c_double), ("rpt", ctypes.c_int)])
 
 
 _SIG = [ctypes.POINTER(_MutArgs), ctypes.c_void_p]
@@ -621,7 +625,8 @@ def _launch_groups(with_totals, batch, Mf, Sf, Mb, Sb, i0f, i1f, i0r, i1r,
     Q1 = win[0].shape[0]
     dev, dt = Mf.device, Mf.dtype
     G = gp["g_start"].shape[0]
-    if not (1 <= Ws <= 1024 and 1 <= E_g <= E):
+    rpt = rows_per_thread(Ws, "group scorer")
+    if not 1 <= E_g <= E:
         raise ValueError(f"group scorer: Ws={Ws}, E_g={E_g}, E={E}")
     for n, t in (("Mf", Mf), ("Sf", Sf), ("Mb", Mb), ("Sb", Sb)):
         check(n, t, dt, (C1, E, W), dev)
@@ -656,7 +661,7 @@ def _launch_groups(with_totals, batch, Mf, Sf, Mb, Sb, i0f, i1f, i0r, i1r,
         (ctypes.c_void_p * 6)(*[t.data_ptr() for t in model]),
         *[garr[k].data_ptr() for k in GROUP_FIELDS],
         deltas.data_ptr(), totals.data_ptr() if with_totals else None,
-        C1, E, W, Ws, Q1, RS, K, P, DM, E_g, G, float(lik_offset))
+        C1, E, W, Ws, Q1, RS, K, P, DM, E_g, G, float(lik_offset), rpt)
     MUTSCORE.call(f"psq_mutscore_{dtype_suffix(dt)}", dev,
                   ctypes.byref(args), stream(dev))
     return totals, deltas

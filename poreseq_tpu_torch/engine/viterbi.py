@@ -212,7 +212,11 @@ VITERBI_OBS = Kernel(
     "poreseq_tpu/engine/tpu/viterbi.py:109 _obs_device / :442 _obs_multi_fn",
     {"psq_viterbi_obs_f32": _OBS_SIG, "psq_viterbi_obs_f64": _OBS_SIG})
 # the kernel keeps a row's event data in shared memory (3 values and a flag
-# an event): E_pad past this raises, far above max_coverage (30 reads)
+# an event): E_pad past this raises, far above max_coverage (30 reads by
+# default).  A limit of the port's own, kept: the JAX engine's
+# _obs_multi_fn builds [R, E, 1024] and sorts it, 33.6 GB in f32 at E =
+# 8193 and R = 1000 positions before the sort's copy, more than any chip it
+# was written for holds.
 OBS_MAX_EVENTS = 8192
 
 
@@ -222,7 +226,8 @@ def obs_multi_cuda(lvl, sd, valid, tabs):
     dev, dt = lvl.device, lvl.dtype
     if E > OBS_MAX_EVENTS:
         raise ValueError(f"viterbi_obs kernel takes at most "
-                         f"{OBS_MAX_EVENTS} events a region, got {E}")
+                         f"{OBS_MAX_EVENTS} events a region, got {E}: "
+                         f"lower max_coverage in the params file")
     check("lvl", lvl, dt, (B, R, E), dev)
     check("sd", sd, dt, (B, R, E), dev)
     check("valid", valid, torch.bool, (B, R, E), dev)

@@ -2,22 +2,25 @@
 (small regions at the main path's band widths; chip_smoke.py repeats this
 at main-path shapes).  The fill runs at W = 41, 201, 601 and 801 (one or
 two warps of scan, a ragged last warp, the realign width, and a band wide
-enough for the block without a spare warp), forward with steps and
-backward with and without, the group scorer at
-Ws = 41 and 201 (Refine's point width and Mutate's scoring width): f64 must
+enough for the block without a spare warp) and at W = 1023, 1025, 1401,
+2047 and 4095 (one row a thread at the edge, then two and four rows a
+thread), forward with steps and backward with and without, the group
+scorer at Ws = 41 and 201 (Refine's point width and Mutate's scoring
+width), 1025 and 1201 (two window rows a thread) and 4095 (four): f64 must
 equal the twin exactly, f32 within tolerances, with the step bytes, best
 coordinates and accept signs held, and the fill's running best (best,
 best_i, best_j, best_pfx) equal to dp.finish_fill on its own column maxima.
-The backtrace, the Viterbi sweep (with and without backpointers, one region
+The backtrace (W = 49 and 1401), the Viterbi sweep (with and without backpointers, one region
 with all rows real or none), the sampler (1 and 16 candidates) and its
 Gumbel kernel alone (R = 1, nk = 1, rows below, at and above one pass of
 its grid), the Viterbi observations (E_pad 1 to 32: the tiled
 path, 33 and 64: the general path's register drop list and selection
-passes; ragged row tiles), the per-base likes (T up to 3000), the
-scoring geometry (unsorted rows; T 1 to 4000 levels, C 1 to 3000 columns)
-and its windows (T not a multiple of
-32) must equal their twins exactly in f64 and f32.  A 2x2 mesh of the one card gives the single
-device's group totals bit for bit, and the fill, backtrace and scorer on
+passes; ragged row tiles), the per-base likes (T up to 3000, and a
+backtrace at W = 1401), the scoring geometry (unsorted rows; T 1 to 4000
+levels, C 1 to 3000 columns; at, past and twice its shared-memory level
+cap) and its windows (T not a multiple of 32; Ws up to 1201) must equal
+their twins exactly in f64 and f32.  A 2x2 mesh of the one card gives the single
+device's group totals bit for bit (also at W = 1401, Ws = 1201), and the fill, backtrace and scorer on
 cuda:1 equal their twins (skipped with one card).  Marked `cuda`: they skip
 where torch sees no GPU.  Run them on the card with
 
@@ -76,7 +79,8 @@ def _tols(dtype):
 @pytest.mark.parametrize("engine", DTYPES, indirect=True)
 @pytest.mark.parametrize("backward,steps",
                          [(False, True), (True, False), (True, True)])
-@pytest.mark.parametrize("realign", [20, 100, 300, 400])
+@pytest.mark.parametrize("realign", [20, 100, 300, 400, 511, 512, 700, 1023,
+                                     2047])
 def test_fill_kernel_matches_twin(engine, backward, steps, realign):
     from poreseq_tpu_torch.engine.dp import fill_reference, finish_fill
     from poreseq_tpu_torch.engine.fill import FILL, fill_cuda
@@ -107,12 +111,15 @@ def test_fill_kernel_matches_twin(engine, backward, steps, realign):
 
 
 @pytest.mark.parametrize("engine", DTYPES, indirect=True)
-def test_backtrace_kernel_matches_twin(engine):
+@pytest.mark.parametrize("realign", [24, 700])
+def test_backtrace_kernel_matches_twin(engine, realign):
+    """At W = 49 and at W = 1401, a fill of two rows a thread."""
     from poreseq_tpu_torch.engine.align import (backtrace_cuda,
                                                 backtrace_reference)
     from poreseq_tpu_torch.engine.fill import get_fill
 
-    batch, states, i0, i1, pad, off, _, W, _ = _fill_args(engine, _data(),
+    data = _data(realign=realign, ref_len=max(240, 2 * realign))
+    batch, states, i0, i1, pad, off, _, W, _ = _fill_args(engine, data,
                                                           False)
     r = get_fill((W - 1) // 2)(batch, states, i0, i1, pad, off, False)
     T = batch.mean.shape[1]
@@ -312,9 +319,10 @@ def test_viterbi_obs_kernel_refuses_misaligned_tables(engine):
 
 
 @pytest.mark.parametrize("engine", DTYPES, indirect=True)
-@pytest.mark.parametrize("shape", ["backtrace", "edges", "long"])
+@pytest.mark.parametrize("shape", ["backtrace", "wide", "edges", "long"])
 def test_likes_kernel_matches_twin(engine, shape):
-    """A backtrace's ral/rlk at C columns, and edge shapes: one event, one
+    """A backtrace's ral/rlk at C columns (W = 49, and W = 1401: "wide"),
+    and edge shapes: one event, one
     column, T = 70 (not a multiple of 32), no anchor, a plateau; and long
     rows: T = 1024 (one chunk of the block's 1024 levels), 1025 and 3000
     (several chunks, the last ragged), each with n_like = 1 and n_like > T,
@@ -323,9 +331,11 @@ def test_likes_kernel_matches_twin(engine, shape):
                                                 likes_cuda, likes_reference)
     from poreseq_tpu_torch.engine.fill import get_fill
 
-    if shape == "backtrace":
+    if shape in ("backtrace", "wide"):
+        realign = 24 if shape == "backtrace" else 700
         batch, states, i0, i1, pad, off, _, W, _ = _fill_args(
-            engine, _data(), False)
+            engine, _data(realign=realign, ref_len=max(240, 2 * realign)),
+            False)
         r = get_fill((W - 1) // 2)(batch, states, i0, i1, pad, off, False)
         T = batch.mean.shape[1]
         ral, rlk = backtrace_cuda(r.M, r.S, r.steps_m, r.steps_s, r.i0,
@@ -447,29 +457,30 @@ def test_geom_kernel_matches_twin(engine, T, C):
 @pytest.mark.parametrize("engine", DTYPES, indirect=True)
 def test_geom_kernel_at_the_level_cap(engine):
     """At GEOM_MAX_LEVELS (57,344 f32 / 28,672 f64 levels, 224 KB of
-    staged row) the geometry kernel equals its twin, on its first launch
-    (which raises the card's shared memory limit) and its second; one level
-    more is refused before any launch."""
+    staged row) the geometry kernel's staged instance equals its twin, on
+    its first launch (which raises the card's shared memory limit) and its
+    second; one level more and twice the cap run the instance that reads
+    the row from device memory and writes ri to a scratch row, equal to the
+    twin bit for bit too."""
     from poreseq_tpu_torch.engine.mutscore import (GEOM, GEOM_MAX_LEVELS,
                                                    geom_cuda, geom_reference)
 
-    T, C = GEOM_MAX_LEVELS[engine.dtype], 1024
-    ral, n0, S_e = _geom_rows(np.random.default_rng(3), E=6, T=T, C=C)
+    cap, C = GEOM_MAX_LEVELS[engine.dtype], 1024
     t = lambda x: torch.as_tensor(x, device="cuda")
-    args = (t(ral).to(engine.dtype), t(n0), t(np.minimum(S_e, C)), 8, C)
-    ref = geom_reference(*args)
-    for _ in range(2):
-        for a, b in zip(geom_cuda(*args), ref):
-            assert torch.equal(a, b.to(torch.int32))
-    n = GEOM.launches
-    wide = torch.zeros((6, T + 1), dtype=engine.dtype, device="cuda")
-    with pytest.raises(ValueError, match="at most"):
-        geom_cuda(wide, *args[1:])
-    assert GEOM.launches == n
+    for T, reps in ((cap, 2), (cap + 1, 1), (2 * cap, 1)):
+        ral, n0, S_e = _geom_rows(np.random.default_rng(3), E=6, T=T, C=C)
+        args = (t(ral).to(engine.dtype), t(n0), t(np.minimum(S_e, C)), 8, C)
+        ref = geom_reference(*args)
+        for _ in range(reps):
+            n = GEOM.launches
+            got = geom_cuda(*args)
+            assert GEOM.launches == n + 1
+            for a, b in zip(got, ref):
+                assert torch.equal(a, b.to(torch.int32))
 
 
 @pytest.mark.parametrize("engine", DTYPES, indirect=True)
-@pytest.mark.parametrize("Ws", [41, 201])
+@pytest.mark.parametrize("Ws", [41, 201, 1201])
 def test_windows_kernel_matches_twin(engine, Ws):
     from poreseq_tpu_torch.engine.mutscore import (WINDOWS, windows_cuda,
                                                    windows_reference)
@@ -486,21 +497,38 @@ def test_windows_kernel_matches_twin(engine, Ws):
         assert torch.equal(a, b)
 
 
+def _group_deltas_in_chunks(args):
+    """group_deltas_reference over a launch's groups a chunk at a time, so
+    that its [G, P, E_g, max(W, Ws)] temporaries stay near 2^22 elements
+    at any width: groups are independent in the twin (it only takes maxima
+    within a group), so the deltas are the whole call's bit for bit."""
+    from poreseq_tpu_torch.engine.mutscore import group_deltas_reference
+
+    gp, (W, Ws, P, E_g) = args[13], (args[15], args[16], args[19], args[21])
+    G = gp["g_start"].shape[0]
+    step = max(1, (1 << 22) // (P * E_g * max(W, Ws)))
+    return torch.cat([group_deltas_reference(
+        *args[:13], {k: v[at : at + step] for k, v in gp.items()},
+        *args[14:]) for at in range(0, G, step)])
+
+
 @pytest.mark.parametrize("engine", DTYPES, indirect=True)
 @pytest.mark.parametrize("coverages", [(6,), (24, 22, 18)])
-@pytest.mark.parametrize("scoring", [20, 100])
+@pytest.mark.parametrize("scoring", [20, 100, 512, 600, 2047])
 def test_group_kernel_matches_twin(engine, coverages, scoring):
     # (24, 22, 18): three regions fill the 64-row event bucket, so the last
-    # region's row slice overruns it and is clamped to E - E_g
-    from poreseq_tpu_torch.engine.mutscore import (group_deltas_reference,
-                                                   group_launches,
+    # region's row slice overruns it and is clamped to E - E_g; scoring 512
+    # and 600 (Ws 1025 and 1201, realign 562 and 650) run two window rows a
+    # thread, 2047 (Ws 4095, realign 2047) four, on regions as long as the
+    # scoring width
+    from poreseq_tpu_torch.engine.mutscore import (group_launches,
                                                    group_totals_cuda,
                                                    sum_rows_reference)
 
     datas, mlists = [], []
     for r, cov in enumerate(coverages):
-        data = _data(realign=scoring + 50, scoring=scoring, seed=r,
-                     coverage=cov)
+        data = _data(realign=min(scoring + 50, 2047), scoring=scoring,
+                     seed=r, coverage=cov, ref_len=max(240, scoring))
         tail = MutationInfo()
         tail.start, tail.orig, tail.mut = len(data.sequence), "", "ACGTACGTA"
         datas.append(data)
@@ -511,7 +539,7 @@ def test_group_kernel_matches_twin(engine, coverages, scoring):
         E, E_g = args[1].shape[1], args[21]
         clamped += int((gp["g_evoff"][: gp["G"]] > E - E_g).sum())
         tot_k, d_k = group_totals_cuda(*args)
-        d_r = group_deltas_reference(*args)
+        d_r = _group_deltas_in_chunks(args)
         tot_r = sum_rows_reference(d_r)
         if engine.dtype == torch.float64:
             assert torch.equal(tot_k, tot_r)
@@ -567,23 +595,26 @@ def test_sum_rows_kernel_matches_twin(engine):
     assert torch.equal(got.cpu(), sum_rows_reference(deltas))
 
 
-def _mesh_regions(scoring=6):
+def _mesh_regions(scoring=6, realign=16):
     """Three regions whose rows straddle the 'ev' shards of a 2-row mesh,
-    each with every point mutation."""
+    each with every point mutation (regions as long as the scoring width
+    past 80)."""
     datas, mlists = [], []
     for r, cov in enumerate((14, 20, 16)):
-        data = _data(realign=16, scoring=scoring, seed=r, coverage=cov,
-                     ref_len=80)
+        data = _data(realign=realign, scoring=scoring, seed=r, coverage=cov,
+                     ref_len=max(80, scoring))
         datas.append(data)
         mlists.append(find_point_mutations(data))
     return datas, mlists
 
 
 @pytest.mark.parametrize("engine", DTYPES, indirect=True)
-def test_mesh_on_one_card_equals_single_device(engine):
+@pytest.mark.parametrize("realign,scoring", [(16, 6), (700, 600)])
+def test_mesh_on_one_card_equals_single_device(engine, realign, scoring):
     """A 2x2 mesh of cuda:0 four times: the group scorer's totals equal the
     single-device launch's bit for bit on the same (host) band geometry,
-    and every shard launched the fill, the backtrace and the scorer."""
+    and every shard launched the fill, the backtrace and the scorer; also
+    at W = 1401 and Ws = 1201 (two rows a thread)."""
     from poreseq_tpu_torch.engine import TorchEngine
     from poreseq_tpu_torch.engine.mutscore import (group_launches,
                                                    group_totals,
@@ -595,7 +626,7 @@ def test_mesh_on_one_card_equals_single_device(engine):
     for name, eng in (("single", engine),
                       ("mesh", TorchEngine("cuda", engine.dtype,
                                            mesh=mesh))):
-        datas, mlists = _mesh_regions()
+        datas, mlists = _mesh_regions(scoring, realign)
         run = group_totals if eng.mesh is None else group_totals_sharded
         out[name] = [run(*args) for _, _, args in group_launches(
             eng, datas, mlists, [True] * 3, host_geometry=True)]

@@ -68,20 +68,24 @@ def sass_counts(lib: str) -> dict:
                           text=True, check=True).stdout
     counts = {}
     for fn in re.split(r"\n\s*Function : ", sass)[1:]:
-        m = re.search(r"([a-z_]+_kernel)I([fd])E", fn.split("\n", 1)[0])
+        m = re.search(r"([a-z_]+_kernel)I([fd])(?:Lb([01])E)?E",
+                      fn.split("\n", 1)[0])
         ops = re.findall(r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9_]+)",
                          fn)
         if m:
-            counts[f"{m.group(1)}<{m.group(2)}>"] = sum(o != "NOP"
-                                                        for o in ops)
+            flag = f", {m.group(3)}" if m.group(3) else ""
+            counts[f"{m.group(1)}<{m.group(2)}{flag}>"] = sum(
+                o != "NOP" for o in ops)
     return counts
 
 
-# each kernel's source and its C entry without the dtype suffix
-SOURCES = {"viterbi_obs": ("viterbi_obs", "psq_viterbi_obs"),
-           "likes": ("likes", "psq_likes"),
-           "viterbi_gumbel": ("viterbi_gumbel", "psq_viterbi_gumbel"),
-           "geom": ("geom", "psq_geom")}
+# each kernel's source, its C entry without the dtype suffix and the null
+# pointers the entry takes after the outputs' (the geometry's scratch row:
+# null runs the staged instance, which the sweep times)
+SOURCES = {"viterbi_obs": ("viterbi_obs", "psq_viterbi_obs", 0),
+           "likes": ("likes", "psq_likes", 0),
+           "viterbi_gumbel": ("viterbi_gumbel", "psq_viterbi_gumbel", 0),
+           "geom": ("geom", "psq_geom", 1)}
 
 
 def operands(kernel: str, seed: int, dtype):
@@ -139,7 +143,7 @@ def main():
             for c in args.constants]
     combos = [dict(zip([a for a, _ in axes], vs))
               for vs in itertools.product(*(v for _, v in axes))]
-    src_name, fn = SOURCES[args.kernel]
+    src_name, fn, nulls = SOURCES[args.kernel]
     text = (_build.CSRC / f"{src_name}.cu").read_text()
     P = ctypes.c_void_p
     with tempfile.TemporaryDirectory(prefix="psq_sweep_") as tmp:
@@ -162,13 +166,13 @@ def main():
                 for d, (ins, refs, ints) in ops.items():
                     c = "f" if d == "f32" else "d"     # the template's type
                     entry = getattr(ctypes.CDLL(lib), f"{fn}_{d}")
-                    entry.argtypes = [P] * (len(ins) + len(refs)) \
+                    entry.argtypes = [P] * (len(ins) + len(refs) + nulls) \
                         + [ctypes.c_int] * len(ints) + [P]
                     entry.restype = ctypes.c_int
                     outs = [torch.empty_like(r) for r in refs]
                     call = lambda: entry(*(P(x.data_ptr())
-                                           for x in ins + outs), *ints,
-                                         stream)
+                                           for x in ins + outs),
+                                         *[None] * nulls, *ints, stream)
                     if call() != 0:
                         raise SystemExit(f"sweep_constants: {values} {d} "
                                          "refused")
@@ -179,9 +183,9 @@ def main():
                         equal=equal, ms=queued_ms(call),
                         ptxas=[u.split(": ")[1]
                                for u in chip_smoke.ptxas_usage(log)
-                               if f"I{c}E" in u.split(":")[0]],
+                               if re.search(f"I{c}[EL]", u.split(":")[0])],
                         sass={k: n for k, n in sass.items()
-                              if k.endswith(f"<{c}>")})
+                              if f"<{c}" in k})
             line["card"] = chip_smoke.gpu_line()
             print("[sweep] " + json.dumps(line), flush=True)
     if bad:
