@@ -92,13 +92,30 @@ non-zero, nothing runs on the CPU instead):
                 kernel of the path launched, and the largest forward and
                 backward fill and the largest group-scorer launch of each
                 window width (Refine's 41, Mutate's 1201) held to their
-                twins (phase 2's tolerances) and timed.
+                twins (phase 2's tolerances) and timed;
+ 10. genome   — the genome-scale path through tools/genome_run.py's
+                functions (write_run, the CLI's split, consensus per shard,
+                merge), widths 300/100/20, -i 4 --region-batch 8: 10a
+                lambda-2kb, the JAX README's lambda configuration (48.5 kb
+                at 10X, 8 kb reads over 2 kb regions) cut to its first 16
+                regions, dealt over 2 shards: one merged contig at >= 99.0 %
+                over the covered span, trimmed events (batch T below the
+                reads' levels) and every kernel launched; 10b long-10kb, the
+                lambda genome split at 10 kb (6 regions, 10.4 kb reads) in
+                one lockstep batch on TorchEngine f32 (the CLI) and its
+                first 3 regions on f64 (pipeline.mutate_many; cut for
+                time): each merged at >= 99.0 %, no region degraded in f32
+                (0.5 points or more below f64, or below 99 %), the largest forward and backward fill held to the
+                twins on 8 event rows and the largest group-scorer launch on
+                its first 2048 groups (phase 2's tolerances), and every
+                kernel's largest launch timed beside its bound.
 Phase 2 also holds the fill, backtrace and group scorer on cuda:1 in f64
-when torch sees a second card.  Phases 2b-9 reset the kernels' launch
+when torch sees a second card.  Phases 2b-10 reset the kernels' launch
 counters before they start and report them after; each must have launched
-the kernels of its path (phase 3: every kernel; phase 7: all but the
-geometry, which a mesh takes from the host).  The line before the
-last is a JSON object with one entry per kernel; the last line is
+the kernels of its path (phase 3: every kernel; phases 7 and 10b's f64 run:
+all but the geometry, which a mesh and f64 take from the host).  The line
+before the last is a JSON object with one entry per kernel (with each
+kernel's largest 10b launch timed, "genome_largest"); the last line is
 {"ok": true, "device": {...}}.
 Kernel times are CUDA-event times of 20 launches after two warm-up
 launches, over 20; the twins' and the phases' are host walls closed by a
@@ -112,6 +129,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import functools
 import io
 import json
 import os
@@ -215,68 +233,6 @@ def cuda_ms(fn, reps: int = 5) -> float:
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
     return float(np.median(times))
-
-
-class _NpzH5:
-    """Stand-in for the slice of h5py's File API that
-    poreseq_tpu_torch/io/fast5.py uses (groups by path, datasets, structured
-    fields, attrs), stored as one npz per file.  Installed only where h5py
-    cannot be imported, so the synthetic run's fast5 files are written and
-    read through the package's own write_fast5 / load_event unchanged."""
-
-    class _Node:
-        def __init__(self, store, path):
-            self._store, self._path = store, path.strip("/")
-
-        def _join(self, name):
-            if name.startswith("/"):
-                return name.strip("/")
-            return f"{self._path}/{name}".strip("/")
-
-        @property
-        def attrs(self):
-            return self._store["attrs"].setdefault(self._path, {})
-
-        def create_group(self, name):
-            return _NpzH5._Node(self._store, self._join(name))
-
-        def create_dataset(self, name, data):
-            self._store["data"][self._join(name)] = np.asarray(data)
-
-        def __getitem__(self, name):
-            path = self._join(name)
-            if path in self._store["data"]:
-                return self._store["data"][path]
-            return _NpzH5._Node(self._store, path)
-
-    class File(_Node):
-        def __init__(self, filename, mode="r"):
-            super().__init__({"data": {}, "attrs": {}}, "")
-            self._filename, self._mode = filename, mode
-            if mode == "r":
-                with np.load(filename, allow_pickle=False) as z:
-                    for key in z.files:
-                        kind, path, *name = key.split("|")
-                        path = path.replace(":", "/")
-                        if kind == "d":
-                            self._store["data"][path] = z[key]
-                        else:
-                            self._store["attrs"].setdefault(path, {})[
-                                name[0]] = z[key][()]
-
-        def __enter__(self):
-            return self
-
-        def __exit__(self, *exc):
-            if self._mode == "w" and exc[0] is None:
-                out = {f"d|{p.replace('/', ':')}": a
-                       for p, a in self._store["data"].items()}
-                for p, attrs in self._store["attrs"].items():
-                    for name, v in attrs.items():
-                        out[f"a|{p.replace('/', ':')}|{name}"] = \
-                            np.asarray(v)
-                with open(self._filename, "wb") as fh:
-                    np.savez(fh, **out)
 
 
 def ptxas_usage(log: str) -> list[str]:
@@ -1035,59 +991,103 @@ def _need_launches(phase: str, launches: dict, names=None):
             fail(f"{phase}: kernel {name} was never launched")
 
 
-def _copied(x):
-    """x with every tensor in it cloned (tuples, named tuples, lists and
-    dicts rebuilt around the clones)."""
+def _copied(x, device=None):
+    """x with every tensor in it cloned, or copied to device (tuples, named
+    tuples, lists and dicts rebuilt around the copies)."""
     import torch
 
     if isinstance(x, torch.Tensor):
-        return x.clone()
+        return x.clone() if device is None else x.to(device)
     if isinstance(x, dict):
-        return {k: _copied(v) for k, v in x.items()}
+        return {k: _copied(v, device) for k, v in x.items()}
     if isinstance(x, tuple) and hasattr(x, "_fields"):
-        return type(x)(*map(_copied, x))
+        return type(x)(*(_copied(v, device) for v in x))
     if isinstance(x, (tuple, list)):
-        return type(x)(map(_copied, x))
+        return type(x)(_copied(v, device) for v in x)
     return x
 
 
+def _launch_keys(by_width: bool):
+    """{(module, wrapper name): key and size of a launch from its bound
+    arguments} for every kernel wrapper a path calls (the Gumbel kernel is
+    launched by the sampler's wrapper, and kept with it)."""
+    from poreseq_tpu_torch.engine import align, fill, mutscore, viterbi
+
+    return {
+        (fill, "fill_cuda"): lambda a: (
+            "fill bwd" if a["backward"] else "fill fwd", a["states"].numel()),
+        (mutscore, "group_totals_cuda"): lambda a: (
+            f"mutscore Ws={a['Ws']}" if by_width else "mutscore",
+            a["gp"]["g_start"].shape[0] * a["Mf"].shape[0]
+            * a["Mf"].shape[1]),
+        (align, "backtrace_cuda"): lambda a: ("backtrace",
+                                              a["M"][..., 0].numel()),
+        (align, "likes_cuda"): lambda a: ("likes", a["ral"].numel()),
+        (mutscore, "geom_cuda"): lambda a: ("geom", a["ral"].numel()),
+        (mutscore, "windows_cuda"): lambda a: ("windows",
+                                               a["i0r"].numel() * a["Ws"]),
+        (viterbi, "obs_multi_cuda"): lambda a: ("viterbi_obs",
+                                                a["lvl"].numel()),
+        (viterbi, "viterbi_sweep_cuda"): lambda a: ("viterbi_sweep",
+                                                    a["obs"].numel()),
+        (viterbi, "sample_paths_cuda"): lambda a: (
+            "viterbi_sample", a["fwds"].numel() * a["attens"].numel()),
+    }
+
+
 @contextlib.contextmanager
-def largest_launches(by_width: bool = False):
+def largest_launches(by_width: bool = False, every: bool = False):
     """Inside the block, keep a copy of the operands of the largest forward
     fill, the largest backward fill (C x E cells) and the largest group-scorer
     launch (G x C x E) that the path makes, the first of equals, under the
     keys "fill fwd", "fill bwd" and "mutscore" (by_width: the largest of
-    each window width, "mutscore Ws=N").  They are held to their twins
-    after the path's launch counts are read."""
+    each window width, "mutscore Ws=N"); every: also the largest launch of
+    every other kernel wrapper (_launch_keys), under the kernel's name, with
+    the batch's n0 and active of the fill before it (a backtrace's or a
+    windows launch's work needs them) under "<name> batch", and every copy
+    in the host's memory, so that the copies (tens of GB at 10 kb) do not
+    count in the path's peak device memory; their seconds, part of the
+    path's wall, go under "host copy s".  They are held to their twins or
+    timed after the path's launch counts are read."""
     import inspect
 
-    from poreseq_tpu_torch.engine import fill, mutscore
-
-    kept, sizes = {}, {}
-    real = fill.fill_cuda, mutscore.group_totals_cuda
+    kept, sizes, last = ({"host copy s": 0.0} if every else {}), {}, {}
+    keys = _launch_keys(by_width)
+    if not every:
+        keys = {k: v for k, v in keys.items()
+                if k[1] in ("fill_cuda", "group_totals_cuda")}
+    real = {k: getattr(*k) for k in keys}
+    to = "cpu" if every else None
 
     def keeper(fn, key_size):
         sig = inspect.signature(fn)
 
+        @functools.wraps(fn)
         def wrapped(*a, **kw):
             b = sig.bind(*a, **kw)
             b.apply_defaults()
             key, size = key_size(b.arguments)
+            if key.startswith("fill"):
+                last["batch"] = b.arguments["batch"]
             if size > sizes.get(key, 0):
-                kept[key] = _copied(tuple(b.arguments.values()))
+                t0 = time.perf_counter()
+                kept[key] = _copied(tuple(b.arguments.values()), to)
                 sizes[key] = size
+                if key in ("backtrace", "windows"):
+                    kept[f"{key} batch"] = _copied(
+                        (last["batch"].n0, last["batch"].active), to)
+                if every:
+                    kept["host copy s"] += time.perf_counter() - t0
             return fn(*a, **kw)
         return wrapped
 
-    fill.fill_cuda = keeper(real[0], lambda a: (
-        "fill bwd" if a["backward"] else "fill fwd", a["states"].numel()))
-    mutscore.group_totals_cuda = keeper(real[1], lambda a: (
-        f"mutscore Ws={a['Ws']}" if by_width else "mutscore",
-        a["gp"]["g_start"].shape[0] * a["Mf"].shape[0] * a["Mf"].shape[1]))
+    for (mod, name), key_size in keys.items():
+        setattr(mod, name, keeper(real[mod, name], key_size))
     try:
         yield kept
     finally:
-        fill.fill_cuda, mutscore.group_totals_cuda = real
+        for (mod, name), fn in real.items():
+            setattr(mod, name, fn)
 
 
 def hold_path_launches(kept: dict, phase: str):
@@ -1140,13 +1140,10 @@ def _transition_sets(batch) -> int:
 
 def _fast5_io() -> str:
     """Let the package's fast5 reader and writer run where h5py is missing
-    (the card's machine): an npz stand-in takes its place."""
-    try:
-        import h5py  # noqa: F401
-        return "h5py"
-    except ImportError:
-        sys.modules["h5py"] = _NpzH5
-        return "npz stand-in for h5py"
+    (the card's machine): its npz stand-in takes its place."""
+    from poreseq_tpu_torch.io import npz_h5
+
+    return npz_h5.use_where_missing()
 
 
 CONF_WIDTHS = ("realign_width = 300\nscoring_width = 100\npoint_width = 20\n"
@@ -1916,6 +1913,391 @@ def phase_wide(seed: int, e2e: dict):
     return launches, times
 
 
+# ---------------------------------------------------------------------------
+# phase 10: genome, tools/genome_run.py's split -> consensus -> merge
+# ---------------------------------------------------------------------------
+
+# 10a: the JAX README's lambda configuration (48.5 kb at 10X, 8 kb reads
+# over 2 kb regions, widths 300/100/20, -i 4 --region-batch 8), cut to its
+# first 16 regions dealt over 2 shards: one lockstep batch of 8 a shard
+GENOME_2KB = ["sharded", "--genome", "48500", "--region-length", "2000",
+              "--read-len", "8000", "--shards", "2", "--limit", "8"]
+# 10b: the lambda genome split at the defaults' region length (10 kb: 6
+# regions, reads of 10.4 kb), one lockstep batch
+GENOME_10KB = ["lambda", "--region-length", "10000"]
+# the rows of 10b's held fill launches and the groups of its held scorer
+# launch (rows and groups are independent in the fill and the scorer; the
+# twins at full size ran the card out of memory at phase 9's widths)
+HOLD_ROWS, HOLD_GROUPS = 8, 2048
+# 10b's f64 run takes the batch's first 3 regions (cut: the phase ran 541 s
+# with all 6 on an H100 at 700 W, against a budget of about 240 s)
+F64_REGIONS = 3
+
+
+def _genome_tool():
+    """tools/genome_run.py, imported by its path."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools",
+                        "genome_run.py")
+    spec = importlib.util.spec_from_file_location("genome_run", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@contextlib.contextmanager
+def path_shapes():
+    """Inside the block, record what the path's engine calls see: the
+    events loaded (how many carry a trim hint, the most levels of one), the
+    largest C, E and T of a packed batch, the band widths of the fill's and
+    the group scorer's launches with the rows a thread of their instance,
+    the geometry's instance with its most levels, and the candidate-scoring
+    chunks (score_alignments_multi calls with likes_only).  Yields the
+    dict it fills."""
+    import inspect
+    import threading
+
+    from poreseq_tpu_torch.engine import TorchEngine, fill, mutscore
+    from poreseq_tpu_torch.engine.fill import rows_per_thread
+    from poreseq_tpu_torch.io import load
+
+    out = dict(loaded=0, trimmed=0, levels=0, C=0, E=0, T=0, fill=set(),
+               scorer=set(), geom=set(), chunks=0)
+    lock = threading.Lock()
+    real = dict(hint=load._set_trim_hint, prep=TorchEngine._prepare_multi,
+                score=TorchEngine.score_alignments_multi,
+                fill=fill.fill_cuda, scorer=mutscore.group_totals_cuda,
+                geom=mutscore.geom_cuda)
+
+    def hint(ev, *a, **kw):
+        real["hint"](ev, *a, **kw)
+        with lock:
+            out["loaded"] += 1
+            out["trimmed"] += ev.trim is not None
+            out["levels"] = max(out["levels"], len(ev.mean))
+
+    def prep(self, *a, **kw):
+        ctx = real["prep"](self, *a, **kw)
+        for k, v in (("C", ctx["C"]), ("E", ctx["E"]),
+                     ("T", ctx["arrays"]["mean"].shape[1])):
+            out[k] = max(out[k], int(v))
+        return ctx
+
+    def score(self, *a, **kw):
+        out["chunks"] += bool(kw.get("likes_only"))
+        return real["score"](self, *a, **kw)
+
+    def instance(fn, what, width):
+        sig = inspect.signature(fn)
+
+        @functools.wraps(fn)
+        def wrapped(*a, **kw):
+            b = sig.bind(*a, **kw)
+            out[what].add(width(b.arguments))
+            return fn(*a, **kw)
+        return wrapped
+
+    def geom_instance(a):
+        T = a["ral"].shape[1]
+        cap = mutscore.GEOM_MAX_LEVELS[a["ral"].dtype]
+        return f"{'staged' if T <= cap else 'unstaged'} (T {T}, cap {cap})"
+
+    load._set_trim_hint = hint
+    TorchEngine._prepare_multi, TorchEngine.score_alignments_multi = (prep,
+                                                                     score)
+    fill.fill_cuda = instance(real["fill"], "fill", lambda a: (
+        f"W={a['W']} ({rows_per_thread(a['W'])} row a thread)"))
+    mutscore.group_totals_cuda = instance(real["scorer"], "scorer", lambda a: (
+        f"Ws={a['Ws']} ({rows_per_thread(a['Ws'])} row a thread)"))
+    mutscore.geom_cuda = instance(real["geom"], "geom", geom_instance)
+    try:
+        yield out
+    finally:
+        load._set_trim_hint = real["hint"]
+        TorchEngine._prepare_multi = real["prep"]
+        TorchEngine.score_alignments_multi = real["score"]
+        fill.fill_cuda, mutscore.group_totals_cuda, mutscore.geom_cuda = (
+            real["fill"], real["scorer"], real["geom"])
+
+
+def _shapes(sh: dict) -> str:
+    return (f"largest C {sh['C']}, E {sh['E']}, T {sh['T']}; fill "
+            f"{sorted(sh['fill'])}, scorer {sorted(sh['scorer'])}, geometry "
+            f"{sorted(sh['geom'])}; {sh['chunks']} candidate-scoring chunks")
+
+
+def _rows(args, rows):
+    """A fill launch's operands (fill_cuda's arguments) cut to the event
+    rows `rows`."""
+    from poreseq_tpu_torch.engine.dp import EventBatch
+
+    batch, states, i0, i1, pad, *rest = args
+    return (EventBatch(*(x[rows] for x in batch)), states[:, rows].contiguous(),
+            i0[rows].contiguous(), i1[rows].contiguous(),
+            pad[:, rows].contiguous(), *rest)
+
+
+def _groups(args, n: int):
+    """A group-scorer launch's operands cut to its first n groups."""
+    return (*args[:13], {k: v[:n] for k, v in args[13].items()}, *args[14:])
+
+
+def time_largest(kept: dict, seed: int) -> dict:
+    """Each kernel's largest launch of a path (largest_launches(every=True))
+    timed on the card in f32 beside its least time: {name:
+    timing}; the Gumbel kernel at the largest sampler call's shape."""
+    from types import SimpleNamespace
+
+    from poreseq_tpu_torch.engine import align, fill, mutscore, viterbi
+    from poreseq_tpu_torch.engine import roofline as rl
+
+    a = {k: _copied(v, "cuda") for k, v in kept.items()}
+    launch = {
+        "fill fwd": (fill.fill_cuda, lambda x: rl.fill_work(
+            x[0], x[1], x[4], x[7], x[8])),
+        "fill bwd": (fill.fill_cuda, lambda x: rl.fill_work(
+            x[0], x[1], x[4], x[7], x[8])),
+        "mutscore": (mutscore.group_totals_cuda, lambda x: rl.group_work(*x)),
+        "backtrace": (align.backtrace_cuda, lambda x: rl.backtrace_work(
+            align.backtrace_cuda(*x)[0], x[6], a["backtrace batch"][0],
+            x[0].dtype)),
+        "likes": (align.likes_cuda, lambda x: rl.likes_work(x[0], x[2])),
+        "geom": (mutscore.geom_cuda, lambda x: rl.geom_work(x[0], x[1],
+                                                            x[4])),
+        "windows": (mutscore.windows_cuda, lambda x: rl.windows_work(
+            SimpleNamespace(mean=x[0], n0=a["windows batch"][0],
+                            active=a["windows batch"][1]), x[3], x[4])),
+        "viterbi_obs": (viterbi.obs_multi_cuda, lambda x: rl.viterbi_obs_work(
+            x[0], x[2], x[3])),
+        "viterbi_sweep": (viterbi.viterbi_sweep_cuda,
+                          lambda x: rl.viterbi_sweep_work(x[0], x[1], x[4])),
+        "viterbi_sample": (viterbi.sample_paths_cuda,
+                           lambda x: rl.viterbi_sample_work(x[0], x[1],
+                                                            x[3])),
+    }
+    out = {}
+    for key, (fn, work) in launch.items():
+        if key not in a:
+            fail(f"genome: no {key} launch was kept to time")
+        x = a[key]
+        dt = (x[0].mean.dtype if key.startswith("fill")
+              else x[1].dtype if key == "mutscore" else x[0].dtype)
+        out[key] = timed(event_ms(lambda: fn(*x)), work(x), dt)
+        if key in QUEUED + ("likes",):
+            out[key]["queued_ms"] = queued_ms(lambda: fn(*x))
+    fwds, valid, _, attens = a["viterbi_sample"][:4]
+    nk, R, dt = attens.shape[0], fwds.shape[1], fwds.dtype
+    gum = lambda: viterbi.gumbel_cuda(seed, nk, R, dt, fwds.device)
+    out["viterbi_gumbel"] = dict(
+        timed(event_ms(gum), rl.viterbi_gumbel_work(valid, nk, dt), dt),
+        queued_ms=queued_ms(gum))
+    return out
+
+
+def _polish(tool, args, run, **keep) -> dict:
+    """The tool's consensus calls (one a shard) with their walls, launches,
+    shapes (path_shapes), engine host seconds and peak device memory; keep:
+    largest_launches' options (what it kept under "kept")."""
+    import torch
+
+    _reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    with largest_launches(**keep) as kept, path_shapes() as sh, \
+            engine_seconds() as secs:
+        outs, walls = tool.consensus(args, run)
+    return dict(outs=outs, walls=walls, kept=kept, shapes=sh, secs=secs,
+                peak=torch.cuda.max_memory_allocated(), launches=_launches())
+
+
+def _host_secs(secs: dict) -> dict:
+    return {m: (n, round(t, 3)) for m, (n, t) in secs.items()}
+
+
+def genome_2kb(tool) -> dict:
+    """10a: the lambda genome's first 16 of 48 regions of 2 kb with 8 kb
+    reads, dealt over 2 shards: one merged contig at >= 99.0 %, trimmed
+    events, every kernel launched.  Returns the launches."""
+    from poreseq_tpu_torch.io.fasta import read_fasta
+
+    d = tempfile.mkdtemp(prefix="psq_smoke_genome_")
+    try:
+        args = tool.parse(GENOME_2KB)
+        run = tool.build(args, d)
+        a = _polish(tool, args, run)
+        _, contigs = tool.merge(run, a["outs"])
+        end = tool.covered_end(run["regions"])
+        acc = tool.merged_accuracy(contigs, run["truth"], end)
+        done = sum(len(read_fasta(o)) for o in a["outs"])
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    sh = a["shapes"]
+    print(f"[genome] 10a lambda-2kb: {args.genome} b at {args.coverage}X, "
+          f"{run['n_reads']} reads of {args.read_len} b, the first "
+          f"{len(run['regions'])} of {run['regions_total']} regions of "
+          f"{args.region_length} b (cut: the region count) over "
+          f"{args.shards} shards (--shard-index/--num-shards), widths "
+          f"300/100/20, -i 4 --region-batch 8, f32: {done} regions done, "
+          f"shard walls {[round(w, 2) for w in a['walls']]} s, merged "
+          f"{len(contigs)} contig(s), accuracy {acc:.3f}% over the covered "
+          f"{end} b; {sh['trimmed']} of {sh['loaded']} loaded events "
+          f"trimmed, batch T {sh['T']} below the reads' {sh['levels']} "
+          f"levels; {_shapes(sh)}; launches {a['launches']}, engine host "
+          f"seconds (calls, s) {_host_secs(a['secs'])}, peak device memory "
+          f"{a['peak'] / 2**20:.1f} MiB | {gpu_line()}", flush=True)
+    if len(contigs) != 1:
+        fail(f"genome 10a: the merge gave {len(contigs)} contigs, not one")
+    if acc < 99.0:
+        fail(f"genome 10a: merged accuracy {acc:.3f}% < 99.0%")
+    if not sh["trimmed"] or sh["T"] >= sh["levels"]:
+        fail(f"genome 10a: {sh['trimmed']} trimmed events, batch T "
+             f"{sh['T']} against the reads' {sh['levels']} levels")
+    _need_launches("genome 10a", a["launches"])
+    return a["launches"]
+
+
+def genome_10kb(tool, seed: int) -> tuple:
+    """10b: the lambda genome's 6 regions of 10 kb in one lockstep batch on
+    TorchEngine f32 (the CLI), and its first F64_REGIONS of them on f64
+    (pipeline.mutate_many): each merged
+    at >= 99.0 %, no region degraded in f32, the largest fills and scorer
+    launch of the f32 run held to the twins on a slice, and every kernel's
+    largest launch of it timed.  Returns (the f32 and the f64 run's
+    launches, {kernel: timing})."""
+    import torch
+
+    from poreseq_tpu_torch import pipeline
+    from poreseq_tpu_torch.core.params import load_params
+    from poreseq_tpu_torch.engine import TorchEngine
+    from poreseq_tpu_torch.io.fasta import read_fasta, write_fasta
+
+    t_phase = time.perf_counter()
+    d = tempfile.mkdtemp(prefix="psq_smoke_genome_")
+    try:
+        args = tool.parse(GENOME_10KB)
+        run = tool.build(args, d)
+        regions, truth = run["regions"], run["truth"]
+        b32 = _polish(tool, args, run, every=True)
+        seqs32 = read_fasta(b32["outs"][0])
+        _, contigs32 = tool.merge(run, b32["outs"])
+        # f64: the same batch through pipeline.mutate_many, the function
+        # the CLI's consensus calls
+        engine = TorchEngine("cuda", torch.float64)
+        params = dict(load_params(run["conf"]), verbose=0)
+        regions64 = regions[:F64_REGIONS]
+        _reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with path_shapes() as sh64, engine_seconds() as secs64:
+            results = pipeline.mutate_many(
+                run["fasta"], run["bam"], run["reads"], regions64,
+                params=params, verbose=0, reps=args.iterations,
+                engine=engine)
+            torch.cuda.synchronize()
+        b64 = dict(walls=[time.perf_counter() - t0], shapes=sh64,
+                   secs=secs64, peak=torch.cuda.max_memory_allocated(),
+                   launches=_launches())
+        del engine
+        seqs64 = {r: res[0] for r, res in zip(regions64, results)
+                  if res is not None}
+        f64_out = os.path.join(d, "out.f64.fasta")
+        write_fasta(f64_out, seqs64)
+        _, contigs64 = tool.merge(run, [f64_out], "merged.f64.fasta")
+        merged = {n: tool.merged_accuracy(c, truth, tool.covered_end(r))
+                  for n, c, r in (("f32", contigs32, regions),
+                                  ("f64", contigs64, regions64))}
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    accs32 = dict(zip(seqs32, _accuracies(seqs32, truth)))
+    accs64 = dict(zip(seqs64, _accuracies(seqs64, truth)))
+    both = [r for r in regions if r in seqs32 and r in seqs64]
+    differ = sum(seqs32[r] != seqs64[r] for r in both)
+    degraded = [r for r in both
+                if accs32[r] <= accs64[r] - 0.5 or accs32[r] < 99.0]
+    # the held launches: a slice of rows of each fill, a chunk of groups of
+    # the scorer (the first HOLD_ROWS active rows; the first HOLD_GROUPS)
+    kept = b32["kept"]
+    t0 = time.perf_counter()
+    errs, held = {}, {}
+    for k in ("fill fwd", "fill bwd"):
+        x = _copied(kept[k], "cuda")
+        rows = torch.nonzero(x[0].active).flatten()[:HOLD_ROWS]
+        errs[k] = hold_fill(_rows(x, rows), "genome 10b")
+        held[k] = (f"{k} C={x[1].shape[0]} E={x[1].shape[1]} W={x[7]}: "
+                   f"rows {rows.tolist()}")
+    x = _copied(kept["mutscore"], "cuda")
+    G = x[13]["g_start"].shape[0]
+    errs["mutscore"] = hold_mutscore(_groups(x, HOLD_GROUPS), "genome 10b")
+    held["mutscore"] = (f"mutscore Ws={x[16]} C={x[1].shape[0]} "
+                        f"E={x[1].shape[1]}: the first {min(G, HOLD_GROUPS)} "
+                        f"of {G} groups")
+    hold_s = time.perf_counter() - t0
+    times = time_largest(kept, seed)
+    for name, run_, todo in (("f32", b32, regions), ("f64", b64, regions64)):
+        accs = accs32 if name == "f32" else accs64
+        print(f"[genome] 10b long-10kb {name}"
+              f"{' (the CLI)' if name == 'f32' else ' (pipeline.mutate_many)'}"
+              f": {len(todo)} regions of {args.region_length} b"
+              + ("" if todo is regions else
+                 f" (cut: the first {len(todo)} of {len(regions)})")
+              + f", reads "
+              f"of {args.read_len} b, one lockstep batch, widths "
+              f"300/100/20, -i 4: wall {sum(run_['walls']):.2f} s"
+              + (f" (of which {run_['kept']['host copy s']:.2f} s copying "
+                 "the largest launches' operands to the host)"
+                 if name == "f32" else "")
+              + f", {len(accs)} regions done, mean accuracy "
+              f"{float(np.mean(list(accs.values()))):.3f}% (min "
+              f"{min(accs.values()):.3f}%), merged {merged[name]:.3f}%; "
+              f"{run_['shapes']['trimmed']} of {run_['shapes']['loaded']} "
+              f"events trimmed; {_shapes(run_['shapes'])}; launches "
+              f"{run_['launches']}, engine host seconds (calls, s) "
+              f"{_host_secs(run_['secs'])}, peak device memory "
+              f"{run_['peak'] / 2**20:.1f} MiB | {gpu_line()}", flush=True)
+    print(f"[genome] 10b f32 against f64: {differ} of {len(both)} regions "
+          f"differ, {len(degraded)} degraded {degraded}; held to the twins "
+          f"({time.perf_counter() - t0:.1f} s of which holds {hold_s:.1f} s): "
+          + "; ".join(f"{held[k]} max |diff| {errs[k]:.3e}" for k in held)
+          + "; largest launches timed (f32): "
+          + "; ".join(f"{k} {_timing(v)}"
+                      + (f", queued {v['queued_ms']:.4f} ms"
+                         if "queued_ms" in v else "")
+                      for k, v in times.items())
+          + f"; 10b wall {time.perf_counter() - t_phase:.1f} s | "
+          f"{gpu_line()}", flush=True)
+    for name, accs, todo in (("f32", accs32, regions),
+                             ("f64", accs64, regions64)):
+        if len(accs) != len(todo):
+            fail(f"genome 10b: {name} did {len(accs)} of {len(todo)} "
+                 "regions")
+        if merged[name] < 99.0:
+            fail(f"genome 10b: {name} merged accuracy {merged[name]:.3f}% "
+                 "< 99.0%")
+    if degraded:
+        fail(f"genome 10b: {len(degraded)} regions degraded in f32: "
+             f"{degraded}")
+    _need_launches("genome 10b f32", b32["launches"])
+    # f64 takes the scoring geometry from the host, as the JAX engine does
+    _need_launches("genome 10b f64", b64["launches"],
+                   [k for k in b64["launches"] if k != "geom"])
+    return (b32["launches"], b64["launches"]), times
+
+
+def phase_genome(seed: int):
+    """10: the genome-scale path through tools/genome_run.py's functions
+    (write_run, the CLI's split, consensus per shard and merge): 10a
+    (genome_2kb) then 10b (genome_10kb).  Returns (the launches of its runs
+    summed, 10b's {kernel: timing})."""
+    t0 = time.perf_counter()
+    tool = _genome_tool()
+    a = genome_2kb(tool)
+    (b32, b64), times = genome_10kb(tool, seed)
+    runs = (a, b32, b64)
+    print(f"[genome] phase wall {time.perf_counter() - t0:.1f} s | "
+          f"{gpu_line()}", flush=True)
+    return {k: sum(r[k] for r in runs) for k in runs[0]}, times
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1944,6 +2326,7 @@ def main():
     by_phase["mesh"] = phase_mesh(args.seed, e2e, by_phase["e2e"])
     by_phase["f32_equiv"] = phase_f32_equiv(args.f32_regions)
     by_phase["wide"], held["wide"] = phase_wide(args.seed, e2e)
+    by_phase["genome"], largest = phase_genome(args.seed)
 
     # the held launches' keys of each kernel: "fill fwd", "fill bwd",
     # "mutscore" (phase 9: "mutscore Ws=N")
@@ -1962,7 +2345,9 @@ def main():
             held_launches={p: {hk: v for hk, v in t.items()
                                if k.name in held_keys
                                and hk.startswith(held_keys[k.name])}
-                           for p, t in held.items()}))
+                           for p, t in held.items()},
+            genome_largest={hk: v for hk, v in largest.items()
+                            if hk == k.name or hk.startswith(k.name + " ")}))
     print(json.dumps({"kernels": entries}), flush=True)
     # the run needs one card (phases 6 and 7 put every process and shard on
     # cuda:0)

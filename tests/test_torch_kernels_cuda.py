@@ -21,7 +21,10 @@ levels, C 1 to 3000 columns; at, past and twice its shared-memory level
 cap) and its windows (T not a multiple of 32; Ws up to 1201) must equal
 their twins exactly in f64 and f32.  A 2x2 mesh of the one card gives the single
 device's group totals bit for bit (also at W = 1401, Ws = 1201), and the fill, backtrace and scorer on
-cuda:1 equal their twins (skipped with one card).  Marked `cuda`: they skip
+cuda:1 equal their twins (skipped with one card).  At the genome-scale
+path's shapes (a 10 kb region, C = 10,112, of events trimmed to their
+band-reachable range) the fill (an 8-row slice), the backtrace, the
+geometry and the group scorer hold to their twins too.  Marked `cuda`: they skip
 where torch sees no GPU.  Run them on the card with
 
     PSQ_TPU_TESTS=1 python -m pytest -m cuda tests/test_torch_kernels_cuda.py
@@ -82,11 +85,19 @@ def _tols(dtype):
 @pytest.mark.parametrize("realign", [20, 100, 300, 400, 511, 512, 700, 1023,
                                      2047])
 def test_fill_kernel_matches_twin(engine, backward, steps, realign):
+    data = _data(realign=realign, ref_len=max(240, 2 * realign))
+    _hold_fill(engine, _fill_args(engine, data, backward, steps))
+
+
+def _hold_fill(engine, args):
+    """One fill launch against its twin: its running best equal to
+    dp.finish_fill on its own column maxima; f64 equal to the twin, f32
+    within tolerances, the step bytes >= 99.95 % equal and the best
+    coordinates equal."""
     from poreseq_tpu_torch.engine.dp import fill_reference, finish_fill
     from poreseq_tpu_torch.engine.fill import FILL, fill_cuda
 
-    data = _data(realign=realign, ref_len=max(240, 2 * realign))
-    args = _fill_args(engine, data, backward, steps)
+    backward = args[6]
     n = FILL.launches
     got = fill_cuda(*args)
     assert FILL.launches == n + 1
@@ -549,6 +560,125 @@ def test_group_kernel_matches_twin(engine, coverages, scoring):
             assert not bool(((((tot_k - 1e-6) > 0) != ((tot_r - 1e-6) > 0))
                              & valid).any())
     assert (clamped > 0) == (len(coverages) > 1)
+
+
+# the genome-scale path's shapes: a 10,050 b region of a 14 kb genome whose
+# four whole-genome reads overhang it by about 2 kb a side, loaded with
+# trimming at widths 300/100/20 (C = 10,112 columns; each event's level axis
+# is its band-reachable range); the kernels run on its first LONG_ROWS rows
+LONG_REGION, LONG_ROWS = "synthref:2000:12050", 8
+LONG_PARAMS = dict(realign_width=300, scoring_width=100, point_width=20,
+                   min_overlap=300, min_coverage=0, max_coverage=30,
+                   max_length=20000, lik_offset=4.5, verbose=0)
+
+
+@pytest.fixture(scope="module")
+def long_region(tmp_path_factory):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    from poreseq_tpu_torch.core.regions import RegionInfo
+    from poreseq_tpu_torch.io import npz_h5
+    from poreseq_tpu_torch.io.load import load_aligned_events
+    from poreseq_tpu_torch.sim import write_run
+
+    npz_h5.use_where_missing()
+    d = str(tmp_path_factory.mktemp("long"))
+    write_run(d, np.random.default_rng(12), ref_len=14000, n_reads=4,
+              draft_error=0.02)
+    pa = load_aligned_events(f"{d}/ref.fasta", f"{d}/reads.bam",
+                             f"{d}/reads", RegionInfo(LONG_REGION),
+                             dict(LONG_PARAMS), backend="exact")
+    assert len(pa.events) == LONG_ROWS
+    assert all(ev.trim for ev in pa.events)
+    return AlignData.from_session(pa)
+
+
+def _first_rows(args, n):
+    """A fill launch's operands cut to its first n event rows (rows are
+    independent in the fill)."""
+    from poreseq_tpu_torch.engine.dp import EventBatch
+
+    batch, states, i0, i1, pad, *rest = args
+    return (EventBatch(*(x[:n] for x in batch)), states[:, :n].contiguous(),
+            i0[:n].contiguous(), i1[:n].contiguous(),
+            pad[:, :n].contiguous(), *rest)
+
+
+@pytest.mark.parametrize("engine", DTYPES, indirect=True)
+@pytest.mark.parametrize("backward,steps", [(False, True), (True, False)])
+def test_fill_kernel_on_trimmed_events_at_10kb(engine, long_region, backward,
+                                               steps):
+    """The main path's fills (forward with steps, backward without) at C =
+    10,112 on trimmed events: T is the trimmed range, below the reads'
+    level counts."""
+    args = _first_rows(_fill_args(engine, long_region, backward, steps),
+                       LONG_ROWS)
+    assert args[1].shape[0] >= 10050
+    assert args[0].mean.shape[1] < max(len(ev.mean)
+                                       for ev in long_region.events)
+    _hold_fill(engine, args)
+
+
+def _long_backtrace(engine, long_region):
+    """The 8 rows' forward fill and backtrace operands on the card."""
+    from poreseq_tpu_torch.engine.fill import get_fill
+
+    batch, states, i0, i1, pad, off, _, W, _ = _first_rows(
+        _fill_args(engine, long_region, False), LONG_ROWS)
+    r = get_fill((W - 1) // 2)(batch, states, i0, i1, pad, off, False)
+    T = batch.mean.shape[1]
+    return batch, (r.M, r.S, r.steps_m, r.steps_s, r.i0, r.i1, r.best_i,
+                   r.best_j, T, states.shape[0] + 2 * T + 8)
+
+
+@pytest.mark.parametrize("engine", DTYPES, indirect=True)
+def test_backtrace_and_geometry_on_trimmed_events_at_10kb(engine,
+                                                          long_region):
+    """The backtrace walks the trimmed rows at C = 10,112 as its twin does,
+    and the scoring geometry of its ref_align (the staged instance, T far
+    below its cap) equals its twin."""
+    from poreseq_tpu_torch.engine.align import (backtrace_cuda,
+                                                backtrace_reference)
+    from poreseq_tpu_torch.engine.mutscore import geom_cuda, geom_reference
+
+    batch, args = _long_backtrace(engine, long_region)
+    ral_k, rlk_k = backtrace_cuda(*args)
+    ral_r, rlk_r = backtrace_reference(*args)
+    assert torch.equal(ral_k, ral_r)
+    assert torch.equal(rlk_k, rlk_r)
+    assert int((ral_k > 0).sum(dim=1).min()) > 5000
+    C = args[0].shape[0]
+    S_e = torch.full((LONG_ROWS,), len(long_region.sequence) - 4,
+                     dtype=torch.int32, device="cuda")
+    geom_args = (ral_k, batch.n0, S_e, LONG_PARAMS["scoring_width"], C)
+    for a, b in zip(geom_cuda(*geom_args), geom_reference(*geom_args)):
+        assert torch.equal(a, b.to(torch.int32))
+
+
+@pytest.mark.parametrize("engine", DTYPES, indirect=True)
+def test_group_kernel_on_trimmed_events_at_10kb(engine, long_region):
+    """A Mutate round's scoring call (scoring width 100, every 40th point
+    mutation of the 10 kb region) on trimmed events: every group of every
+    launch against the twin."""
+    from poreseq_tpu_torch.engine.mutscore import (group_launches,
+                                                   group_totals_cuda,
+                                                   sum_rows_reference)
+
+    muts = find_point_mutations(long_region)[::40]
+    n = 0
+    for gp, _, args in group_launches(engine, [long_region], [muts], [True]):
+        assert args[1].shape[0] > 10050
+        tot_k, _ = group_totals_cuda(*args)
+        tot_r = sum_rows_reference(_group_deltas_in_chunks(args))
+        n += tot_k.shape[0]
+        if engine.dtype == torch.float64:
+            assert torch.equal(tot_k, tot_r)
+        else:
+            torch.testing.assert_close(tot_k, tot_r, rtol=2e-4, atol=3e-3)
+            valid = args[13]["s_valid"].bool()
+            assert not bool(((((tot_k - 1e-6) > 0) != ((tot_r - 1e-6) > 0))
+                             & valid).any())
+    assert n > 1000
 
 
 @pytest.mark.parametrize("engine", [torch.float32], indirect=True)

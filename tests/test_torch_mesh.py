@@ -10,7 +10,6 @@ tests/test_tpu_engine.py's tolerances: scores within 1e-9, mutation deltas
 within 1e-8, ref_align identical.  Widths 16/8/6 throughout."""
 
 import sys
-from pathlib import Path
 
 import numpy as np
 import pytest
@@ -328,12 +327,11 @@ def test_cli_mesh_with_too_few_cards_runs_single_device(tmp_path, capsys,
     try:
         import h5py  # noqa: F401
     except ImportError:
-        # the GPU machine has no h5py: chip_smoke.py's npz stand-in writes
-        # and reads the run's fast5 files through the same reader
-        monkeypatch.syspath_prepend(str(Path(__file__).resolve().parents[1]))
-        import chip_smoke
+        # the GPU machine has no h5py: the port's npz stand-in writes and
+        # reads the run's fast5 files through the same reader
+        from poreseq_tpu_torch.io import npz_h5
 
-        monkeypatch.setitem(sys.modules, "h5py", chip_smoke._NpzH5)
+        monkeypatch.setitem(sys.modules, "h5py", npz_h5)
     args = _cli_run(tmp_path)
     outs = []
     for extra in ([], ["--mesh", "4x2"]):
