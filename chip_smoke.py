@@ -52,7 +52,10 @@ non-zero, nothing runs on the CPU instead):
   4. variant  — `variant -m/-a/-f` on a 5 kb run with 10 planted
                 substitutions: reverting mutations score > 0 and corrupting
                 ones < 0, -a prints one line per point mutation of a 1 kb
-                region, the truth outscores a 5 %-mutated copy;
+                region, -f prints nothing (as the JAX CLI: a region with
+                no mutations is skipped unless -a is given), and through
+                pipeline.variant on the card the truth outscores a 5
+                %-mutated copy;
   5. train    — `train -i 1` on a 1 kb region at 10X: 16 candidates of 10
                 reps, train_best.conf written, best accuracy >= 98 %;
                 phases 4 and 5 also hold the largest forward fill, backward
@@ -103,17 +106,34 @@ non-zero, nothing runs on the CPU instead):
                 reads' levels) and every kernel launched; 10b long-10kb, the
                 lambda genome split at 10 kb (6 regions, 10.4 kb reads) in
                 one lockstep batch on TorchEngine f32 (the CLI) and its
-                first 3 regions on f64 (pipeline.mutate_many; cut for
-                time): each merged at >= 99.0 %, no region degraded in f32
+                first 3 regions on f64 (pipeline.mutate_many, in a process
+                of its own while the f32 run's launches are held to their
+                twins; cut for time): each merged at >= 99.0 %, no region
+                degraded in f32
                 (0.5 points or more below f64, or below 99 %), the largest forward and backward fill held to the
                 twins on 8 event rows and the largest group-scorer launch on
                 its first 2048 groups (phase 2's tolerances), and every
-                kernel's largest launch timed beside its bound.
+                kernel's largest launch timed beside its bound;
+ 11. bench    — the tools' functions: tools/bench.py's bench_e2e (bench.py's
+                run: 8 x 1 kb at 10X, -i 4 --region-batch 8, widths
+                300/100/20; a first run and 2 steady runs, cut from 5:
+                accuracy >= 99.0 %, every kernel launched in a run),
+                bench_refine and bench_fill (each beside its bound),
+                tools/bench_multihost.py at 2 processes on the card (cut:
+                no 4; the shards joined equal one process's output),
+                tools/bench_consensus.py at --batch 1, one repeat, against
+                bench_e2e's batch of 8 on the same run (>= 99.0 %; cut:
+                bench_e2e stands for --batch 8), and tools/dryrun.py's entry
+                and dryrun_multichip(4) at ref_len 1500 on a 2x2 mesh of
+                cuda:0 (equal to one device on the host geometry, every
+                shard launching the fill, backtrace and scorer); one JSON
+                line each.
 Phase 2 also holds the fill, backtrace and group scorer on cuda:1 in f64
-when torch sees a second card.  Phases 2b-10 reset the kernels' launch
+when torch sees a second card.  Phases 2b-11 reset the kernels' launch
 counters before they start and report them after; each must have launched
-the kernels of its path (phase 3: every kernel; phases 7 and 10b's f64 run:
-all but the geometry, which a mesh and f64 take from the host).  The line
+the kernels of its path (phases 3 and 11's bench_e2e run: every kernel;
+phases 7 and 10b's f64 run: all but the geometry, which a mesh and f64
+take from the host).  The line
 before the last is a JSON object with one entry per kernel (with each
 kernel's largest 10b launch timed, "genome_largest"); the last line is
 {"ok": true, "device": {...}}.
@@ -143,6 +163,8 @@ import time
 
 import numpy as np
 
+from tools.bench import event_ms
+
 P_WIDTHS = dict(realign_width=300, scoring_width=100, point_width=20)
 E2E_REGIONS = 8
 
@@ -157,24 +179,6 @@ def gpu_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip()
-
-
-def event_ms(fn, reps: int = 20) -> float:
-    """Device time of one call of fn in ms: CUDA events around reps calls,
-    after two warm-up calls."""
-    import torch
-
-    for _ in range(2):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
 
 
 def queued_ms(fn, reps: int = 20) -> float:
@@ -306,13 +310,14 @@ def _tolerance(f64: bool):
     return (0.0, 0.0) if f64 else (2e-5, 2e-4)
 
 
-def hold_fill(args, where: str) -> float:
+def hold_fill(args, where: str, timing: dict | None = None) -> float:
     """One fill launch (fill_cuda's arguments) against its plain twin on the
     same operands: M, S and cmax equal (f64) or within the tolerance (f32),
     step bytes equal (f64) or >= 99.95 % equal (f32), first argmaxes and
     best coordinates equal; the kernel's running best (best_pfx, best,
     best_i, best_j) equal to dp.finish_fill on its own cmax and carg.
-    Returns the max |diff|."""
+    Returns the max |diff|; timing: gets the twin's wall (ms, one call
+    closed by a synchronize) under "plain_ms"."""
     import torch
 
     from poreseq_tpu_torch.engine.dp import fill_reference, finish_fill
@@ -322,7 +327,12 @@ def hold_fill(args, where: str) -> float:
     f64 = batch.mean.dtype == torch.float64
     rtol, atol = _tolerance(f64)
     got = fill_cuda(*args)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
     ref = fill_reference(*args)
+    torch.cuda.synchronize()
+    if timing is not None:
+        timing["plain_ms"] = (time.perf_counter() - t0) * 1e3
     own = finish_fill(*got[:6], i0, i1, backward)
     torch.cuda.synchronize()
     what = f"{where} fill (f64={f64}, backward={backward})"
@@ -358,11 +368,38 @@ def hold_fill(args, where: str) -> float:
 FILL_WIDTHS = (300, 400, 100, 20)
 
 
-def check_fill(engine, seed: int, f64: bool, report: dict):
-    """The fill at every realign width of FILL_WIDTHS: forward with steps,
-    backward with and without (the main path's backward fill) held to the
-    twin; at width 300 in f32 the forward and the backward fill timed."""
-    from poreseq_tpu_torch.engine.dp import fill_reference
+# the fills held at each width: (backward, need_steps)
+FILL_RUNS = {"forward": (False, True), "backward": (True, False),
+             "backward, steps": (True, True)}
+# spawned processes that hold phase 2's fills beside the f64 checks (each
+# fill's twin walks its columns on one host core)
+FILL_WORKERS = 4
+
+
+def fill_width_holds(seed: int, width: int, f64: bool) -> dict:
+    """Phase 2's fills at one realign width (FILL_RUNS) held to the twin on
+    a TorchEngine of their own, for a spawned process: {"err": max |diff|,
+    "E", "C"}."""
+    import torch
+
+    from poreseq_tpu_torch.engine import TorchEngine
+
+    engine = TorchEngine("cuda", torch.float64 if f64 else torch.float32)
+    batch, states, i0, i1, pad, off = _fill_inputs(engine,
+                                                   _session(seed, width))
+    W = 2 * width + 1
+    err = max(hold_fill((batch, states, i0, i1, pad, off, backward, W,
+                         steps), f"kernels W={W}")
+              for backward, steps in FILL_RUNS.values())
+    return dict(err=err, E=batch.mean.shape[0], C=states.shape[0])
+
+
+def check_fill(engine, seed: int, f64: bool, report: dict,
+               held: dict | None = None):
+    """The fill at every realign width of FILL_WIDTHS: FILL_RUNS held to
+    the twin (held: {(width, f64): fill_width_holds' result} where the
+    holds ran in a pool); at width 300 in f32 the forward and the backward
+    fill held here and timed (the twin's time: its wall in the hold)."""
     from poreseq_tpu_torch.engine.fill import fill_cuda
     from poreseq_tpu_torch.engine.roofline import fill_work
 
@@ -370,23 +407,28 @@ def check_fill(engine, seed: int, f64: bool, report: dict):
     err, line = 0.0, {}
     for width in FILL_WIDTHS:
         W = 2 * width + 1
-        batch, states, i0, i1, pad, off = _fill_inputs(
-            engine, _session(seed, width))
-        runs = {"forward": (False, True), "backward": (True, False),
-                "backward, steps": (True, True)}
-        for name, (backward, steps) in runs.items():
-            args = (batch, states, i0, i1, pad, off, backward, W, steps)
-            err = max(err, hold_fill(args, f"kernels W={W}"))
-            if f64 or width != FILL_WIDTHS[0] or name == "backward, steps":
+        timed_here = not f64 and width == FILL_WIDTHS[0]
+        if held is not None:
+            r = held[width, f64]
+            err, E, C = max(err, r["err"]), r["E"], r["C"]
+        if held is None or timed_here:
+            batch, states, i0, i1, pad, off = _fill_inputs(
+                engine, _session(seed, width))
+            E, C = batch.mean.shape[0], states.shape[0]
+        for name, (backward, steps) in FILL_RUNS.items():
+            if held is not None and not (timed_here
+                                         and name != "backward, steps"):
                 continue
-            t = timed(event_ms(lambda: fill_cuda(*args)),
-                      fill_work(batch, states, pad, W, steps),
-                      batch.mean.dtype)
-            t["plain_ms"] = cuda_ms(lambda: fill_reference(*args), reps=2)
-            line[name] = t
-        print(f"[kernels] fill f{'64' if f64 else '32'} "
-              f"E={batch.mean.shape[0]} C={states.shape[0]} W={W}: forward "
-              f"with steps, backward with "
+            args = (batch, states, i0, i1, pad, off, backward, W, steps)
+            twin = {}
+            err = max(err, hold_fill(args, f"kernels W={W}", twin))
+            if timed_here and name != "backward, steps":
+                line[name] = dict(timed(event_ms(lambda: fill_cuda(*args)),
+                                        fill_work(batch, states, pad, W,
+                                                  steps),
+                                        batch.mean.dtype), **twin)
+        print(f"[kernels] fill f{'64' if f64 else '32'} E={E} C={C} W={W}: "
+              f"forward with steps, backward with "
               f"and without held to the twin, max |diff| so far {err:.3e} "
               f"(rtol {rtol}, atol {atol}); steps/best equal; the kernel's "
               f"best_pfx/best/best_i/best_j equal finish_fill on its own "
@@ -399,6 +441,8 @@ def check_fill(engine, seed: int, f64: bool, report: dict):
               f"{line['backward']['plain_ms']:.1f} ms | {gpu_line()}",
               flush=True)
         line = dict(line["forward"], backward=line["backward"])
+    # the wide instances' holds may have come first (phase_kernels)
+    err = max(err, report.get(("fill", f64), {}).get("max_abs_err", 0.0))
     report[("fill", f64)] = dict(line, max_abs_err=err)
 
 
@@ -897,10 +941,11 @@ def check_wide(engine, seed: int, f64: bool, report: dict):
                 lambda: geom_cuda(*args), geom_work(args[0], args[1], T),
                 E=ral.shape[0], C=T)
     for k, err in errs.items():
-        report[(k, f64)]["max_abs_err"] = max(
-            report[(k, f64)]["max_abs_err"], err)
+        # in f64 the fill's line comes after the pool's holds (phase_kernels)
+        line = report.setdefault((k, f64), dict(max_abs_err=0.0))
+        line["max_abs_err"] = max(line["max_abs_err"], err)
         if not f64:
-            report[(k, f64)]["wide"] = wide[k]
+            line["wide"] = wide[k]
     fmt = lambda d: f"E={d['E']} " + _timing(d) + \
         f", queued {d['queued_ms']:.4f} ms"
     print(f"[kernels] wide f{'64' if f64 else '32'}: fill W="
@@ -921,6 +966,13 @@ def check_wide(engine, seed: int, f64: bool, report: dict):
 
 
 def phase_kernels(seed: int):
+    """2: every kernel held to its twin in f64 and f32, and timed in f32.
+    The fill holds of FILL_WIDTHS run in a pool of FILL_WORKERS spawned
+    processes beside the f64 checks (which time nothing); the f32 checks,
+    and with them every timing, start once the pool has ended."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
     import torch
 
     from poreseq_tpu_torch.engine import TorchEngine
@@ -930,14 +982,26 @@ def phase_kernels(seed: int):
     # the Viterbi kernels' regions as phase 2b has them: the group scorer's
     # check realigns its regions' events in place
     events = [d.events for d in _mut_regions(seed)["refine"][0]]
-    for f64 in (True, False):
-        engine = TorchEngine("cuda", torch.float64 if f64 else torch.float32)
-        check_fill(engine, seed, f64, report)
-        check_backtrace(engine, _session(seed), f64, report)
-        check_mutscore(engine, regions, f64, report)
-        check_viterbi(engine, events, seed, f64, report)
-        check_prologue(engine, _mut_regions(seed)["mutate"][0], f64, report)
-        check_wide(engine, seed, f64, report)
+    with ProcessPoolExecutor(
+            FILL_WORKERS,
+            mp_context=multiprocessing.get_context("spawn")) as pool:
+        pending = {(w, f64): pool.submit(fill_width_holds, seed, w, f64)
+                   for f64 in (True, False) for w in FILL_WIDTHS}
+        engine = TorchEngine("cuda", torch.float64)
+        check_backtrace(engine, _session(seed), True, report)
+        check_mutscore(engine, regions, True, report)
+        check_viterbi(engine, events, seed, True, report)
+        check_prologue(engine, _mut_regions(seed)["mutate"][0], True, report)
+        check_wide(engine, seed, True, report)
+        held = {k: f.result(timeout=900) for k, f in pending.items()}
+    check_fill(engine, seed, True, report, held)
+    engine = TorchEngine("cuda", torch.float32)
+    check_fill(engine, seed, False, report, held)
+    check_backtrace(engine, _session(seed), False, report)
+    check_mutscore(engine, regions, False, report)
+    check_viterbi(engine, events, seed, False, report)
+    check_prologue(engine, _mut_regions(seed)["mutate"][0], False, report)
+    check_wide(engine, seed, False, report)
     if torch.cuda.device_count() < 2:
         print(f"[kernels] cuda:1: skipped, torch sees "
               f"{torch.cuda.device_count()} card", flush=True)
@@ -1346,7 +1410,12 @@ def _captured(argv):
 def phase_variant(seed: int):
     """4: variant -m / -a / -f on a 5 kb run (BASELINE.json config 2:
     about 10 point mutations, 5 kb, 10X) at widths 300/100/20."""
+    import torch
+
+    from poreseq_tpu_torch import pipeline
+    from poreseq_tpu_torch.core.params import load_params
     from poreseq_tpu_torch.core.regions import RegionInfo
+    from poreseq_tpu_torch.engine import TorchEngine
     from poreseq_tpu_torch.engine.driver import find_point_mutations
     from poreseq_tpu_torch.engine.types import AlignData
     from poreseq_tpu_torch.io.fasta import write_fasta
@@ -1394,10 +1463,18 @@ def phase_variant(seed: int):
                                        "-r", region_a, *dev])
             wall_f, out_f = _captured(["variant", ref2, bam, reads, "-f",
                                        vf, "-r", "synthref:0:5000", *dev])
+            # -f scored through pipeline.variant (the CLI, as the JAX
+            # CLI, skips every region of a -f run)
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                fscores = pipeline.variant(
+                    ref2, bam, reads, vf, [], "synthref:0:5000",
+                    dict(load_params(conf), end_trim=0), 0,
+                    engine=TorchEngine("cuda"))
+            torch.cuda.synchronize()
+            wall_fp = time.perf_counter() - t0
         launches = _launches()
         held, times = hold_path_launches(kept, "variant")
-
-        from poreseq_tpu_torch.core.params import load_params
 
         params = load_params(conf)
         pa = load_aligned_events(fasta, bam, reads, RegionInfo(region_a),
@@ -1418,23 +1495,26 @@ def phase_variant(seed: int):
     revert = [scores[k] for k in scores if k[0] in planted_pos]
     corrupt = [scores[k] for k in scores if k[0] in corrupt_pos]
     lines_a = [l for l in out_a.splitlines() if l.strip()]
-    fscores = dict((vid, float(sc)) for vid, sc in
-                   (l.rsplit(", ", 1) for l in out_f.splitlines()))
     print(f"[variant] 5 kb, 25 reads of 1.2 kb, widths 300/100/20: -m "
           f"{len(muts)} "
           f"mutations {wall_m:.2f} s (reverting min {min(revert):.3f}, "
           f"corrupting max {max(corrupt):.3f}); -a {region_a} "
           f"{len(lines_a)} lines for {n_points} point mutations "
-          f"{wall_a:.2f} s; -f truth {fscores.get('truth')} vs 5 %-mutated "
-          f"{fscores.get('mutated5')} {wall_f:.2f} s; launches {launches}; "
+          f"{wall_a:.2f} s; -f (the CLI) {len(out_f)} bytes of output "
+          f"{wall_f:.2f} s; -f (pipeline.variant) truth "
+          f"{fscores.get('truth')} vs 5 %-mutated {fscores.get('mutated5')} "
+          f"{wall_fp:.2f} s; launches {launches}; "
           f"{held} | {gpu_line()}", flush=True)
     if min(revert) <= 0 or max(corrupt) >= 0:
         fail("variant -m: a reverting mutation scored <= 0 or a corrupting "
              "one >= 0")
     if len(lines_a) != n_points:
         fail(f"variant -a: {len(lines_a)} lines, {n_points} point mutations")
+    if out_f:
+        fail(f"variant -f: the CLI printed {out_f[:200]!r}; the JAX CLI "
+             "prints nothing for -f")
     if not fscores.get("truth", -np.inf) > fscores.get("mutated5", np.inf):
-        fail(f"variant -f: scores {fscores}")
+        fail(f"variant -f (pipeline.variant): scores {fscores}")
     _need_launches("variant", launches, SCORE_KERNELS)
     return launches, times
 
@@ -1930,20 +2010,10 @@ GENOME_10KB = ["lambda", "--region-length", "10000"]
 # twins at full size ran the card out of memory at phase 9's widths)
 HOLD_ROWS, HOLD_GROUPS = 8, 2048
 # 10b's f64 run takes the batch's first 3 regions (cut: the phase ran 541 s
-# with all 6 on an H100 at 700 W, against a budget of about 240 s)
+# with all 6 on an H100 at 700 W, against a budget of about 240 s); it runs
+# in a process of its own while the f32 run's launches are held to their
+# twins
 F64_REGIONS = 3
-
-
-def _genome_tool():
-    """tools/genome_run.py, imported by its path."""
-    import importlib.util
-
-    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools",
-                        "genome_run.py")
-    spec = importlib.util.spec_from_file_location("genome_run", path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
 
 
 @contextlib.contextmanager
@@ -2115,7 +2185,7 @@ def _host_secs(secs: dict) -> dict:
 
 
 def genome_2kb(tool) -> dict:
-    """10a: the lambda genome's first 16 of 48 regions of 2 kb with 8 kb
+    """10a: the lambda genome's first 16 of 49 regions of 2 kb with 8 kb
     reads, dealt over 2 shards: one merged contig at >= 99.0 %, trimmed
     events, every kernel launched.  Returns the launches."""
     from poreseq_tpu_torch.io.fasta import read_fasta
@@ -2156,19 +2226,49 @@ def genome_2kb(tool) -> dict:
     return a["launches"]
 
 
-def genome_10kb(tool, seed: int) -> tuple:
-    """10b: the lambda genome's 6 regions of 10 kb in one lockstep batch on
-    TorchEngine f32 (the CLI), and its first F64_REGIONS of them on f64
-    (pipeline.mutate_many): each merged
-    at >= 99.0 %, no region degraded in f32, the largest fills and scorer
-    launch of the f32 run held to the twins on a slice, and every kernel's
-    largest launch of it timed.  Returns (the f32 and the f64 run's
-    launches, {kernel: timing})."""
+def _f64_batch(run: dict, regions: list, reps: int) -> dict:
+    """10b's f64 run in a spawned process of its own: the regions of the
+    run in one lockstep batch through pipeline.mutate_many (the function
+    the CLI's consensus calls) on TorchEngine f64, with its wall, shapes
+    (path_shapes), engine host seconds, peak device memory, launches
+    (counted from 0 in this process) and sequences."""
     import torch
 
     from poreseq_tpu_torch import pipeline
     from poreseq_tpu_torch.core.params import load_params
     from poreseq_tpu_torch.engine import TorchEngine
+
+    _fast5_io()
+    engine = TorchEngine("cuda", torch.float64)
+    params = dict(load_params(run["conf"]), verbose=0)
+    _reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with path_shapes() as sh, engine_seconds() as secs:
+        results = pipeline.mutate_many(
+            run["fasta"], run["bam"], run["reads"], regions, params=params,
+            verbose=0, reps=reps, engine=engine)
+        torch.cuda.synchronize()
+    return dict(walls=[time.perf_counter() - t0], shapes=sh, secs=secs,
+                peak=torch.cuda.max_memory_allocated(), launches=_launches(),
+                seqs={r: res[0] for r, res in zip(regions, results)
+                      if res is not None})
+
+
+def genome_10kb(tool, seed: int) -> tuple:
+    """10b: the lambda genome's 6 regions of 10 kb in one lockstep batch on
+    TorchEngine f32 (the CLI), and its first F64_REGIONS of them on f64
+    (pipeline.mutate_many, in a spawned process while the f32 run's
+    largest fills and scorer launch are held to the twins on a slice):
+    each merged at >= 99.0 %, no region degraded in f32, and every
+    kernel's largest launch of the f32 run timed once the f64 process has
+    ended.  Returns (the f32 and the f64 run's launches, {kernel:
+    timing})."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    import torch
+
     from poreseq_tpu_torch.io.fasta import read_fasta, write_fasta
 
     t_phase = time.perf_counter()
@@ -2180,26 +2280,40 @@ def genome_10kb(tool, seed: int) -> tuple:
         b32 = _polish(tool, args, run, every=True)
         seqs32 = read_fasta(b32["outs"][0])
         _, contigs32 = tool.merge(run, b32["outs"])
-        # f64: the same batch through pipeline.mutate_many, the function
-        # the CLI's consensus calls
-        engine = TorchEngine("cuda", torch.float64)
-        params = dict(load_params(run["conf"]), verbose=0)
         regions64 = regions[:F64_REGIONS]
-        _reset_launches()
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        with path_shapes() as sh64, engine_seconds() as secs64:
-            results = pipeline.mutate_many(
-                run["fasta"], run["bam"], run["reads"], regions64,
-                params=params, verbose=0, reps=args.iterations,
-                engine=engine)
-            torch.cuda.synchronize()
-        b64 = dict(walls=[time.perf_counter() - t0], shapes=sh64,
-                   secs=secs64, peak=torch.cuda.max_memory_allocated(),
-                   launches=_launches())
-        del engine
-        seqs64 = {r: res[0] for r, res in zip(regions64, results)
-                  if res is not None}
+        # the f32 run's cached blocks go back to the card for the f64
+        # process
+        torch.cuda.empty_cache()
+        with ProcessPoolExecutor(
+                1, mp_context=multiprocessing.get_context("spawn")) as pool:
+            pending = pool.submit(
+                _f64_batch, {k: run[k] for k in ("fasta", "bam", "reads",
+                                                 "conf")},
+                regions64, args.iterations)
+            # the held launches: a slice of rows of each fill, a chunk of
+            # groups of the scorer (the first HOLD_ROWS active rows; the
+            # first HOLD_GROUPS)
+            kept = b32["kept"]
+            t0 = time.perf_counter()
+            errs, held = {}, {}
+            for k in ("fill fwd", "fill bwd"):
+                x = _copied(kept[k], "cuda")
+                rows = torch.nonzero(x[0].active).flatten()[:HOLD_ROWS]
+                errs[k] = hold_fill(_rows(x, rows), "genome 10b")
+                held[k] = (f"{k} C={x[1].shape[0]} E={x[1].shape[1]} "
+                           f"W={x[7]}: rows {rows.tolist()}")
+            x = _copied(kept["mutscore"], "cuda")
+            G = x[13]["g_start"].shape[0]
+            errs["mutscore"] = hold_mutscore(_groups(x, HOLD_GROUPS),
+                                             "genome 10b")
+            held["mutscore"] = (f"mutscore Ws={x[16]} C={x[1].shape[0]} "
+                                f"E={x[1].shape[1]}: the first "
+                                f"{min(G, HOLD_GROUPS)} of {G} groups")
+            del x
+            hold_s = time.perf_counter() - t0
+            b64 = pending.result(timeout=900)
+        wait_s = time.perf_counter() - t0 - hold_s
+        seqs64 = b64["seqs"]
         f64_out = os.path.join(d, "out.f64.fasta")
         write_fasta(f64_out, seqs64)
         _, contigs64 = tool.merge(run, [f64_out], "merged.f64.fasta")
@@ -2214,32 +2328,17 @@ def genome_10kb(tool, seed: int) -> tuple:
     differ = sum(seqs32[r] != seqs64[r] for r in both)
     degraded = [r for r in both
                 if accs32[r] <= accs64[r] - 0.5 or accs32[r] < 99.0]
-    # the held launches: a slice of rows of each fill, a chunk of groups of
-    # the scorer (the first HOLD_ROWS active rows; the first HOLD_GROUPS)
-    kept = b32["kept"]
-    t0 = time.perf_counter()
-    errs, held = {}, {}
-    for k in ("fill fwd", "fill bwd"):
-        x = _copied(kept[k], "cuda")
-        rows = torch.nonzero(x[0].active).flatten()[:HOLD_ROWS]
-        errs[k] = hold_fill(_rows(x, rows), "genome 10b")
-        held[k] = (f"{k} C={x[1].shape[0]} E={x[1].shape[1]} W={x[7]}: "
-                   f"rows {rows.tolist()}")
-    x = _copied(kept["mutscore"], "cuda")
-    G = x[13]["g_start"].shape[0]
-    errs["mutscore"] = hold_mutscore(_groups(x, HOLD_GROUPS), "genome 10b")
-    held["mutscore"] = (f"mutscore Ws={x[16]} C={x[1].shape[0]} "
-                        f"E={x[1].shape[1]}: the first {min(G, HOLD_GROUPS)} "
-                        f"of {G} groups")
-    hold_s = time.perf_counter() - t0
     times = time_largest(kept, seed)
     for name, run_, todo in (("f32", b32, regions), ("f64", b64, regions64)):
         accs = accs32 if name == "f32" else accs64
         print(f"[genome] 10b long-10kb {name}"
-              f"{' (the CLI)' if name == 'f32' else ' (pipeline.mutate_many)'}"
-              f": {len(todo)} regions of {args.region_length} b"
+              + (" (the CLI)" if name == "f32" else
+                 " (pipeline.mutate_many, a process of its own beside the "
+                 "holds)")
+              + f": {len(todo)} regions of {args.region_length} b"
               + ("" if todo is regions else
-                 f" (cut: the first {len(todo)} of {len(regions)})")
+                 f" (cut: the first {len(todo)} of "
+                 f"{run['regions_total']})")
               + f", reads "
               f"of {args.read_len} b, one lockstep batch, widths "
               f"300/100/20, -i 4: wall {sum(run_['walls']):.2f} s"
@@ -2256,7 +2355,8 @@ def genome_10kb(tool, seed: int) -> tuple:
               f"{run_['peak'] / 2**20:.1f} MiB | {gpu_line()}", flush=True)
     print(f"[genome] 10b f32 against f64: {differ} of {len(both)} regions "
           f"differ, {len(degraded)} degraded {degraded}; held to the twins "
-          f"({time.perf_counter() - t0:.1f} s of which holds {hold_s:.1f} s): "
+          f"({time.perf_counter() - t0:.1f} s: holds {hold_s:.1f} s, then "
+          f"{wait_s:.1f} s waiting for the f64 process): "
           + "; ".join(f"{held[k]} max |diff| {errs[k]:.3e}" for k in held)
           + "; largest launches timed (f32): "
           + "; ".join(f"{k} {_timing(v)}"
@@ -2288,14 +2388,99 @@ def phase_genome(seed: int):
     (write_run, the CLI's split, consensus per shard and merge): 10a
     (genome_2kb) then 10b (genome_10kb).  Returns (the launches of its runs
     summed, 10b's {kernel: timing})."""
+    from tools import genome_run as tool
+
     t0 = time.perf_counter()
-    tool = _genome_tool()
     a = genome_2kb(tool)
     (b32, b64), times = genome_10kb(tool, seed)
     runs = (a, b32, b64)
     print(f"[genome] phase wall {time.perf_counter() - t0:.1f} s | "
           f"{gpu_line()}", flush=True)
     return {k: sum(r[k] for r in runs) for k in runs[0]}, times
+
+
+# ---------------------------------------------------------------------------
+# phase 11: bench, the port's measurement and driver entry points
+# ---------------------------------------------------------------------------
+
+# cuts for the smoke's time limit (the tools' own defaults in brackets):
+# bench_e2e's steady runs 2 (5), bench_multihost's process counts 2 (2, 4),
+# bench_consensus's batches 1 (the batch of 8 is bench_e2e's run: the same
+# build_run and argv) and repeats 1 (1)
+BENCH_STEADY_RUNS = 2
+MULTIHOST_ARGS = ["--processes", "2"]
+
+
+def _bench_line(name: str, res: dict):
+    print(json.dumps(dict(bench=name, **res, card_line=gpu_line())),
+          flush=True)
+
+
+def phase_bench(seed: int):
+    """11: the tools' functions on the card: tools/bench.py's bench_e2e
+    (steady runs cut to BENCH_STEADY_RUNS; accuracy >= 99.0 %, every kernel
+    launched), bench_refine and bench_fill beside their bounds,
+    bench_multihost at 2 processes (the joined shards equal one process's
+    output), bench_consensus at batch 1 against bench_e2e's batch of 8 on
+    the same run, and dryrun_multichip(4) at ref_len 1500 on a 2x2 mesh of
+    cuda:0 (equal to one device, every shard launching the fill, backtrace
+    and scorer).  One JSON line each; returns bench_e2e's launches of one
+    run."""
+    import torch
+
+    from tools import bench as tb
+    from tools import bench_consensus as bc
+    from tools import bench_multihost as mh
+    from tools import dryrun as dry
+
+    t_phase = time.perf_counter()
+    e2e = tb.bench_e2e(time.monotonic() + 600, "cuda",
+                       steady_runs=BENCH_STEADY_RUNS)
+    _bench_line("bench_e2e", e2e)
+    launches = e2e["launches_per_run"]
+    if e2e["mean_accuracy_pct"] < 99.0:
+        fail(f"bench: bench_e2e mean accuracy "
+             f"{e2e['mean_accuracy_pct']:.3f}% < 99.0%")
+    _need_launches("bench_e2e", launches)
+    _bench_line("bench_refine", tb.bench_refine("cuda"))
+    _bench_line("bench_fill", tb.bench_fill("cuda"))
+
+    try:
+        res = mh.run(mh.parse(MULTIHOST_ARGS))
+    except SystemExit as e:
+        fail(f"bench: {e}")
+    _bench_line("bench_multihost", res)
+    if res["outputs_equal"] != {2: True}:
+        fail(f"bench: bench_multihost outputs equal {res['outputs_equal']}")
+
+    args = bc.parse(["--batch", "1"])
+    d = tempfile.mkdtemp(prefix="psq_smoke_bc_")
+    try:
+        res = bc.run(args, bc.build(args, d))
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    res["batch_8_s"] = e2e["steady_run_median_s"]
+    res["batch_8_regions_per_hour"] = e2e["regions_per_hour"]
+    _bench_line("bench_consensus", res)
+    if res["n_out"] != args.regions or res["mean_acc"] < 99.0:
+        fail(f"bench: bench_consensus --batch 1: {res}")
+
+    fn, fargs = dry.entry("cuda")
+    best = fn(*fargs)
+    try:
+        res = dry.dryrun_multichip(4, 1500, "cuda:0")
+    except SystemExit as e:
+        fail(f"bench: {e}")
+    res["entry_best_finite"] = bool(torch.isfinite(best).all())
+    _bench_line("dryrun_multichip", res)
+    missing = [(sh, k) for sh, n in res["shard_launches"].items()
+               for k in ALIGN_KERNELS if n.get(k, 0) <= 0]
+    if missing or not res["entry_best_finite"]:
+        fail(f"bench: dryrun shards that never launched a kernel "
+             f"{missing}, entry best finite {res['entry_best_finite']}")
+    print(f"[bench] phase wall {time.perf_counter() - t_phase:.1f} s | "
+          f"{gpu_line()}", flush=True)
+    return launches
 
 
 def main():
@@ -2315,18 +2500,32 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    kernels = phase_build()
-    report = phase_kernels(args.seed)
-    phase_viterbi(args.seed)
+    walls, t_run = {}, time.perf_counter()
+
+    def run(name, fn, *a):
+        t0 = time.perf_counter()
+        out = fn(*a)
+        walls[name] = round(time.perf_counter() - t0, 1)
+        return out
+
+    kernels = run("build", phase_build)
+    report = run("kernels", phase_kernels, args.seed)
+    run("viterbi", phase_viterbi, args.seed)
     by_phase, held = {}, {}
-    by_phase["e2e"], e2e = phase_e2e(args.seed, args.profile)
-    by_phase["variant"], held["variant"] = phase_variant(args.seed)
-    by_phase["train"], held["train"] = phase_train(args.seed)
-    by_phase["multihost"] = phase_multihost(args.seed)
-    by_phase["mesh"] = phase_mesh(args.seed, e2e, by_phase["e2e"])
-    by_phase["f32_equiv"] = phase_f32_equiv(args.f32_regions)
-    by_phase["wide"], held["wide"] = phase_wide(args.seed, e2e)
-    by_phase["genome"], largest = phase_genome(args.seed)
+    by_phase["e2e"], e2e = run("e2e", phase_e2e, args.seed, args.profile)
+    by_phase["variant"], held["variant"] = run("variant", phase_variant,
+                                               args.seed)
+    by_phase["train"], held["train"] = run("train", phase_train, args.seed)
+    by_phase["multihost"] = run("multihost", phase_multihost, args.seed)
+    by_phase["mesh"] = run("mesh", phase_mesh, args.seed, e2e,
+                           by_phase["e2e"])
+    by_phase["f32_equiv"] = run("f32_equiv", phase_f32_equiv,
+                                args.f32_regions)
+    by_phase["wide"], held["wide"] = run("wide", phase_wide, args.seed, e2e)
+    by_phase["genome"], largest = run("genome", phase_genome, args.seed)
+    by_phase["bench"] = run("bench", phase_bench, args.seed)
+    print(f"[smoke] phase walls (s) {walls}, all "
+          f"{time.perf_counter() - t_run:.1f} s | {gpu_line()}", flush=True)
 
     # the held launches' keys of each kernel: "fill fwd", "fill bwd",
     # "mutscore" (phase 9: "mutscore Ws=N")

@@ -432,10 +432,7 @@ def variant(args):
                    if x.start < reginfo.end - args.params["end_trim"]]
         muts = [x for x in muts
                 if x.start >= reginfo.end - args.params["end_trim"]]
-        # -m skips regions without mutations; -f and -a run every region
-        # (the JAX CLI's condition, `curmuts == [] and not args.all`, also
-        # skips every -f region, since -f reads no mutations)
-        if args.mut_file is not None and curmuts == []:
+        if curmuts == [] and not args.all:
             continue
         if nproc > 1 and ri % nproc != pid:
             continue

@@ -21,6 +21,7 @@ builders are copies of the JAX module's host helpers.
 from __future__ import annotations
 
 import ctypes
+import os
 
 import numpy as np
 import torch
@@ -781,16 +782,17 @@ def group_launches(engine, datas, muts_list, participate,
     engine with a mesh).
 
     host_geometry: take the post-backtrace scoring geometry from the host's
-    ``limited_geometry`` (default: in f64 and on a mesh, as the JAX engine
-    does) rather than from ``geom_body`` on the device (f32 on one
-    device)."""
+    ``limited_geometry`` (default: in f64, on a mesh and under
+    PSQ_DEV_GEOM=0, as the JAX engine does) rather than from ``geom_body``
+    on the device (f32 on one device)."""
     p = datas[0].params
     W = 2 * p.realign_width + 1
     Ws = 2 * min(p.scoring_width, p.realign_width) + 1
     RS = max(p.realign_width - p.scoring_width, 0)
     dt, dev, mesh = engine.dtype, engine.device, engine.mesh
     if host_geometry is None:
-        host_geometry = dt == torch.float64 or mesh is not None
+        host_geometry = (dt == torch.float64 or mesh is not None
+                         or os.environ.get("PSQ_DEV_GEOM", "1") == "0")
     elif mesh is not None and not host_geometry:
         raise ValueError("group_launches: a mesh takes the host geometry")
 

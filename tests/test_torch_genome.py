@@ -12,7 +12,6 @@ run on the CPU (slow: the fill twins run a Python loop per column) checks
 that it merges into one contig and prints every field."""
 
 import ast
-import importlib.util
 import json
 import tempfile
 from pathlib import Path
@@ -23,6 +22,7 @@ import torch
 from poreseq_tpu import cli as jcli
 from poreseq_tpu.engine.exact._native import LIB as JLIB
 from poreseq_tpu_torch.engine import _native
+from tools import genome_run
 
 torch.set_num_threads(1)
 
@@ -37,14 +37,6 @@ FIELDS = ("genome_bp", "regions", "regions_done", "regions_skipped",
 TINY = ["sharded", "--genome", "2400", "--region-length", "1050",
         "--read-len", "2400", "--shards", "2", "--limit", "1",
         "--iterations", "1"]
-
-
-def _tool():
-    spec = importlib.util.spec_from_file_location(
-        "genome_run", REPO / "tools" / "genome_run.py")
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
 
 
 def _script_defaults(name: str) -> dict:
@@ -67,7 +59,7 @@ def test_genome_run_takes_the_scripts_arguments(mode, script):
     backend's default is the port's engine, the read length's the region
     length + 400 as in bench_lambda.py), on the card unless --device says
     otherwise."""
-    args = vars(_tool().parse([mode]))
+    args = vars(genome_run.parse([mode]))
     for dest, default in _script_defaults(script).items():
         if dest == "backend":
             assert args[dest] == "torch"
@@ -84,7 +76,7 @@ def test_genome_run_exact_is_byte_equal_to_the_jax_cli(tmp_path,
     conf.write_text(CONF)
     monkeypatch.setattr(tempfile, "tempdir", str(tmp_path))
     _native.srand(1)
-    _tool().main(TINY + ["--backend", "exact", "--params", str(conf),
+    genome_run.main(TINY + ["--backend", "exact", "--params", str(conf),
                          "--keep"])
     res = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert all(k in res for k in FIELDS)
@@ -117,7 +109,7 @@ def test_genome_run_torch_on_the_cpu(tmp_path, capsys):
     """The TorchEngine on the CPU (about 150 s on one core)."""
     conf = tmp_path / "narrow.conf"
     conf.write_text(CONF)
-    _tool().main(TINY + ["--device", "cpu", "--params", str(conf)])
+    genome_run.main(TINY + ["--device", "cpu", "--params", str(conf)])
     res = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert all(k in res for k in FIELDS)
     assert res["device"] == "cpu" and res["peak_device_mib"] is None

@@ -33,13 +33,16 @@ def test_port_imports_nothing_of_the_jax_package():
     """No file of poreseq_tpu_torch/ (the device mesh, parallel/mesh.py,
     and the exact engine, engine/exact/ over engine/_native.py, among
     them) and no line of
-    chip_smoke.py or the tools (tools/profile_phase3.py,
-    sweep_constants.py, genome_run.py) imports poreseq_tpu (or jax),
-    lazily inside a function or not."""
+    chip_smoke.py or the tools (tools/__init__.py, profile_phase3.py,
+    sweep_constants.py, genome_run.py, bench.py, bench_consensus.py,
+    bench_multihost.py, dryrun.py) imports poreseq_tpu (or jax), lazily
+    inside a function or not."""
     files = sorted((REPO / "poreseq_tpu_torch").rglob("*.py"))
     files += [REPO / "chip_smoke.py"] + [
         REPO / "tools" / f"{t}.py"
-        for t in ("profile_phase3", "sweep_constants", "genome_run")]
+        for t in ("__init__", "profile_phase3", "sweep_constants",
+                  "genome_run", "bench", "bench_consensus",
+                  "bench_multihost", "dryrun")]
     port = REPO / "poreseq_tpu_torch"
     assert port / "parallel" / "mesh.py" in files
     assert port / "engine" / "_native.py" in files

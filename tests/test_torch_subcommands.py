@@ -106,19 +106,38 @@ def _reference_scores(run, mode, capsys, backend):
     return _scores(capsys.readouterr().out, mode)
 
 
+def _port_f_scores(run, capsys):
+    """-f scored through the port's pipeline.variant on a float64
+    TorchEngine on the CPU (the CLI skips every -f region, as the JAX CLI
+    does: -f reads no mutations)."""
+    from poreseq_tpu_torch import pipeline
+    from poreseq_tpu_torch.engine import TorchEngine
+
+    params = dict(load_params(run["conf"]), end_trim=0)
+    capsys.readouterr()
+    pipeline.variant(run["fasta"], run["bam"], run["reads"], run["var"], [],
+                     REGION, params, 0,
+                     engine=TorchEngine("cpu", torch.float64))
+    return _scores(capsys.readouterr().out, "f")
+
+
 @pytest.mark.parametrize("mode", ["m", "a", "f"])
 def test_variant_matches_exact_engine(run, f64_cli, capsys, mode):
     ref, flags = _mode_args(run, mode)
     capsys.readouterr()
-    f64_cli.main(["variant", ref, run["bam"], run["reads"], *flags, "-r",
-                  REGION, "-p", run["conf"], "--device", "cpu"])
-    got = _scores(capsys.readouterr().out, mode)
+    if mode == "f":
+        got = _port_f_scores(run, capsys)
+    else:
+        f64_cli.main(["variant", ref, run["bam"], run["reads"], *flags,
+                      "-r", REGION, "-p", run["conf"], "--device", "cpu"])
+        got = _scores(capsys.readouterr().out, mode)
     exp = _reference_scores(run, mode, capsys, "exact")
     assert got.keys() == exp.keys() and len(got) > 0
     for k in exp:
         # TpuEngine and the exact engine disagree on mutations at a
         # region's last bases (tests/test_tpu_engine.py draws them below
-        # len - 6); the port follows TpuEngine there (the next test)
+        # len - 6); the port follows TpuEngine there
+        # (test_variant_all_matches_tpu_engine_f64)
         if mode == "f" or k[0] < len(run["truth"]) - 6:
             assert abs(got[k] - exp[k]) <= 1e-8, (k, got[k], exp[k])
     if mode == "m":
@@ -126,6 +145,30 @@ def test_variant_matches_exact_engine(run, f64_cli, capsys, mode):
         assert got[revert] > 0 > got[corrupt]
     if mode == "f":
         assert got["good"] > got["bad"]
+
+
+@pytest.mark.parametrize("mode,backend", [("f", "torch"), ("f", "exact"),
+                                          ("m", "exact"), ("a", "exact")])
+def test_variant_cli_is_byte_equal_to_the_jax_cli(run, capsys, mode,
+                                                  backend):
+    """The port's `variant` prints byte for byte what the JAX CLI prints on
+    the same run: for -f nothing (both skip a region whose mutation list is
+    empty unless -a is given, poreseq_tpu/cli.py:362), for -m and -a the
+    exact engine's scores."""
+    from poreseq_tpu import cli as jcli
+    from poreseq_tpu_torch import cli as pcli
+
+    ref, flags = _mode_args(run, mode)
+    argv = ["variant", ref, run["bam"], run["reads"], *flags, "-r", REGION,
+            "-p", run["conf"]]
+    capsys.readouterr()
+    jcli.main(argv + ["--backend", "tpu" if backend == "torch" else backend])
+    exp = capsys.readouterr().out
+    pcli.main(argv + (["--device", "cpu"] if backend == "torch"
+                      else ["--backend", "exact"]))
+    got = capsys.readouterr().out
+    assert got == exp
+    assert (exp == "") == (mode == "f")
 
 
 def test_variant_all_matches_tpu_engine_f64(run, f64_cli, capsys,
