@@ -18,7 +18,9 @@ non-zero, nothing runs on the CPU instead):
                 group of an 8-region lockstep batch, the Viterbi sweep
                 (with and without backpointers), the sampler (16
                 candidates) and its Gumbel kernel on that batch's 8
-                regions, the Viterbi observations on those regions' rows,
+                regions (the Gumbel kernel also at the edges of its grid
+                and row-key passes, GUMBEL_SHAPES), the Viterbi
+                observations on those regions' rows,
                 the per-base likes, the scoring geometry and its windows on
                 the 8-region batch of a Mutate round (scoring width 100), in
                 f64 (equal to the twin) and f32 (the production type; every
@@ -35,8 +37,10 @@ non-zero, nothing runs on the CPU instead):
                 twice the cap (the instance that reads the row from device
                 memory), equal; each timed in f32 (event and queued ms)
                 under the kernel's "wide" key;
-  2b. viterbi — the sampler's counter hash on the card equals its pinned
-                values bit for bit, and in f64 each of the 8 regions of
+  2b. viterbi — the sampler's threefry2x32 on the card gives JAX's row keys
+                and 32- and 64-bit words (PINNED_KEYS, PINNED_WORDS,
+                computed with JAX) bit for bit, the twin's uniforms on the
+                card equal the CPU's, and in f64 each of the 8 regions of
                 phase 2's batch gets the same candidates inside the batch
                 as alone (f32: the count that do is printed), through the
                 observation, sweep, Gumbel and sampler kernels;
@@ -211,10 +215,10 @@ def queued_ms(fn, reps: int = 20) -> float:
 
 def timed(ms: float, work, dtype) -> dict:
     """A kernel's time beside its least time on the card for the same work
-    ((bytes, operations) from engine/roofline.py)."""
+    ((bytes, operations[, integer operations]) from engine/roofline.py)."""
     from poreseq_tpu_torch.engine.roofline import bound_ms
 
-    b_ms, by = bound_ms(*work, dtype)
+    b_ms, by = bound_ms(*work[:2], dtype, *work[2:])
     return dict(ms=ms, bound_ms=b_ms, bound_by=by, share=b_ms / ms)
 
 
@@ -625,6 +629,28 @@ def check_mutscore(engine, calls, f64: bool, report: dict):
              if not f64 else ""), flush=True)
 
 
+def gumbel_shapes() -> dict:
+    """{name: (nk, R)} of the Gumbel kernel's edges, as
+    tests/test_torch_kernels_cuda.py's GUMBEL_SHAPES has them: G rows a grid
+    pass (132 SM_BLOCKS blocks of NT / 256 rows, constants read from
+    csrc/viterbi_gumbel.cu), 32 G rows a pass of row keys (a warp derives
+    the keys of its next 32 rows at once)."""
+    import re
+
+    from poreseq_tpu_torch import _build
+
+    text = (_build.CSRC / "viterbi_gumbel.cu").read_text()
+    nt, sm_blocks = (int(re.search(rf"constexpr int {n} = (\d+);",
+                                   text).group(1))
+                     for n in ("NT", "SM_BLOCKS"))
+    G = 132 * sm_blocks * (nt // 256)
+    return {"one row": (1, 1), "one candidate": (1, 700),
+            "one row each": (16, 1), "below the grid": (16, 40),
+            "the grid": (4, G // 4), "above the grid": (3, G // 2 + 1),
+            "a key pass": (16, 2 * G),
+            "above a key pass": (5, 32 * G // 5 + 1)}
+
+
 VITERBI_ARGS = (0.05, 0.01)                    # skip_prob, stay_prob
 SAMPLE_ARGS = (16, 0.33, 0.75)                  # nkeep, mut_min, max
 
@@ -644,11 +670,12 @@ ONE_BLOCK_MS = {"viterbi_sweep": 2.005, "viterbi_sample": 3.680}
 # §6; NVIDIA H100 80GB HBM3 at 700 W), printed beside this run's: the
 # observations (a block a row, the tables read for every row, trimmed rows'
 # emissions computed twice), the likes (a warp an event walking its
-# levels), the Gumbel noise (an element a thread) and the geometry (serial
-# walks over the threads' summaries)
+# levels), the Gumbel noise (PR 10's row layout on a counter hash, before
+# JAX's threefry2x32) and the geometry (serial walks over the threads'
+# summaries)
 EARLIER_MS = {"viterbi_obs": (0.424, "a block a row"),
               "likes": (0.027, "a warp an event"),
-              "viterbi_gumbel": (0.0735, "an element a thread"),
+              "viterbi_gumbel": (0.0460, "the counter hash"),
               "geom": (0.036, "serial summary walks")}
 # the kernels whose line also gives queued_ms: short launches whose
 # wrapper's host time may exceed the kernel's, so event_ms reads the host
@@ -718,6 +745,17 @@ def check_viterbi(engine, events, seed: int, f64: bool, report: dict):
     if not torch.equal(gum, gum_ref):
         fail(f"viterbi_gumbel (f64={f64}) "
              + _differs("gumbel", gum, gum_ref))
+    del gum_ref
+    # and at the edges of its grid and of its row-key passes
+    for name, (snk, sR) in gumbel_shapes().items():
+        got = gumbel_cuda(seed, snk, sR, dt, engine.device)
+        ref = gumbel_reference(seed, snk, torch.arange(sR, device=obs.device),
+                               dt)
+        torch.cuda.synchronize()
+        if not torch.equal(got, ref):
+            fail(f"viterbi_gumbel (f64={f64}, {name}: {snk} x {sR}) "
+                 + _differs("gumbel", got, ref))
+        del got, ref
     sweep, sample, gumbel = (dict(max_abs_err=0.0) for _ in range(3))
     if not f64:
         sweep.update(timed(
@@ -752,7 +790,8 @@ def check_viterbi(engine, events, seed: int, f64: bool, report: dict):
              f"{obs_line['plain_ms']:.1f} ms)" if not f64 else "")
           + f"; sweep liks/fwds equal, with backpointers liks/fwds/bps equal, "
           f"sampler paths of {paths.shape[0] * paths.shape[1]} chains equal, "
-          f"the Gumbel kernel's [{nk}, {R}, 1024] equal"
+          f"the Gumbel kernel's [{nk}, {R}, 1024] equal (and at "
+          f"{len(gumbel_shapes())} edge shapes)"
           + (f"; sweep {_timing(sweep)} (one-block design: "
              f"{ONE_BLOCK_MS['viterbi_sweep']} ms), twin "
              f"{sweep['plain_ms']:.1f} ms; "
@@ -1238,26 +1277,38 @@ def _write_lines(path: str, lines) -> str:
 
 
 def phase_viterbi(seed: int):
-    """2b: the counter hash on the card, and each region's Viterbi
-    candidates inside an 8-region batch against its solo call."""
+    """2b: threefry2x32 on the card, and each region's Viterbi candidates
+    inside an 8-region batch against its solo call."""
     import torch
 
-    from poreseq_tpu_torch.engine import TorchEngine
-    from poreseq_tpu_torch.engine.viterbi import (counter_hash,
-                                                  counter_uniforms)
+    from poreseq_tpu_torch.engine import TorchEngine, prng
 
     _reset_launches()
     t0 = time.perf_counter()
-    t = lambda v: torch.tensor(v, dtype=torch.int64, device="cuda")
-    for (sd, k, i, w), h in PINNED_HASH:
-        got = int(counter_hash(sd, t([k]), t([i]), t([w]))[0])
-        if got != h:
-            fail(f"viterbi: counter_hash{(sd, k, i, w)} = {got} on the card, "
-                 f"pinned {h}")
+    t = lambda v: torch.tensor([v], dtype=torch.int64, device="cuda")
+    for (sd, k, i), words in PINNED_KEYS:
+        k0, k1 = prng.split(prng.prng_key(sd), 16, "cuda")
+        got = tuple(int(w[0]) for w in prng.fold_in(
+            (k0[k:k + 1], k1[k:k + 1]), t(i)))
+        if got != words:
+            fail(f"viterbi: row key {(sd, k, i)} = {got} on the card, "
+                 f"pinned {words}")
+    for words, s, w32, w64 in PINNED_WORDS:
+        y0, y1 = (int(y[0]) for y in prng.threefry2x32(
+            *(t(w) for w in words), t(0), t(s)))
+        if (y0 ^ y1, y0 << 32 | y1) != (w32, w64):
+            fail(f"viterbi: threefry2x32({words}, (0, {s})) = {(y0, y1)} on "
+                 f"the card, pinned words {(w32, w64)}")
     rows = torch.arange(0, 4096, 7, dtype=torch.int64)
+
+    def uniforms(device, dt):
+        k0, k1 = prng.split(prng.prng_key(seed), 16, device)
+        a, b = prng.fold_in((k0[:, None], k1[:, None]),
+                            rows.to(device)[None, :])
+        return prng.uniform((a[..., None], b[..., None]), 1024, dt).cpu()
+
     for dt in (torch.float32, torch.float64):
-        u_card = counter_uniforms(seed, 16, rows.cuda(), dt).cpu()
-        if not torch.equal(u_card, counter_uniforms(seed, 16, rows, dt)):
+        if not torch.equal(uniforms("cuda", dt), uniforms("cpu", dt)):
             fail(f"viterbi: {dt} uniforms differ between the card and the "
                  "CPU")
     events = [d.events for d in _mut_regions(seed)["refine"][0]]
@@ -1275,8 +1326,9 @@ def phase_viterbi(seed: int):
             fail("viterbi: a region got fewer than 16 candidates")
     wall = time.perf_counter() - t0
     launches = _launches()
-    print(f"[viterbi] counter hash on the card = pinned values, uniforms "
-          f"bit-equal to the CPU's; {len(events)} regions (10-14X, 1 kb) "
+    print(f"[viterbi] threefry2x32 on the card = JAX's pinned keys and "
+          f"words, uniforms bit-equal to the CPU's; {len(events)} regions "
+          f"(10-14X, 1 kb) "
           f"batched vs solo, 16 candidates each: f64 "
           f"{matches[torch.float64]}/{len(events)} equal, f32 "
           f"{matches[torch.float32]}/{len(events)} equal; batched call f64 "
@@ -1907,8 +1959,8 @@ LIBRARY_NOTE = {
                      "positions (a max-plus and a sum-product step per row)",
     "viterbi_sample": "no single PyTorch call computes a chain of "
                       "categorical draws, each conditioned on the last",
-    "viterbi_gumbel": "no single PyTorch call draws Gumbel noise from a "
-                      "counter hash",
+    "viterbi_gumbel": "no single PyTorch call draws JAX's threefry2x32 "
+                      "Gumbel noise (torch.rand draws Philox bits)",
     "viterbi_obs": "no single PyTorch call computes a trimmed mean over "
                    "events (torch.sort then a masked sum is several calls)",
     "likes": "no single PyTorch call computes the last anchored value at "
@@ -1919,12 +1971,26 @@ LIBRARY_NOTE = {
                "outside the event (a gather, a clamp and a where)",
 }
 
-# (seed, k, i, w) -> h, as tests/test_torch_viterbi.py pins them on the CPU
-PINNED_HASH = [((0, 0, 0, 0), 1106484830), ((7, 0, 0, 0), 993596527),
-               ((7, 15, 1234, 1023), 3231325825),
-               ((7, 3, 99999, 1541), 3294090134),
-               ((2 ** 32 + 7, 3, 99999, 1541), 3294090134),
-               ((123456789, 1, 7, 2047), 767034526)]
+# (seed, k, i) -> the row key fold_in(split(PRNGKey(seed), nk)[k], i), and
+# (row key, s) -> state s's 32-bit word y0 ^ y1 and 64-bit word y0 << 32 |
+# y1 of threefry2x32(row key, (0, s)), computed with JAX as
+# tests/test_torch_prng.py pins them on the CPU
+PINNED_KEYS = [((0, 0, 0), (4165894930, 804218099)),
+               ((0, 15, 959), (1113189882, 2059144140)),
+               ((7, 3, 99999), (4078193910, 4255733508)),
+               ((2 ** 32 + 7, 5, 2 ** 31 - 1), (2330131653, 608189605))]
+PINNED_WORDS = [((4165894930, 804218099), 0, 1214273199,
+                 2933590336990503537),
+                ((4165894930, 804218099), 511, 2782833415,
+                 2631028836633797070),
+                ((1113189882, 2059144140), 0, 168515629,
+                 3676334643026570956),
+                ((1113189882, 2059144140), 1023, 937218459,
+                 11934964057838015240),
+                ((4078193910, 4255733508), 0, 2224344565,
+                 14285235530272315378),
+                ((4078193910, 4255733508), 1023, 4001996215,
+                 17772188034002510700)]
 
 
 # phase 9's params file: phase 3's with realign width 700 and scoring width

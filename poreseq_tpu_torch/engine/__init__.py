@@ -25,6 +25,7 @@ Running out of memory leaves unchanged: the CLI retries smaller batches.
 from __future__ import annotations
 
 import functools
+import os
 import sys
 
 import numpy as np
@@ -68,11 +69,6 @@ class TorchEngine:
 
     name = "torch"
 
-    #: event-row budget per candidate-scoring fill (engine/multi.py chunks
-    #: (region, candidate) snapshots up to this many rows per dispatch);
-    #: chunking does not change results
-    wave_rows = 512
-
     def __init__(self, device="cuda", dtype=torch.float32, seed: int = 0,
                  mesh=None):
         self.device = torch.device(device)
@@ -93,6 +89,11 @@ class TorchEngine:
                              "float64)")
         self.dtype = dtype
         self.seed = seed
+        # event-row budget per candidate-scoring fill (engine/multi.py chunks
+        # (region, candidate) snapshots up to this many rows per dispatch;
+        # chunking does not change results): PSQ_WAVE_ROWS, as the JAX
+        # engine reads it (poreseq_tpu/engine/tpu/__init__.py:77)
+        self.wave_rows = int(os.environ.get("PSQ_WAVE_ROWS", 512))
         # event level/model data is constant across engine calls (only
         # ref_align changes, host-side), so the batch upload happens once
         # per region set
@@ -327,8 +328,9 @@ class TorchEngine:
     def viterbi_mutate_multi(self, events_lists, nkeep, skip_prob, stay_prob,
                              mut_min, mut_max, verbose=False):
         """ViterbiMutate for R regions in one batched sweep; the draws are
-        counter-based on the engine's seed, so a region's candidates do not
-        depend on the other regions of the call."""
+        the JAX package's (threefry2x32 keys from the engine's seed by
+        candidate and row), so a region's candidates do not depend on the
+        other regions of the call."""
         from .viterbi import viterbi_mutate_multi
 
         return viterbi_mutate_multi(events_lists, nkeep, skip_prob,

@@ -11,7 +11,12 @@ columns padded to a bucket, which the kernels fill with zeros) is left
 out.  The bound is the larger of bytes / 3.35e12 B/s and operations / the
 f32 or f64 rate of the CUDA cores (67e12 and 34e12 per second; none of
 these kernels can use the tensor cores), both NVIDIA's data-sheet peaks at
-700 W.
+700 W.  32-bit integer operations (the Gumbel noise's threefry2x32) go
+over the CUDA cores' INT32 peak, 33.5e12 per second (NVIDIA's H100
+white paper: 132 SMs x 64 INT32 lanes x 1.98 GHz, a multiply-add counted
+as two operations, as the f32 peak counts a fused multiply-add); they run
+beside the float operations, so the operations' time is the larger of the
+two.
 """
 
 from __future__ import annotations
@@ -20,6 +25,7 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {torch.float32: 67e12, torch.float64: 34e12}
+INT32_OPS_PER_S = 33.5e12
 
 # operations per band cell, read off the twin's expressions (engine/dp.py)
 EMISSION_OPS = 18         # dp.emission
@@ -40,9 +46,15 @@ SWEEP_BP_OPS = 8          # the argmax tree and the priority tests/selects
 # log (+ eps), the noise's add, the argmax
 SAMPLE_OPS = 8
 # per (candidate, row, state) of the Gumbel noise, which every region of a
-# call shares: two logs, two negations, and the counter hash
-GUMBEL_OPS = 4
-HASH_OPS = 9              # one lowbias32 round and its xor (f64 draws two)
+# call shares: the uniform's subtract, multiply, add and max, two logs and
+# two negations (float), and integer operations: threefry2x32 (20 rounds of
+# an add, a rotate and an xor; 12 key adds) and the fraction bits set into
+# 1.m (f32: an xor, a shift, an or; f64: two shifts, two ors); per row, its
+# key: two threefry2x32 and the candidate's and row's split of the index
+GUMBEL_OPS = 8
+THREEFRY_OPS = 72
+BITS_OPS = {torch.float32: 3, torch.float64: 4}
+ROW_KEY_OPS = 2 * THREEFRY_OPS + 2
 # per (row, valid event, state) of the Viterbi observations: the emission
 # and its add to the kept sum or its compare against the drop threshold
 OBS_OPS = EMISSION_OPS + 1
@@ -51,10 +63,13 @@ INTERP_OPS = 8            # a level's interpolation (or flank line) and tests
 BAND_OPS = 8              # a column's clamps, band ends and rate-limit step
 
 
-def bound_ms(nbytes: float, ops: float, dtype: torch.dtype):
-    """(least time in ms, "bytes" or "operations": whichever bounds it)."""
+def bound_ms(nbytes: float, ops: float, dtype: torch.dtype,
+             int_ops: float = 0):
+    """(least time in ms, "bytes" or "operations": whichever bounds it);
+    ops are float operations of dtype, int_ops 32-bit integer ones."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_OPS_PER_S[dtype] * 1e3
+    t_ops = max(ops / PEAK_OPS_PER_S[dtype],
+                int_ops / INT32_OPS_PER_S) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -195,10 +210,12 @@ def viterbi_sweep_work(obs, n_real, need_bp: bool):
     return nbytes, ops
 
 
-def _noise_ops(nk: int, rows: int, dtype: torch.dtype) -> int:
-    """Operations of the Gumbel noise for nk candidates over rows rows."""
-    hash_ops = HASH_OPS * (2 if dtype == torch.float64 else 1)
-    return nk * rows * 1024 * (GUMBEL_OPS + hash_ops)
+def _noise_ops(nk: int, rows: int, dtype: torch.dtype):
+    """(float, integer) operations of the Gumbel noise for nk candidates
+    over rows rows."""
+    return (nk * rows * 1024 * GUMBEL_OPS,
+            nk * rows * (1024 * (THREEFRY_OPS + BITS_OPS[dtype])
+                         + ROW_KEY_OPS))
 
 
 def viterbi_sample_work(fwds, valid_rows, attens):
@@ -208,7 +225,7 @@ def viterbi_sample_work(fwds, valid_rows, attens):
     rows written, per chain, real row with a draw (rows 1..n-1) and state
     the arithmetic of SAMPLE_OPS, and the noise once for the call over the
     rows with a draw in any region; padded rows and regions are not
-    counted."""
+    counted: (bytes, float operations, integer operations)."""
     b = _size(fwds.dtype)
     nk = attens.shape[0]
     n = valid_rows.long().sum(dim=1)
@@ -217,18 +234,19 @@ def viterbi_sample_work(fwds, valid_rows, attens):
     drawn_rows = max(int(n.max()) - 1, 0) if len(n) else 0
     nbytes = (rows * (1024 * b + 1) + 17 * b + nk * b + regions * 8
               + rows * nk * 8)
-    return nbytes, (draws * 1024 * SAMPLE_OPS
-                    + _noise_ops(nk, drawn_rows, fwds.dtype))
+    noise, noise_int = _noise_ops(nk, drawn_rows, fwds.dtype)
+    return nbytes, draws * 1024 * SAMPLE_OPS + noise, noise_int
 
 
 def viterbi_gumbel_work(valid_rows, nk: int, dtype: torch.dtype):
     """(bytes, operations) of the Gumbel launch of a sampler call on
     valid_rows [B, R] with nk candidates: the noise of the rows with a draw
     in any region (rows 1..n-1 of the longest) written once, and its
-    arithmetic; the padded rows it also fills are not counted."""
+    arithmetic; the padded rows it also fills are not counted: (bytes,
+    float operations, integer operations)."""
     n = valid_rows.long().sum(dim=1)
     rows = max(int(n.max()) - 1, 0) if len(n) else 0
-    return nk * rows * 1024 * _size(dtype), _noise_ops(nk, rows, dtype)
+    return (nk * rows * 1024 * _size(dtype), *_noise_ops(nk, rows, dtype))
 
 
 def viterbi_obs_work(lvl, valid, tabs):

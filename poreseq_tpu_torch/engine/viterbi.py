@@ -12,15 +12,18 @@ over regions (and candidates).  Every sum
 over the states, in the twins and the kernels, is taken on one halving
 tree (``halving_levels``), so the kernels can equal the twins bit for bit.
 
-Randomness: counter-based uniforms u = h(seed, k, i, s) for candidate k,
-real row i and state s (``counter_hash``), the torch form of the JAX
-package's ``fold_in(split(PRNGKey(seed))[k], i)`` keys.  Every region of a
-batch draws the same u[k, i, :], so a region's candidates do not depend on
-its batch (its slot, the batch bucket or the padded row count).  h is a
-pure 32-bit integer hash, in int64 tensor ops in the twin and in uint32
-arithmetic in the Gumbel kernel, bit-equal on CPU and CUDA.
-torch cannot reproduce JAX's threefry bits, so sampled candidates differ
-from the JAX package's; the deterministic path (nkeep=0) matches.
+Randomness: the JAX package's own draws.  Candidate k's row i takes the
+Gumbel noise of ``jax.random.categorical`` under the key fold_in(split(
+PRNGKey(seed), nkeep)[k], i) (poreseq_tpu/engine/tpu/viterbi.py:310-333),
+computed with JAX's threefry2x32 (``engine/prng.py``) in int64 tensor ops
+in the twin and in uint32 arithmetic in the Gumbel kernel, so the sampled
+candidates are the JAX package's: in f64 the same strings as TpuEngine's
+(the uniforms are JAX's bit for bit; the noise is within an ulp of
+max(|g|, 1) of XLA's, whose log differs from torch's now and then), in f32
+the same up to near-ties of a draw.  The key depends on the
+candidate and the row only, so every region of a batch draws the same
+noise and a region's candidates do not depend on its batch (its slot, the
+batch bucket or the padded row count), as in the JAX package.
 """
 
 from __future__ import annotations
@@ -35,6 +38,7 @@ from .._build import Kernel, check, dtype_suffix, ptr, route, stream
 from ..core.events import getrefstates, update_refs
 from ..core.sequence import next_state, state_base
 
+from . import prng
 from .dp import emission
 
 # ---------------------------------------------------------------- host side
@@ -378,64 +382,18 @@ def viterbi_sweep(obs, n_real, skip_prob, stay_prob, need_bp=False):
                                    need_bp)
 
 
-_M32 = 0xFFFFFFFF
 # sample_paths_reference makes the noise this many rows at a time
 _DRAW_ROWS = 64
 
 
-def _mul32(a, b: int):
-    """(a * b) mod 2^32 for a in [0, 2^32) and a 32-bit constant b, on
-    16-bit halves so that no int64 product overflows."""
-    a_lo, a_hi = a & 0xFFFF, a >> 16
-    b_lo, b_hi = b & 0xFFFF, b >> 16
-    return (a_lo * b_lo + (((a_hi * b_lo + a_lo * b_hi) & 0xFFFF) << 16)) \
-        & _M32
-
-
-def _mix32(x):
-    """A 32-bit integer finalizer (xor-shift-multiply, "lowbias32"), on
-    Python ints or int64 tensors holding values in [0, 2^32)."""
-    x = x ^ (x >> 16)
-    x = _mul32(x, 0x7FEB352D)
-    x = x ^ (x >> 15)
-    x = _mul32(x, 0x846CA68B)
-    return x ^ (x >> 16)
-
-
-def counter_hash(seed: int, k, i, w):
-    """h(seed, k, i, w) = mix(mix(mix(mix(seed ^ 0x9E3779B9) ^ k) ^ i) ^ w)
-    in [0, 2^32), seed taken mod 2^32: k the candidate, i the row,
-    w = s + 1024 * lane for state s (lane 1 supplies the low word of an f64
-    draw).  Broadcasts k, i, w (int64 tensors with values in [0, 2^32))
-    like any elementwise op."""
-    return _mix32(_mix32(_mix32(_mix32((seed & _M32) ^ 0x9E3779B9) ^ k) ^ i)
-                  ^ w)
-
-
-def counter_uniforms(seed: int, nkeep: int, rows, dtype):
-    """u[k, r, s] = (x + 0.5) / 2^n in the open interval (0, 1) for the
-    candidates 0..nkeep-1, the row indexes ``rows`` [n_rows] (int64) and
-    the 1024 states: x holds the hash's top n bits, n the float's fraction
-    width (23 for f32, 52 for f64), so x + 0.5 is exact and u never rounds
-    to 0 or 1.  Returns [nkeep, n_rows, 1024] of ``dtype``."""
-    dev = rows.device
-    k = torch.arange(nkeep, dtype=torch.int64, device=dev)[:, None, None]
-    s = torch.arange(1024, dtype=torch.int64, device=dev)
-    i = rows[None, :, None]
-    x = counter_hash(seed, k, i, s)
-    if dtype == torch.float64:
-        lo = counter_hash(seed, k, i, s + 1024)
-        x = ((x >> 12) << 32) | lo
-        return (x.to(dtype) + 0.5) * 2.0 ** -52
-    if dtype != torch.float32:
-        raise ValueError(f"counter_uniforms: dtype {dtype}")
-    return ((x >> 9).to(dtype) + 0.5) * 2.0 ** -23
-
-
 def gumbel_reference(seed: int, nkeep: int, rows, dtype):
-    """The sampler's Gumbel noise -log(-log(u)) on the counter uniforms:
-    [nkeep, n_rows, 1024] (plain twin of csrc/viterbi_gumbel.cu)."""
-    return -torch.log(-torch.log(counter_uniforms(seed, nkeep, rows, dtype)))
+    """The sampler's Gumbel noise [nkeep, n_rows, 1024] (plain twin of
+    csrc/viterbi_gumbel.cu): g[k, r, s] is state s of
+    ``jax.random.gumbel(fold_in(split(PRNGKey(seed), nkeep)[k], i),
+    (1024,), dtype)`` for the row index i = rows[r] (rows int64)."""
+    k0, k1 = prng.split(prng.prng_key(seed), nkeep, rows.device)
+    a, b = prng.fold_in((k0[:, None], k1[:, None]), rows[None, :])
+    return prng.gumbel((a[..., None], b[..., None]), 1024, dtype)
 
 
 def transition_index(cur, p):
@@ -484,9 +442,9 @@ def sample_paths_reference(T, fwds, valid_rows, startst, attens, seed: int):
     startst[b] and path[i-1] is drawn with probability proportional to
     T[path[i]] * fwds[b, i]^atten[k], normalized by its tree total
     (Gumbel-max over log-probabilities, the form jax.random.categorical
-    takes, with the counter uniforms u[k, i] that every region shares; the
-    first index wins a tie).  Rows past a region's end keep the start
-    state.  Returns [B, nkeep, R]."""
+    takes, with the noise of candidate k's row key that every region
+    shares, ``gumbel_reference``; the first index wins a tie).  Rows past a
+    region's end keep the start state.  Returns [B, nkeep, R]."""
     B, R, _ = fwds.shape
     nk = attens.shape[0]
     dev, dt = fwds.device, fwds.dtype
@@ -522,7 +480,7 @@ VITERBI_SAMPLE = Kernel(
     "poreseq_tpu/engine/tpu/viterbi.py:320 _backtrace_one",
     {"psq_viterbi_sample_f32": _SAMPLE_SIG,
      "psq_viterbi_sample_f64": _SAMPLE_SIG})
-_GUMBEL_SIG = [ctypes.c_void_p] + [ctypes.c_int] * 2 + [ctypes.c_uint,
+_GUMBEL_SIG = [ctypes.c_void_p] + [ctypes.c_int] * 2 + [ctypes.c_uint64,
                                                         ctypes.c_void_p]
 VITERBI_GUMBEL = Kernel(
     "viterbi_gumbel",
@@ -537,7 +495,8 @@ def gumbel_cuda(seed: int, nkeep: int, R: int, dtype, device):
     0..R-1, [nkeep, R, 1024]."""
     gum = torch.empty((nkeep, R, 1024), dtype=dtype, device=device)
     VITERBI_GUMBEL.call(f"psq_viterbi_gumbel_{dtype_suffix(dtype)}",
-                        gum.device, ptr(gum), nkeep, R, seed & _M32,
+                        gum.device, ptr(gum), nkeep, R,
+                        seed & 0xFFFFFFFFFFFFFFFF,
                         stream(gum.device))
     return gum
 

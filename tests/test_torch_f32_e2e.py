@@ -6,8 +6,9 @@ cases, widths and rule), on the port's own engines.
 
 Both engines get the exact engine's Viterbi candidates (libc rand(),
 seeded per case): candidates only seed proposals, and TorchEngine's own
-draws come from a counter hash.  The decisions compared are phase 1
-('self' 2D-read candidates), a shared-candidate Mutate round and Refine
+draws are the JAX package's (threefry2x32), not libc's.  The decisions
+compared are phase 1 ('self' 2D-read candidates), a shared-candidate
+Mutate round and Refine
 (all 9 point mutations per base).  A divergence must be bounded
 (equal-accuracy consensus) and is reported as xfail, so its rate is
 visible; chip_smoke.py phase 8 runs the same protocol on the card at

@@ -229,22 +229,27 @@ def _gumbel_grid_rows():
     return 132 * sm_blocks * (nt // 256)
 
 
-# (nk, R) of the Gumbel kernel's edges, for G rows a grid pass
+# (nk, R) of the Gumbel kernel's edges, for G rows a grid pass (a warp
+# derives the keys of its next 32 rows at once: 32 G rows a key pass)
 GUMBEL_SHAPES = {"one row": lambda G: (1, 1),
                  "one candidate": lambda G: (1, 700),
                  "one row each": lambda G: (16, 1),
                  "below the grid": lambda G: (16, 40),
                  "the grid": lambda G: (4, G // 4),
-                 "above the grid": lambda G: (3, G // 2 + 1)}
+                 "above the grid": lambda G: (3, G // 2 + 1),
+                 "a key pass": lambda G: (16, 2 * G),
+                 "above a key pass": lambda G: (5, 32 * G // 5 + 1)}
 
 
 @pytest.mark.parametrize("engine", DTYPES, indirect=True)
 @pytest.mark.parametrize("shape", ["16 x 70"] + list(GUMBEL_SHAPES))
 def test_viterbi_gumbel_kernel_matches_twin(engine, shape):
-    """The sampler's Gumbel kernel equals -log(-log(u)) on the counter
-    uniforms, bit for bit, and counts its own launches only: 16 candidates
-    of 70 rows, R = 1, nk = 1, and nk R below, equal to and above (about
-    1.5 passes) the rows its grid takes in one pass."""
+    """The sampler's Gumbel kernel equals its twin's threefry noise (JAX's
+    keys, uniforms and -log(-log(u))), bit for bit, and counts its own
+    launches only: 16 candidates of 70 rows, R = 1, nk = 1, and nk R below,
+    equal to and above (about 1.5 passes) the rows its grid takes in one
+    pass and those of one pass of row keys (32 rows a warp), and one row
+    above it."""
     from poreseq_tpu_torch.engine.viterbi import (VITERBI_GUMBEL,
                                                   VITERBI_SAMPLE, gumbel_cuda,
                                                   gumbel_reference)

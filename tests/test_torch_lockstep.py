@@ -99,3 +99,44 @@ def test_train_candidates_lockstep_matches_sequential(tmp_path, monkeypatch,
     for (seq_s, acc_s), (seq_l, acc_l) in zip(seq_results, lock_results):
         assert seq_l == seq_s
         assert abs(acc_l - acc_s) < 1e-9
+
+
+def test_wave_rows_budget_leaves_sequences_unchanged(monkeypatch):
+    """PSQ_WAVE_ROWS sets TorchEngine's event-row budget a candidate-scoring
+    fill, with the JAX engine's default (512): a Viterbi Mutate round on two
+    regions ends in the same sequences at a budget of 16 rows
+    (a fill for each candidate's events) and of 512 (one fill for all 32
+    candidates), and the small budget dispatches more fills."""
+    from poreseq_tpu.engine.tpu import TpuEngine
+    from poreseq_tpu_torch.engine.multi import mutate_datas
+    from poreseq_tpu_torch.engine.types import AlignData as PortData
+    from poreseq_tpu_torch.sim import simulate_session as port_session
+
+    monkeypatch.delenv("PSQ_WAVE_ROWS", raising=False)
+    assert TorchEngine("cpu").wave_rows == TpuEngine.wave_rows == 512
+    out, fills = {}, {}
+    for budget in (16, 512):
+        monkeypatch.setenv("PSQ_WAVE_ROWS", str(budget))
+        eng = TorchEngine("cpu", torch.float64)
+        assert eng.wave_rows == budget
+        score, calls = eng.score_alignments_multi, []
+
+        def counted(*args, **kwargs):
+            calls.append(kwargs.get("likes_only", False))
+            return score(*args, **kwargs)
+
+        eng.score_alignments_multi = counted
+        rng = np.random.default_rng(55)
+        datas = [PortData.from_session(port_session(
+            rng, ref_len=n, coverage=5, draft_error=0.05)[0])
+            for n in (120, 170)]
+        for d in datas:
+            d.params.realign_width = 24
+            d.params.scoring_width = 8
+        start = [d.sequence for d in datas]
+        cands = eng.viterbi_mutate_multi([d.events for d in datas], 16, 0.05,
+                                         0.01, 0.33, 0.75)
+        mutate_datas(eng, datas, cands, 1)
+        out[budget], fills[budget] = [d.sequence for d in datas], sum(calls)
+    assert out[16] == out[512] != start
+    assert fills[16] > fills[512] > 0

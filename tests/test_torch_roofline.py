@@ -3,7 +3,8 @@ needs: padding the launch carries (event rows without a seed alignment,
 padded columns, padded levels; for the Viterbi sweep, sampler and Gumbel
 kernel padded rows and padded regions) changes neither the bytes nor the
 operations of a launch, and the sampler's noise, which every region of a
-call shares, is counted once per call."""
+call shares, is counted once per call, its threefry2x32 at the INT32
+peak."""
 
 import numpy as np
 import pytest
@@ -13,8 +14,12 @@ from poreseq_tpu_torch.engine import TorchEngine
 from poreseq_tpu_torch.engine.align import backtrace
 from poreseq_tpu_torch.engine.fill import get_fill
 from poreseq_tpu_torch.engine.pack import fill_geometry
-from poreseq_tpu_torch.engine.roofline import (SAMPLE_OPS, backtrace_work,
-                                               fill_work, geom_work,
+from poreseq_tpu_torch.engine.roofline import (BITS_OPS, GUMBEL_OPS,
+                                               HBM_BYTES_PER_S,
+                                               INT32_OPS_PER_S,
+                                               PEAK_OPS_PER_S, SAMPLE_OPS,
+                                               THREEFRY_OPS, backtrace_work,
+                                               bound_ms, fill_work, geom_work,
                                                likes_work, viterbi_gumbel_work,
                                                viterbi_obs_work,
                                                viterbi_sample_work,
@@ -143,6 +148,28 @@ def test_sampler_work_counts_the_noise_once_per_call(dtype):
     assert noise == viterbi_gumbel_work(torch.cat([valid, valid]), 16, dtype)
     assert one[1] == draws * 1024 * SAMPLE_OPS + noise[1]
     assert noise[0] == 16 * 69 * 1024 * fwds.element_size()
+    # the noise's integer operations, the call's only ones
+    assert one[2] == two[2] == noise[2] > 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_gumbel_bound_counts_threefry_at_the_int32_peak(dtype):
+    """The Gumbel launch's integer work is a threefry2x32 and the fraction
+    bits per state and two threefry2x32 (and the index split) per row; the
+    bound is the longest of its bytes at the memory rate, its float
+    operations at the dtype's peak and its integer ones at the INT32
+    peak, which the integers set at phase 2's 16 candidates."""
+    valid = torch.arange(80)[None, :] < torch.tensor([70, 45])[:, None]
+    nbytes, ops, int_ops = viterbi_gumbel_work(valid, 16, dtype)
+    rows = 16 * 69
+    assert ops == rows * 1024 * GUMBEL_OPS
+    assert int_ops == rows * (1024 * (THREEFRY_OPS + BITS_OPS[dtype])
+                              + 2 * THREEFRY_OPS + 2)
+    ms, by = bound_ms(nbytes, ops, dtype, int_ops)
+    assert ms == max(nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS_PER_S[dtype],
+                     int_ops / INT32_OPS_PER_S) * 1e3
+    assert (by == "operations") == (dtype == torch.float32)
+    assert (bound_ms(nbytes, ops, dtype)[0] < ms) == (dtype == torch.float32)
 
 
 def _grown(x, rows, levels, fill=0):

@@ -1,8 +1,10 @@
 """The port's Viterbi candidate generator against the JAX package: the
 observations and the sweep in f64 within 1e-9, the deterministic (nkeep=0)
-string equal to the exact engine's, plausible stochastic candidates, the
-counter hash behind their draws, and candidates that do not depend on the
-batch a region is sampled in."""
+string equal to the exact engine's, plausible stochastic candidates, a
+NumPy model of the Gumbel kernel's threefry noise and row layout, and
+candidates that do not depend on the batch a region is sampled in
+(tests/test_torch_prng.py holds the noise to JAX's,
+tests/test_torch_candidates.py the candidates to TpuEngine's)."""
 
 import re
 from pathlib import Path
@@ -102,52 +104,6 @@ def test_stochastic_candidates_plausible_and_seeded():
     # the draws depend on the engine's seed only
     assert eng.viterbi_mutate_multi([pa.events, []], 4, 0.05, 0.01, 0.33,
                                     0.75) == seqs
-
-
-def _mix32_reference(x):
-    # lowbias32 on Python ints, with plain (unbounded) products
-    x ^= x >> 16
-    x = (x * 0x7FEB352D) & 0xFFFFFFFF
-    x ^= x >> 15
-    x = (x * 0x846CA68B) & 0xFFFFFFFF
-    return x ^ (x >> 16)
-
-
-# (seed, k, i, w) -> h: the CUDA phase of chip_smoke.py holds the card to
-# the same values
-PINNED_HASH = [((0, 0, 0, 0), 1106484830), ((7, 0, 0, 0), 993596527),
-               ((7, 15, 1234, 1023), 3231325825),
-               ((7, 3, 99999, 1541), 3294090134),
-               ((2 ** 32 + 7, 3, 99999, 1541), 3294090134),
-               ((123456789, 1, 7, 2047), 767034526)]
-
-
-def test_counter_hash_pinned_and_uniforms_open():
-    """The counter hash gives pinned values, the same on Python ints, on
-    int64 tensors and by a plain-product reference; the uniforms built on it
-    lie strictly inside (0, 1) and keep the hash's top bits."""
-    for (seed, k, i, w), h in PINNED_HASH:
-        ref = _mix32_reference(_mix32_reference(_mix32_reference(
-            _mix32_reference((seed & 0xFFFFFFFF) ^ 0x9E3779B9) ^ k) ^ i) ^ w)
-        assert ref == h
-        assert tv.counter_hash(seed, k, i, w) == h
-    t = torch.tensor
-    got = tv.counter_hash(7, t([0, 15, 3]), t([0, 1234, 99999]),
-                          t([0, 1023, 1541]))
-    assert got.tolist() == [h for _, h in PINNED_HASH[1:4]]
-    rows = t([0, 5, 99999])
-    for dtype, n in ((torch.float32, 23), (torch.float64, 52)):
-        u = tv.counter_uniforms(7, 3, rows, dtype)
-        assert u.shape == (3, 3, 1024) and u.dtype == dtype
-        assert bool(((u > 0) & (u < 1)).all())
-        h = tv.counter_hash(7, torch.arange(3)[:, None, None],
-                            rows[None, :, None], torch.arange(1024))
-        top = torch.floor(u.double() * 2.0 ** n).long()
-        assert torch.equal(top >> (n - 20), h >> 12)
-    # the largest draw still maps below 1 in each dtype
-    assert torch.tensor(((2 ** 23 - 1) + 0.5) * 2.0 ** -23,
-                        dtype=torch.float32) < 1
-    assert ((2 ** 52 - 1) + 0.5) * 2.0 ** -52 < 1
 
 
 def _np_halving(x, levels, op):
@@ -264,8 +220,8 @@ def test_sampler_twin_equals_numpy_halving_tree(dtype):
     cur = np.repeat(startst[:, None], nk, axis=1)
     for i in range(R - 1, -1, -1):
         np.testing.assert_array_equal(got[:, :, i], cur)
-        u = tv.counter_uniforms(7, nk, torch.tensor([i]), dtype)[:, 0]
-        gumbel = (-torch.log(-torch.log(u))).numpy()          # [nk, 1024]
+        gumbel = tv.gumbel_reference(7, nk, torch.tensor([i]),
+                                     dtype)[:, 0].numpy()     # [nk, 1024]
         f = (t(fwds[:, i])[:, None, :] ** t(attens)[None, :, None]).numpy()
         p = T[cur] * f
         p = p / _np_halving(p, 10, np.add)[-1]
@@ -422,73 +378,124 @@ def test_transition_table_equals_build_T(skip_stay, dtype):
         got, tv.transition_matrix(*skip_stay, dtype, "cpu").numpy())
 
 
-def _np_mix32(x):
-    """lowbias32 on uint32 arrays, as csrc/viterbi_gumbel.cu:mix32 computes
-    it (wrapping uint32 products)."""
-    x = x ^ (x >> np.uint32(16))
-    x = x * np.uint32(0x7FEB352D)
-    x = x ^ (x >> np.uint32(15))
-    x = x * np.uint32(0x846CA68B)
-    return x ^ (x >> np.uint32(16))
+def _np_threefry(k0, k1, x0, x1):
+    """threefry2x32 on uint32 arrays, as csrc/viterbi_gumbel.cu:threefry
+    computes it: wrapping adds, rotations, the key injected after every 4
+    rounds with its count."""
+    rot = lambda x, r: (x << np.uint32(r)) | (x >> np.uint32(32 - r))
+    ks = (k0, k1, k0 ^ k1 ^ np.uint32(0x1BD11BDA))
+    with np.errstate(over="ignore"):
+        x0, x1 = x0 + ks[0], x1 + ks[1]
+        for n, rots in enumerate([(13, 15, 26, 6), (17, 29, 16, 24)] * 2
+                                 + [(13, 15, 26, 6)]):
+            for r in rots:
+                x0 = x0 + x1
+                x1 = rot(x1, r) ^ x0
+            x0 = x0 + ks[(n + 1) % 3]
+            x1 = x1 + ks[(n + 2) % 3] + np.uint32(n + 1)
+    return x0, x1
 
 
-def _gumbel_kernel_model(seed, nk, R, dtype):
+def _np_noise(a, b, dtype):
+    """The kernel's noise of the rows under keys (a, b) [n] uint32: [n,
+    1024], -log(-log(u)) with u from the fraction bits set into 1.m, less
+    1, times (1 - tiny) plus tiny, at least tiny (the logs by torch)."""
+    s = np.arange(1024, dtype=np.uint32)
+    zero = np.zeros(1024, dtype=np.uint32)
+    y0, y1 = _np_threefry(a[:, None], b[:, None], zero, s)
+    if dtype == torch.float64:
+        m = (y0.astype(np.uint64) << np.uint64(20)) | (y1 >> np.uint32(12))
+        f = (m | np.uint64(0x3FF0000000000000)).view(np.float64) - 1.0
+    else:
+        m = (y0 ^ y1) >> np.uint32(9)
+        f = (m | np.uint32(0x3F800000)).view(np.float32) - np.float32(1)
+    tiny = np.finfo(f.dtype).tiny
+    u = np.maximum(f * (f.dtype.type(1) - tiny) + tiny, tiny)
+    return (-torch.log(-torch.log(torch.from_numpy(u)))).numpy()
+
+
+def _gumbel_kernel_model(seed, nk, R):
     """NumPy model of gumbel_kernel's launch: rows = nk R rows of 1024
     states, min(ceil(rows / RB), 132 SM_BLOCKS) blocks of NT threads, RB =
-    NT / 256 rows a block at once; thread t of block b takes the rows r =
-    b RB + t // 256 + j blocks RB < rows, decodes k = r / R, i = r - k R
-    once per row (uint32) with the row's hash, and writes the states s =
-    4 (t % 256) .. + 3 of the row, -log(-log(u)) of its own hash chain.
-    Returns (g flattened, how often each element was written)."""
+    NT / 256 rows a block at once, a warp's rows base, base + stride, ...
+    (stride = blocks RB) taken 32 a pass: lane j derives the key of its
+    pass's row base + j stride (k = r / R, i = r - k R in uint32; split
+    then fold_in) and row j of the pass takes lane j's key.  Every warp of a
+    row writes its 32 x 4 states.  Returns (how often each row was
+    written, the row keys (a, b) as the lanes derived them)."""
     nt, sm_blocks = _cu_consts("viterbi_gumbel", "NT", "SM_BLOCKS")
     rb = nt // 256
     rows = nk * R
     blocks = min(-(-rows // rb), 132 * sm_blocks)
-    t = np.arange(nt)
-    r = (np.arange(blocks)[:, None] * rb + t[None, :] // 256)   # [b, t]
-    steps = -(-rows // (blocks * rb))
-    r = r[None] + blocks * rb * np.arange(steps)[:, None, None]
-    s = np.broadcast_to(4 * (t % 256), r.shape)
-    keep = r < rows
-    r, s = r[keep].astype(np.uint32), s[keep].astype(np.uint32)
-    k = r // np.uint32(R)
-    i = r - k * np.uint32(R)
-    with np.errstate(over="ignore"):
-        h0 = _np_mix32(np.uint32(seed) ^ np.uint32(0x9E3779B9))
-        hki = _np_mix32(_np_mix32(h0 ^ k) ^ i)
-        # a thread's 4 consecutive states
-        s = (s[:, None] + np.arange(4, dtype=np.uint32)).ravel()
-        hki = np.repeat(hki, 4)
-        e = np.repeat(r.astype(np.int64), 4) * 1024 + s
-        hi = _np_mix32(hki ^ s)
-        if dtype == torch.float64:
-            lo = _np_mix32(hki ^ (s + np.uint32(1024)))
-            x = ((hi.astype(np.uint64) >> np.uint64(12)) << np.uint64(32)) \
-                | lo.astype(np.uint64)
-            u = (x.astype(np.float64) + 0.5) * 2.0 ** -52
-        else:
-            u = ((hi >> np.uint32(9)).astype(np.float32) + np.float32(0.5)) \
-                * np.float32(2.0 ** -23)
-    n = rows * 1024
-    g = np.full(n, np.nan, u.dtype)
-    g[e] = (-torch.log(-torch.log(torch.from_numpy(u)))).numpy()
-    return g, np.bincount(e, minlength=n)
+    stride = blocks * rb
+    # a thread's 4 states, over the 256 threads of a row: each state once
+    t = np.arange(256)
+    assert np.array_equal(np.sort((4 * t[:, None] + np.arange(4)).ravel()),
+                          np.arange(1024))
+    first = np.arange(blocks)[:, None] * rb + np.arange(rb)[None, :]
+    passes = -(-rows // (32 * stride))
+    base = (first.ravel()[None, :]
+            + 32 * stride * np.arange(passes)[:, None]).ravel()
+    base = base[base < rows]
+    rj = base[:, None] + stride * np.arange(32)[None, :]     # [warp pass, j]
+    lane_rows = rj[rj < rows].astype(np.uint32)
+    k = lane_rows // np.uint32(R)
+    i = lane_rows - k * np.uint32(R)
+    zero = np.zeros_like(k)
+    key0, key1 = (np.uint32(seed >> 32 & 0xFFFFFFFF),
+                  np.uint32(seed & 0xFFFFFFFF))
+    a, b = _np_threefry(key0, key1, zero, k)                # split
+    a, b = _np_threefry(a, b, zero, i)                      # fold_in
+    # rows written in a pass: row j of it (j < n) under lane j's key
+    n = np.minimum(32, (rows - 1 - base) // stride + 1)
+    written = rj[np.arange(32)[None, :] < n[:, None]]
+    keys = (np.zeros(rows, np.uint32), np.zeros(rows, np.uint32))
+    keys[0][written], keys[1][written] = a, b
+    return np.bincount(written, minlength=rows), keys
 
 
 @pytest.mark.parametrize("shape", list(GUMBEL_SHAPES))
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 def test_gumbel_kernel_indexing_model(shape, dtype):
-    """A model of the Gumbel kernel's row layout (its block count, each
-    row's decode and hash, a thread's 4 states, the grid-stride loop over
-    rows) writes every element of the twin's [nk, R, 1024] block once,
-    equal element by element: nk R below, equal to and above the rows the
-    grid takes in one pass (about 1.5 passes), R = 1 and nk = 1
-    (test_torch_kernels_cuda.GUMBEL_SHAPES, held on the card there)."""
+    """A model of the Gumbel kernel's row layout (its block count, the
+    grid-stride loop over rows, each warp's row keys derived 32 rows at a
+    time and handed lane to lane, a thread's 4 states) writes every row
+    of the twin's [nk, R, 1024] block once under its own key, and its
+    threefry noise equals the twin's element by element: nk R below, equal
+    to and above the rows the grid takes in one pass and in one pass of
+    row keys (32 rows a warp), R = 1 and nk = 1
+    (test_torch_kernels_cuda.GUMBEL_SHAPES, held on the card there).  Past
+    4,096 rows the noise is compared on the first and last 64 rows of each
+    key pass and around the grid's pass ends."""
     nk, R = GUMBEL_SHAPES[shape](_gumbel_grid_rows())
-    g, visits = _gumbel_kernel_model(7, nk, R, dtype)
+    visits, (a, b) = _gumbel_kernel_model(7, nk, R)
+    rows = nk * R
     assert np.all(visits == 1)
-    ref = tv.gumbel_reference(7, nk, torch.arange(R), dtype)
-    np.testing.assert_array_equal(g.reshape(nk, R, 1024), ref.numpy())
+    G = _gumbel_grid_rows()
+    if rows <= 4096:
+        check = np.arange(rows)
+    else:
+        edges = np.arange(0, rows, G)
+        check = np.unique(np.concatenate(
+            [np.arange(64), rows - 64 + np.arange(64), edges, edges - 1,
+             (np.arange(0, rows, 32 * G)[:, None]
+              + np.arange(-64, 64)[None, :]).ravel()]))
+        check = check[(check >= 0) & (check < rows)]
+    k, i = check // R, check % R
+    ii = np.unique(i)
+    ref = tv.gumbel_reference(7, nk, torch.as_tensor(ii), dtype).numpy()
+    np.testing.assert_array_equal(_np_noise(a[check], b[check], dtype),
+                                  ref[k, np.searchsorted(ii, i)])
+
+
+def test_smoke_holds_the_gumbel_kernel_at_the_test_shapes():
+    """chip_smoke.py's phase 2 holds the Gumbel kernel to its twin at the
+    shapes the model above and the card's test take."""
+    import chip_smoke
+
+    G = _gumbel_grid_rows()
+    assert chip_smoke.gumbel_shapes() == {
+        name: shape(G) for name, shape in GUMBEL_SHAPES.items()}
 
 
 def _order_key(v):

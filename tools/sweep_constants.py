@@ -79,13 +79,17 @@ def sass_counts(lib: str) -> dict:
     return counts
 
 
-# each kernel's source, its C entry without the dtype suffix and the null
+# each kernel's source, its C entry without the dtype suffix, the null
 # pointers the entry takes after the outputs' (the geometry's scratch row:
-# null runs the staged instance, which the sweep times)
-SOURCES = {"viterbi_obs": ("viterbi_obs", "psq_viterbi_obs", 0),
-           "likes": ("likes", "psq_likes", 0),
-           "viterbi_gumbel": ("viterbi_gumbel", "psq_viterbi_gumbel", 0),
-           "geom": ("geom", "psq_geom", 1)}
+# null runs the staged instance, which the sweep times) and the ctypes of
+# its integer arguments (the Gumbel kernel's seed is 64-bit)
+_I, _U64 = ctypes.c_int, ctypes.c_uint64
+SOURCES = {"viterbi_obs": ("viterbi_obs", "psq_viterbi_obs", 0,
+                           (_I, _I, _I)),
+           "likes": ("likes", "psq_likes", 0, (_I, _I, _I)),
+           "viterbi_gumbel": ("viterbi_gumbel", "psq_viterbi_gumbel", 0,
+                              (_I, _I, _U64)),
+           "geom": ("geom", "psq_geom", 1, (_I, _I, _I, _I))}
 
 
 def operands(kernel: str, seed: int, dtype):
@@ -143,7 +147,7 @@ def main():
             for c in args.constants]
     combos = [dict(zip([a for a, _ in axes], vs))
               for vs in itertools.product(*(v for _, v in axes))]
-    src_name, fn, nulls = SOURCES[args.kernel]
+    src_name, fn, nulls, int_types = SOURCES[args.kernel]
     text = (_build.CSRC / f"{src_name}.cu").read_text()
     P = ctypes.c_void_p
     with tempfile.TemporaryDirectory(prefix="psq_sweep_") as tmp:
@@ -166,8 +170,9 @@ def main():
                 for d, (ins, refs, ints) in ops.items():
                     c = "f" if d == "f32" else "d"     # the template's type
                     entry = getattr(ctypes.CDLL(lib), f"{fn}_{d}")
+                    assert len(ints) == len(int_types)
                     entry.argtypes = [P] * (len(ins) + len(refs) + nulls) \
-                        + [ctypes.c_int] * len(ints) + [P]
+                        + list(int_types) + [P]
                     entry.restype = ctypes.c_int
                     outs = [torch.empty_like(r) for r in refs]
                     call = lambda: entry(*(P(x.data_ptr())
