@@ -35,8 +35,14 @@ non-zero, nothing runs on the CPU instead):
                 a Mutate call's groups at scoring width 600 (Ws = 1201),
                 and the geometry at 256 levels past its staged cap and at
                 twice the cap (the instance that reads the row from device
-                memory), equal; each timed in f32 (event and queued ms)
-                under the kernel's "wide" key;
+                memory), equal; past the register-held scan, on a 240 b
+                region at 8X, the fill at realign widths 2048 and 4096 (W =
+                4097 and 8193, the wide instance: its column in shared
+                memory or a device scratch) on 8 event rows and the group
+                scorer at scoring width 2048 (Ws = 4097) on 60 mutations'
+                groups, and the observations past the staged path (E =
+                8193 events, 8 rows) equal; each timed in f32 (event and
+                queued ms) under the kernel's "wide" key;
   2b. viterbi — the sampler's threefry2x32 on the card gives JAX's row keys
                 and 32- and 64-bit words (PINNED_KEYS, PINNED_WORDS,
                 computed with JAX) bit for bit, the twin's uniforms on the
@@ -99,7 +105,15 @@ non-zero, nothing runs on the CPU instead):
                 kernel of the path launched, and the largest forward and
                 backward fill and the largest group-scorer launch of each
                 window width (Refine's 41, Mutate's 1201) held to their
-                twins (phase 2's tolerances) and timed;
+                twins (phase 2's tolerances) and timed; then phase 3's
+                first polished region alone (its second: the first has 2
+                reads, under the pipeline's 5; cut: 1 of 8) at 2048/2048/20
+                (W = Ws = 4097), -i 4 --region-batch 1: the fill's and the
+                scorer's wide instances launched (counted by instance),
+                accuracy no more than 0.5 points below the region's in
+                phase 3, its largest fills (8 event rows) and Ws = 4097
+                scorer launch (its first 2048 groups) held to the twins and
+                timed;
  10. genome   — the genome-scale path through tools/genome_run.py's
                 functions (write_run, the CLI's split, consensus per shard,
                 merge), widths 300/100/20, -i 4 --region-batch 8: 10a
@@ -281,14 +295,17 @@ def phase_build():
     return kernels
 
 
-def _session(seed: int, realign: int = P_WIDTHS["realign_width"]):
-    """A simulated 1 kb region at 10X with a 2% draft error."""
+def _session(seed: int, realign: int = P_WIDTHS["realign_width"],
+             ref_len: int = 1000, coverage: int = 10, **widths):
+    """A simulated 1 kb region at 10X with a 2% draft error (ref_len,
+    coverage and other widths: phase 2's wide holds past the register-held
+    scan)."""
     from poreseq_tpu_torch.engine.types import AlignData
     from poreseq_tpu_torch.sim import simulate_session
 
-    pa, _ = simulate_session(np.random.default_rng(seed), ref_len=1000,
-                             coverage=10, draft_error=0.02)
-    pa.params.update(P_WIDTHS, realign_width=realign)
+    pa, _ = simulate_session(np.random.default_rng(seed), ref_len=ref_len,
+                             coverage=coverage, draft_error=0.02)
+    pa.params.update(P_WIDTHS, realign_width=realign, **widths)
     return AlignData.from_session(pa)
 
 
@@ -505,7 +522,6 @@ def _mut_regions(seed: int, widths: dict = P_WIDTHS):
     width 20, every point mutation) and as a Mutate round sees it (scoring
     width 100, 300 random indels and substitutions); `widths` replaces the
     main path's (phase 2's wide holds: WIDE_WIDTHS)."""
-    from poreseq_tpu_torch.core.regions import MutationInfo
     from poreseq_tpu_torch.engine.driver import find_point_mutations
     from poreseq_tpu_torch.engine.types import AlignData
     from poreseq_tpu_torch.sim import simulate_session
@@ -522,22 +538,30 @@ def _mut_regions(seed: int, widths: dict = P_WIDTHS):
         refine[0].append(data)
         refine[1].append(find_point_mutations(data))
         data = AlignData.from_session(pa)
-        seq, muts = data.sequence, []
-        for _ in range(300):
-            st = int(rng.integers(0, len(seq) - 6))
-            kind = int(rng.integers(0, 3))
-            m = MutationInfo()
-            m.start = st
-            if kind == 0:
-                m.orig, m.mut = seq[st], "ACGT"[int(rng.integers(0, 4))]
-            elif kind == 1:
-                m.orig, m.mut = "", "ACGT"[int(rng.integers(0, 4))]
-            else:
-                m.orig, m.mut = seq[st : st + int(rng.integers(1, 4))], ""
-            muts.append(m)
         mutate[0].append(data)
-        mutate[1].append(muts)
+        mutate[1].append(_random_mutations(data.sequence, rng, 300))
     return dict(refine=refine, mutate=mutate)
+
+
+def _random_mutations(seq: str, rng, n: int) -> list:
+    """n random substitutions, insertions and deletions of 1-3 bases on
+    seq, drawn from rng."""
+    from poreseq_tpu_torch.core.regions import MutationInfo
+
+    muts = []
+    for _ in range(n):
+        st = int(rng.integers(0, len(seq) - 6))
+        kind = int(rng.integers(0, 3))
+        m = MutationInfo()
+        m.start = st
+        if kind == 0:
+            m.orig, m.mut = seq[st], "ACGT"[int(rng.integers(0, 4))]
+        elif kind == 1:
+            m.orig, m.mut = "", "ACGT"[int(rng.integers(0, 4))]
+        else:
+            m.orig, m.mut = seq[st : st + int(rng.integers(1, 4))], ""
+        muts.append(m)
+    return muts
 
 
 def _twin_totals(args):
@@ -560,18 +584,24 @@ def _twin_totals(args):
     return torch.cat(out)
 
 
-def hold_mutscore(args, where: str) -> float:
+def hold_mutscore(args, where: str, timing: dict | None = None) -> float:
     """One group-scorer launch (group_totals_cuda's arguments) against its
     plain twin on every group: totals equal (f64) or within 3e-3 + 2e-4 |x|
-    (f32), and no accept-sign flip.  Returns the max |diff|."""
+    (f32), and no accept-sign flip.  Returns the max |diff|; timing: gets
+    the twin's wall (ms, one call closed by a synchronize) under
+    "plain_ms"."""
     import torch
 
     from poreseq_tpu_torch.engine.mutscore import group_totals_cuda
 
     f64 = args[1].dtype == torch.float64
     tot_k, _ = group_totals_cuda(*args)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
     tot_r = _twin_totals(args)
     torch.cuda.synchronize()
+    if timing is not None:
+        timing["plain_ms"] = (time.perf_counter() - t0) * 1e3
     d = (tot_k - tot_r).abs()
     bound = 0.0 if f64 else 3e-3 + 2e-4 * tot_r.abs()
     what = f"{where} mutscore K={args[18]} D={args[20]} (f64={f64})"
@@ -890,6 +920,18 @@ def check_prologue(engine, datas, f64: bool, report: dict):
 # instance that reads the row from device memory)
 WIDE_FILL = (700, 2047)
 WIDE_WIDTHS = dict(realign_width=700, scoring_width=600, point_width=20)
+# ... and the wide instances past the register-held scan: the fill at
+# realign widths 2048 and 4096 (W = 4097, 8193), the group scorer at scoring
+# width 2048 (Ws = 4097), on a 240 b region at 8X (its first 8 event rows,
+# C = 256; 60 random mutations), and the observations' unstaged path at
+# E = 8193 events on 8 rows (all, some, one and no event valid), small so
+# that the twins stay cheap
+SCAN_WIDE_FILL = (2048, 4096)
+SCAN_WIDE_WIDTHS = dict(realign_width=2048, scoring_width=2048,
+                        point_width=20)
+SCAN_WIDE_REGION = dict(ref_len=240, coverage=8)
+SCAN_WIDE_ROWS, SCAN_WIDE_MUTS = 8, 60
+OBS_WIDE_EVENTS, OBS_WIDE_ROWS = 8193, 8
 
 
 def _long_rows(rng, E: int, T: int):
@@ -910,60 +952,141 @@ def _long_rows(rng, E: int, T: int):
     return ral, n0, S_e
 
 
-def check_wide(engine, seed: int, f64: bool, report: dict):
-    """The wide instances held to their twins: the fill at WIDE_FILL
-    (forward with steps, backward without: the main path's) with phase 2's
-    tolerances, the group scorer on a Mutate call's groups at WIDE_WIDTHS
-    (8 regions), the geometry past its staged cap bit-equal; in f32 each
-    wide launch timed (event and queued ms) beside its bound, under the
-    kernel's "wide" key."""
+def _obs_wide_inputs(seed: int, dtype):
+    """The observations' operands past the staged path: one region of
+    OBS_WIDE_EVENTS events on OBS_WIDE_ROWS rows (every event valid, then
+    90, 60, 25 and 5 % of them, rows of 2, 1 and 0 valid events), with a
+    stdv of 0 now and then (the clamp) and event 1 a copy of event 0
+    (ties), on the card."""
     import torch
 
-    from poreseq_tpu_torch.engine.fill import fill_cuda
-    from poreseq_tpu_torch.engine.mutscore import (GEOM_MAX_LEVELS,
+    rng = np.random.default_rng(seed + OBS_WIDE_EVENTS)
+    R, E = OBS_WIDE_ROWS, OBS_WIDE_EVENTS
+    lvl = rng.normal(60, 8, (1, R, E))
+    sd = np.where(rng.random((1, R, E)) < 0.02, 0.0,
+                  rng.uniform(0.5, 3, (1, R, E)))
+    valid = np.zeros((1, R, E), dtype=bool)
+    for r, frac in enumerate((1.0, 0.9, 0.6, 0.25, 0.05)):
+        valid[0, r] = rng.random(E) < frac
+    valid[0, 5, rng.choice(E, 2, replace=False)] = True
+    valid[0, 6, rng.integers(E)] = True
+    tabs = np.empty((1, 6, E, 1024))
+    tabs[:, 0] = rng.normal(60, 8, (E, 1024))
+    tabs[:, 1] = rng.uniform(1, 3, (E, 1024))
+    tabs[:, 2] = np.log(tabs[:, 1])
+    tabs[:, 3] = rng.uniform(0.8, 2, (E, 1024))
+    tabs[:, 4] = rng.uniform(1, 4, (E, 1024))
+    tabs[:, 5] = np.log(tabs[:, 4])
+    lvl[:, :, 1], sd[:, :, 1] = lvl[:, :, 0], sd[:, :, 0]
+    tabs[:, :, 1] = tabs[:, :, 0]
+    t = lambda x, d=dtype: torch.as_tensor(x, dtype=d, device="cuda")
+    return t(lvl), t(sd), t(valid, torch.bool), t(tabs)
+
+
+def check_wide(engine, seed: int, f64: bool, report: dict):
+    """The wide instances held to their twins: the fill at WIDE_FILL and
+    SCAN_WIDE_FILL (forward with steps, backward without: the main path's)
+    with phase 2's tolerances, the group scorer on a Mutate call's groups at
+    WIDE_WIDTHS (8 regions) and SCAN_WIDE_WIDTHS (one small region), the
+    geometry past its staged cap and the observations past the staged path
+    bit-equal; in f32 each wide launch timed (event and queued ms) beside
+    its bound, under the kernel's "wide" key.  Each instance's launches are
+    counted (Kernel.instances) and every new one must have run."""
+    import torch
+
+    from poreseq_tpu_torch.engine.fill import FILL, fill_cuda
+    from poreseq_tpu_torch.engine.mutscore import (GEOM_MAX_LEVELS, MUTSCORE,
                                                    geom_cuda, geom_reference,
                                                    group_launches,
                                                    group_totals_cuda)
     from poreseq_tpu_torch.engine.roofline import (fill_work, geom_work,
-                                                   group_work)
+                                                   group_work,
+                                                   viterbi_obs_work)
+    from poreseq_tpu_torch.engine.viterbi import (VITERBI_OBS,
+                                                  obs_multi_cuda,
+                                                  obs_multi_reference)
 
     t0 = time.perf_counter()
     dt = engine.dtype
-    wide = {"fill": {}, "mutscore": {}, "geom": {}}
+    wide = {"fill": {}, "mutscore": {}, "geom": {}, "viterbi_obs": {}}
     errs = {k: 0.0 for k in wide}
+    n0 = {k: k.instances.copy() for k in (FILL, MUTSCORE, VITERBI_OBS)}
 
-    def time_it(fn, work, **shape):
-        return dict(shape, queued_ms=queued_ms(fn),
-                    **timed(event_ms(fn), work, dt))
+    def time_it(fn, work, reps=20, **shape):
+        return dict(shape, queued_ms=queued_ms(fn, reps),
+                    **timed(event_ms(fn, reps), work, dt))
 
-    for width in WIDE_FILL:
+    small = SCAN_WIDE_REGION
+    for width in WIDE_FILL + SCAN_WIDE_FILL:
         W = 2 * width + 1
-        batch, states, i0, i1, pad, off = _fill_inputs(
-            engine, _session(seed, width))
+        if width in SCAN_WIDE_FILL:
+            batch, states, i0, i1, pad, off = _rows(_fill_inputs(
+                engine, _session(seed, width, **small)),
+                slice(0, SCAN_WIDE_ROWS))
+        else:
+            batch, states, i0, i1, pad, off = _fill_inputs(
+                engine, _session(seed, width))
         shape = dict(E=batch.mean.shape[0], C=states.shape[0])
         for name, backward, steps in (("forward", False, True),
                                       ("backward", True, False)):
             args = (batch, states, i0, i1, pad, off, backward, W, steps)
+            twin = {}
             errs["fill"] = max(errs["fill"],
-                               hold_fill(args, f"kernels wide W={W}"))
+                               hold_fill(args, f"kernels wide W={W}", twin))
             if not f64:
                 wide["fill"].setdefault(f"W={W}", {})[name] = time_it(
                     lambda: fill_cuda(*args),
-                    fill_work(batch, states, pad, W, steps), **shape)
+                    fill_work(batch, states, pad, W, steps), **shape,
+                    **twin)
 
     datas, mlists = _mut_regions(seed, WIDE_WIDTHS)["mutate"]
-    n_groups = 0
-    for gp, _, args in group_launches(engine, datas, mlists,
-                                      [True] * len(datas)):
-        if args[16] != 2 * WIDE_WIDTHS["scoring_width"] + 1:
-            fail(f"kernels wide: a Mutate launch at Ws={args[16]}")
-        n_groups += gp["G"]
-        errs["mutscore"] = max(errs["mutscore"],
-                               hold_mutscore(args, "kernels wide"))
-        if not f64:
-            wide["mutscore"].setdefault(f"Ws={args[16]}", []).append(
-                time_it(lambda: group_totals_cuda(*args), group_work(*args),
-                        G=gp["G"], C=args[1].shape[0], E=args[1].shape[1]))
+    data = _session(seed, SCAN_WIDE_WIDTHS["realign_width"],
+                    scoring_width=SCAN_WIDE_WIDTHS["scoring_width"], **small)
+    n_groups = {}
+    for widths, (ds, ms) in ((WIDE_WIDTHS, (datas, mlists)),
+                             (SCAN_WIDE_WIDTHS, ([data], [
+                                 _random_mutations(
+                                     data.sequence,
+                                     np.random.default_rng(seed + 2),
+                                     SCAN_WIDE_MUTS)]))):
+        Ws = 2 * widths["scoring_width"] + 1
+        n_groups[Ws] = 0
+        for gp, _, args in group_launches(engine, ds, ms, [True] * len(ds)):
+            if args[16] != Ws:
+                fail(f"kernels wide: a Mutate launch at Ws={args[16]}")
+            if widths is SCAN_WIDE_WIDTHS:     # the real groups only
+                args = _groups(args, gp["G"])
+            n_groups[Ws] += gp["G"]
+            twin = {}
+            errs["mutscore"] = max(errs["mutscore"],
+                                   hold_mutscore(args, "kernels wide", twin))
+            if not f64:
+                wide["mutscore"].setdefault(f"Ws={Ws}", []).append(
+                    time_it(lambda: group_totals_cuda(*args),
+                            group_work(*args), G=gp["G"],
+                            C=args[1].shape[0], E=args[1].shape[1], **twin))
+
+    ops = _obs_wide_inputs(seed, dt)
+    got = obs_multi_cuda(*ops)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    ref = obs_multi_reference(*ops)
+    torch.cuda.synchronize()
+    twin = dict(plain_ms=(time.perf_counter() - t1) * 1e3)
+    if not torch.equal(got, ref):
+        fail(f"kernels wide viterbi_obs E={OBS_WIDE_EVENTS} (f64={f64}) "
+             + _differs("obs", got, ref))
+    if not f64:
+        # a launch takes a third of a second: 3 timed launches of each kind
+        wide["viterbi_obs"][f"E={OBS_WIDE_EVENTS}"] = time_it(
+            lambda: obs_multi_cuda(*ops),
+            viterbi_obs_work(ops[0], ops[2], ops[3]), reps=3,
+            R=OBS_WIDE_ROWS, **twin)
+    del ops, got, ref
+    ran = {k.name: dict(k.instances - n0[k]) for k in n0}
+    if not (ran["fill"].get("wide") and ran["mutscore"].get("wide")
+            and ran["viterbi_obs"].get("unstaged")):
+        fail(f"kernels wide: the new instances did not all run: {ran}")
 
     cap = GEOM_MAX_LEVELS[dt]
     for T in (cap + 256, 2 * cap):
@@ -985,15 +1108,19 @@ def check_wide(engine, seed: int, f64: bool, report: dict):
         line["max_abs_err"] = max(line["max_abs_err"], err)
         if not f64:
             line["wide"] = wide[k]
-    fmt = lambda d: f"E={d['E']} " + _timing(d) + \
-        f", queued {d['queued_ms']:.4f} ms"
+    fmt = lambda d: (f"E={d['E']} C={d['C']} " if "E" in d else
+                     f"R={d['R']} ") + _timing(d) + \
+        f", queued {d['queued_ms']:.4f} ms" + (
+            f", twin {d['plain_ms']:.1f} ms" if "plain_ms" in d else "")
     print(f"[kernels] wide f{'64' if f64 else '32'}: fill W="
-          f"{[2 * w + 1 for w in WIDE_FILL]} forward with steps and "
-          f"backward held to the twin (max |diff| {errs['fill']:.3e}); "
-          f"mutscore Ws={2 * WIDE_WIDTHS['scoring_width'] + 1} on "
-          f"{n_groups} groups of {len(datas)} regions held (max |diff| "
+          f"{[2 * w + 1 for w in WIDE_FILL + SCAN_WIDE_FILL]} forward with "
+          f"steps and backward held to the twin (max |diff| "
+          f"{errs['fill']:.3e}); mutscore on {n_groups} groups (by Ws) of "
+          f"{len(datas)} regions and one region held (max |diff| "
           f"{errs['mutscore']:.3e}); geom T={cap + 256} and {2 * cap} equal "
-          f"the twin; {time.perf_counter() - t0:.1f} s"
+          f"the twin; viterbi_obs E={OBS_WIDE_EVENTS} on {OBS_WIDE_ROWS} "
+          f"rows equal the twin; launches by instance {ran}; "
+          f"{time.perf_counter() - t0:.1f} s"
           + ("".join(f"; fill {w} {n} {fmt(d)}"
                      for w, runs in wide["fill"].items()
                      for n, d in runs.items())
@@ -1001,6 +1128,8 @@ def check_wide(engine, seed: int, f64: bool, report: dict):
                        for w, runs in wide["mutscore"].items() for d in runs)
              + "".join(f"; geom {w} {fmt(d)}"
                        for w, d in wide["geom"].items())
+             + "".join(f"; viterbi_obs {w} {fmt(d)}"
+                       for w, d in wide["viterbi_obs"].items())
              + f" | {gpu_line()}" if not f64 else ""), flush=True)
 
 
@@ -1082,6 +1211,7 @@ def _reset_launches():
     torch.cuda.synchronize()
     for k in _kernels():
         k.launches = 0
+        k.instances.clear()
 
 
 def _launches() -> dict:
@@ -1998,6 +2128,19 @@ PINNED_WORDS = [((4165894930, 804218099), 0, 1214273199,
 WIDE_CONF = (CONF_WIDTHS
              .replace("realign_width = 300", "realign_width = 700")
              .replace("scoring_width = 100", "scoring_width = 600"))
+# phase 9's second run: phase 3's first polished region alone at widths
+# 2048/2048/20 (W = Ws = 4097: the fill's and the group scorer's wide
+# instances), -i 4 --region-batch 1, f32 (cut: one region of phase 3's 8);
+# its largest fills held on their first SCAN_HOLD_ROWS active rows, its
+# largest Ws = 4097 scorer launch on its first HOLD_GROUPS groups.  Phase
+# 3's first region (synthref:0:1000) has 2 reads, under the pipeline's
+# minimum of 5 events, so it is returned unpolished and launches nothing:
+# the run takes the second (14 reads)
+SCAN_WIDE_CONF = (CONF_WIDTHS
+                  .replace("realign_width = 300", "realign_width = 2048")
+                  .replace("scoring_width = 100", "scoring_width = 2048"))
+SCAN_WIDE_REGION_INDEX = 1
+SCAN_HOLD_ROWS = 8
 
 
 def phase_wide(seed: int, e2e: dict):
@@ -2056,6 +2199,104 @@ def phase_wide(seed: int, e2e: dict):
     if acc < 99.0:
         fail(f"wide mean accuracy {acc:.3f}% < 99.0%")
     _need_launches("wide", launches)
+    launches2, times2 = _scan_wide_run(seed, e2e)
+    return ({k: launches[k] + launches2[k] for k in launches},
+            {**times, **times2})
+
+
+def _scan_wide_run(seed: int, e2e: dict):
+    """Phase 9's second run (SCAN_WIDE_CONF): phase 3's first polished
+    region alone through the CLI at W = Ws = 4097; it must launch the
+    fill's and the
+    group scorer's wide instances and come within 0.5 points of that
+    region's accuracy in phase 3.  Its largest forward and backward fill
+    (the first SCAN_HOLD_ROWS active rows) and its largest Ws = 4097 scorer
+    launch (the first HOLD_GROUPS groups) are held to the twins and timed.
+    Returns (launches, {held key: timing})."""
+    import torch
+
+    from poreseq_tpu_torch import cli
+    from poreseq_tpu_torch.engine.fill import FILL, fill_cuda
+    from poreseq_tpu_torch.engine.mutscore import MUTSCORE, group_totals_cuda
+    from poreseq_tpu_torch.engine.roofline import fill_work, group_work
+    from poreseq_tpu_torch.io.fasta import read_fasta
+
+    t_run = time.perf_counter()
+    W = 2 * 2048 + 1
+    d = tempfile.mkdtemp(prefix="psq_smoke_scan_wide_")
+    try:
+        truth, fasta, bam, reads_dir, conf, regions = _e2e_run(
+            d, seed, SCAN_WIDE_CONF)
+        region = regions[SCAN_WIDE_REGION_INDEX]
+        out = os.path.join(d, "out.fasta")
+        _reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with largest_launches(by_width=True) as kept:
+            cli.main(["consensus", fasta, bam, reads_dir, "-r", region, "-p",
+                      conf, "-o", out, "-i", "4", "--region-batch", "1",
+                      "--device", "cuda"])
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        launches = _launches()
+        instances = {k.name: dict(k.instances) for k in (FILL, MUTSCORE)}
+        seqs = read_fasta(out)
+        acc = _accuracies(seqs, truth)[0] if region in seqs else 0.0
+        acc3 = _accuracies({region: e2e["seqs"][region]}, truth)[0]
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    if list(seqs) != [region]:
+        fail(f"wide W={W}: output records {list(seqs)}, expected {region}")
+    key = f"mutscore Ws={W}"
+    if {kept[k][7] for k in ("fill fwd", "fill bwd") if k in kept} != {W} \
+            or key not in kept:
+        fail(f"wide W={W}: no fill at W={W} or scorer launch at Ws={W} "
+             f"was kept: {sorted(kept)}")
+    t0 = time.perf_counter()
+    errs, held, times = {}, {}, {}
+    for k in ("fill fwd", "fill bwd"):
+        x = kept[k]
+        rows = torch.nonzero(x[0].active).flatten()[:SCAN_HOLD_ROWS]
+        a = _rows(x, rows)
+        errs[k] = hold_fill(a, f"wide W={W}")
+        held[k] = f"{k} C={x[1].shape[0]} E={x[1].shape[1]}: rows " \
+                  f"{rows.tolist()}"
+        times[f"{k} W={W}"] = dict(
+            timed(event_ms(lambda: fill_cuda(*a)),
+                  fill_work(a[0], a[1], a[4], a[7], a[8]), a[0].mean.dtype),
+            E=len(rows), C=x[1].shape[0])
+    x = kept[key]
+    G = x[13]["g_start"].shape[0]
+    a = _groups(x, HOLD_GROUPS)
+    errs[key] = hold_mutscore(a, f"wide W={W}")
+    held[key] = (f"{key} C={x[1].shape[0]} E={x[1].shape[1]}: the first "
+                 f"{min(G, HOLD_GROUPS)} of {G} groups")
+    times[f"{key} (W={W})"] = dict(
+        timed(event_ms(lambda: group_totals_cuda(*a)), group_work(*a),
+              a[1].dtype), G=min(G, HOLD_GROUPS), C=x[1].shape[0],
+        E=x[1].shape[1])
+    hold_s = time.perf_counter() - t0
+    print(f"[wide] consensus of phase 3's {region} alone (its first "
+          f"polished region; cut: 1 of {E2E_REGIONS} regions), widths "
+          f"2048/2048/20 (W = Ws = {W}) from "
+          f"the params file, -i 4 --region-batch 1, f32: wall {wall:.2f} s, "
+          f"accuracy {acc:.3f}% (phase 3 {acc3:.3f}%), launches {launches}, "
+          f"by instance {instances}, peak device memory "
+          f"{peak / 2**20:.1f} MiB; held to the twins ({hold_s:.1f} s): "
+          + "; ".join(f"{held[k]} max |diff| {errs[k]:.3e}" for k in held)
+          + "; timed: " + "; ".join(f"{k} {_timing(v)}"
+                                    for k, v in times.items())
+          + f"; run wall {time.perf_counter() - t_run:.1f} s | "
+          f"{gpu_line()}", flush=True)
+    if not (instances["fill"].get("wide")
+            and instances["mutscore"].get("wide")):
+        fail(f"wide W={W}: the wide instances were not launched: "
+             f"{instances}")
+    if acc < acc3 - 0.5:
+        fail(f"wide W={W}: accuracy {acc:.3f}% more than 0.5 points below "
+             f"phase 3's {acc3:.3f}%")
+    _need_launches(f"wide W={W}", launches)
     return launches, times
 
 
@@ -2095,7 +2336,7 @@ def path_shapes():
     import threading
 
     from poreseq_tpu_torch.engine import TorchEngine, fill, mutscore
-    from poreseq_tpu_torch.engine.fill import rows_per_thread
+    from poreseq_tpu_torch.engine.fill import instance_name, rows_per_thread
     from poreseq_tpu_torch.io import load
 
     out = dict(loaded=0, trimmed=0, levels=0, C=0, E=0, T=0, fill=set(),
@@ -2143,9 +2384,9 @@ def path_shapes():
     TorchEngine._prepare_multi, TorchEngine.score_alignments_multi = (prep,
                                                                      score)
     fill.fill_cuda = instance(real["fill"], "fill", lambda a: (
-        f"W={a['W']} ({rows_per_thread(a['W'])} row a thread)"))
+        f"W={a['W']} ({instance_name(rows_per_thread(a['W']))})"))
     mutscore.group_totals_cuda = instance(real["scorer"], "scorer", lambda a: (
-        f"Ws={a['Ws']} ({rows_per_thread(a['Ws'])} row a thread)"))
+        f"Ws={a['Ws']} ({instance_name(rows_per_thread(a['Ws']))})"))
     mutscore.geom_cuda = instance(real["geom"], "geom", geom_instance)
     try:
         yield out

@@ -26,6 +26,7 @@ from __future__ import annotations
 
 import ctypes
 import os
+from collections import Counter
 import shutil
 import subprocess
 import tempfile
@@ -118,7 +119,9 @@ class Kernel:
     """One kernel of a csrc/<src>.cu library (src defaults to the kernel's
     name): built and loaded on first use, with a plain-integer ``launches``
     count that its wrapper bumps once per kernel launch (never for a twin
-    call).  Distinct sources build concurrently."""
+    call), and ``instances``, the launches by the instance a wrapper names
+    (the fill's and the group scorer's rows a thread or wide instance, the
+    observations' path).  Distinct sources build concurrently."""
 
     def __init__(self, name: str, replaces: str, signatures: dict,
                  src: str | None = None):
@@ -130,6 +133,7 @@ class Kernel:
         self._signatures = signatures
         self._lib = None
         self.launches = 0
+        self.instances: Counter = Counter()
         self.build_seconds = 0.0
         self.build_log = ""
         self._lock = threading.Lock()
@@ -144,17 +148,21 @@ class Kernel:
                 self._lib = lib
         return self._lib
 
-    def call(self, fn: str, device: torch.device, *args) -> None:
+    def call(self, fn: str, device: torch.device, *args,
+             instance: str | None = None) -> None:
         """Run one C entry point under ``device`` (its operands' card: the
         CUDA runtime's current device, so ``cudaFuncSetAttribute`` and the
         launch reach that card); the entry launches on the stream passed
         in ``args`` (``stream(device)``) and returns cudaGetLastError().
-        Raise on a refused launch."""
+        Raise on a refused launch; count a launch, and under ``instance``
+        when given."""
         with torch.cuda.device(device):
             err = getattr(self.lib(), fn)(*args)
         if err != 0:
             raise RuntimeError(f"{self.name}.{fn}: CUDA error {err}")
         self.launches += 1
+        if instance is not None:
+            self.instances[instance] += 1
 
 
 def ptr(t: torch.Tensor) -> ctypes.c_void_p:

@@ -243,6 +243,53 @@ __device__ void mp_scan(T (&v)[RPT][6], T* tails, int n, Idle idle) {
   scan_down<T, RPT>(v, tails, n);
 }
 
+// The wide instances' scan (bands past 1024 RPT rows, whose six scan values
+// a column outrun the registers): the same combine tree on positions [0, n)
+// held in memory, sc[k * n + p] (k < 6; shared memory, or a block's slice
+// of a device scratch), level by level: up-sweep level L combines position
+// (k+1)*2^(L+1)-1 with (2k+1)*2^L-1 for every k < n >> (L+1), down-sweep
+// level L (2m+1)*2^L-1 with 2m*2^L-1 for every m >= 1 below n; the threads
+// of the block stride over a level's pairs, whose destinations and sources
+// are disjoint, with a block barrier after each level.  As in mp_scan the
+// down-sweep computes the u part only.  Every thread of the block must call
+// it, after a barrier that makes sc's elements visible; for n >= 2 it ends on
+// one.
+template <typename T>
+__device__ void mp_scan_mem(T* sc, int n) {
+  const int t = threadIdx.x, nt = blockDim.x;
+  const size_t sn = (size_t)n;
+  int L = 0;
+  for (; (2 << L) <= n; ++L) {
+    const int np = n >> (L + 1);
+    for (int k = t; k < np; k += nt) {
+      const int d = ((k + 1) << (L + 1)) - 1, s = d - (1 << L);
+      T l[6], v[6];
+#pragma unroll
+      for (int j = 0; j < 6; ++j) {
+        l[j] = sc[j * sn + s];
+        v[j] = sc[j * sn + d];
+      }
+      mp_combine(l, v);
+#pragma unroll
+      for (int j = 0; j < 6; ++j) sc[j * sn + d] = v[j];
+    }
+    __syncthreads();
+  }
+  for (--L; L >= 0; --L) {
+    const int nd = ((n >> L) - 1) >> 1;
+    for (int m = 1 + t; m <= nd; m += nt) {
+      const int d = ((2 * m + 1) << L) - 1, s = d - (1 << L);
+      T v[6];
+#pragma unroll
+      for (int j = 0; j < 6; ++j) v[j] = sc[j * sn + d];
+      mp_combine_u(sc[4 * sn + s], sc[5 * sn + s], v);
+      sc[4 * sn + d] = v[4];
+      sc[5 * sn + d] = v[5];
+    }
+    __syncthreads();
+  }
+}
+
 template <typename T>
 __device__ __forceinline__ T warp_max(T v) {
 #pragma unroll

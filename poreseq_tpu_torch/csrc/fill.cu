@@ -31,7 +31,8 @@
 //    band test and every address); past 1024 rows a thread holds RPT = 2
 //    (W <= 2048) or 4 (W <= 4095) adjacent positions t RPT + j, whose
 //    lowest scan levels run in its registers (common.cuh:mp_scan), so one
-//    block of at most 1024 threads still holds an event's band;
+//    block of at most 1024 threads still holds an event's band (wider
+//    bands: fill_wide_kernel, below, its column in memory);
 //  - the scan (common.cuh) runs the combine tree of
 //    jax.lax.associative_scan, the twin's, levels 0-4 in registers by warp
 //    shuffles, the chunk tails' levels in one warp, the down-sweep on the u
@@ -92,16 +93,75 @@ struct FillArgs {
   int* best_j;             // [E]
   int C, E, W, Tlen, backward, need_steps;
   double lik_offset;
-  int rpt;                 // band rows a thread: 1, 2 or 4
+  int rpt;                 // band rows a thread: 1, 2 or 4; 0: the wide
+                           // instance (fill_wide_kernel)
+  void* scratch;           // [E, WIDE_ARRAYS, W] the wide instance's column
+                           // arrays in device memory, or null: in shared
 };
 
-// the widest band: realign_width 2047 (engine/fill.py MAX_W)
-constexpr int MAX_W = 4095;
+// the register-held scan's widest band (1024 threads of 4 rows; realign
+// width 2047); wider bands run fill_wide_kernel (engine/fill.py
+// rows_per_thread)
+constexpr int RPT_ROWS = 4095;
+// the wide instance's column arrays of W values: prevM, prevO, the column's
+// emissions and its six scan rows
+constexpr int WIDE_ARRAYS = 9;
 
 // a column's band and state
 struct Col {
   int pad, i0, i1, st;
 };
+
+// the running best of make_pallas_fill's epilogue, carried by one thread
+template <typename T>
+struct Running {
+  T run = T(0);
+  int c_star = 0, a_star = 0;
+  // column c, processing step tt, with max cv at its first argmax ci
+  __device__ __forceinline__ void column(const FillArgs& a, int e, int tt,
+                                         int c, T cv, int ci) {
+    if (tt == 0 || cv > run) { run = cv; c_star = c; a_star = ci; }
+    static_cast<T*>(a.best_pfx)[(size_t)c * a.E + e] = mx(run, T(0));
+  }
+  // the event's best, max(run, 0), and its coordinates when above 0
+  __device__ __forceinline__ void finish(const FillArgs& a, int e) const {
+    const bool hit = run > T(0);
+    static_cast<T*>(a.best)[e] = mx(run, T(0));
+    a.best_i[e] = hit ? a.i0[(size_t)e * (a.C + 1) + c_star + 1] + a_star : 0;
+    a.best_j[e] = hit ? c_star + 1 : 0;
+  }
+};
+
+// a cell's backpointers (steps_m, steps_s): the candidate walk in order
+// 0..3 with strict >, then the stay override; Mm1, Sm1 are row r-1's M and
+// S (0 when not live), esrc the cell's within-column source emission
+template <typename T>
+__device__ __forceinline__ void step_codes(
+    T skip_c, T match_c, T ignore_c, bool valid_i, bool valid_ul, T Sv,
+    T Mm1, T Sm1, T esrc, bool nfirst, T lin, T lst, T lex, uint8_t& stp,
+    uint8_t& sstp) {
+  const T NB = neg_big<T>();
+  const T ins_c = nfirst ? Mm1 + lin : T(0);
+  const T s4 = nfirst ? Mm1 + esrc + lst : NB;
+  const T s5 = nfirst ? Sm1 + esrc + lex : NB;
+  T val = T(0);
+  stp = 0;
+  if (skip_c > val) {
+    val = skip_c;
+    stp = valid_i ? SKIP : IMPLICIT;
+  }
+  if (match_c > val) {
+    val = match_c;
+    stp = valid_ul ? MATCH : IMPLICIT;
+  }
+  if (ins_c > val) { val = ins_c; stp = INSERT; }
+  if (ignore_c > val) { val = ignore_c; stp = IGNORE; }
+  if (Sv > val) stp = STAY;
+  T sval = nfirst ? T(0) : NB;
+  sstp = 0;
+  if (s4 > sval) { sval = s4; sstp = STAY; }
+  if (s5 > sval) sstp = EXTEND;
+}
 
 // a column's loaded emission operands: model values at its state and the
 // level data at row-1 of each of the thread's rows (and, backward, at row
@@ -222,12 +282,7 @@ __global__ void __launch_bounds__(XW ? 640 : 1024) fill_kernel(FillArgs a) {
 
   // the running best, carried by the finisher: lane 0 of the warp that
   // finishes the column argmax (the spare warp, else warp 0)
-  T run = T(0);
-  int c_star = 0, a_star = 0;
-  auto running = [&](int tt, int c, T cv, int ci) {
-    if (tt == 0 || cv > run) { run = cv; c_star = c; a_star = ci; }
-    static_cast<T*>(a.best_pfx)[(size_t)c * E + e] = mx(run, T(0));
-  };
+  Running<T> best;
   // the column's max and first argmax from the row warps' partials
   auto finish_argmax = [&](int tt, int c) {
     T cv = lane < nwr ? red_v[lane] : NB;
@@ -237,7 +292,7 @@ __global__ void __launch_bounds__(XW ? 640 : 1024) fill_kernel(FillArgs a) {
       const size_t ce = (size_t)c * E + e;
       cmax[ce] = cv;
       a.carg[ce] = ci;
-      running(tt, c, cv, ci);
+      best.column(a, e, tt, c, cv, ci);
     }
   };
 
@@ -266,7 +321,7 @@ __global__ void __launch_bounds__(XW ? 640 : 1024) fill_kernel(FillArgs a) {
         __syncthreads();        // C
         finish_argmax(tt, c);
       } else if (lane == 0) {
-        running(tt, c, NB, 0);
+        best.column(a, e, tt, c, NB, 0);
       }
       cur = nxt;
       nxt = after;
@@ -288,7 +343,7 @@ __global__ void __launch_bounds__(XW ? 640 : 1024) fill_kernel(FillArgs a) {
       if (t == 0) {
         cmax[ce] = NB;
         a.carg[ce] = 0;
-        if (!XW) running(tt, c, NB, 0);
+        if (!XW) best.column(a, e, tt, c, NB, 0);
       }
       next_emission();
     } else {
@@ -382,29 +437,10 @@ __global__ void __launch_bounds__(XW ? 640 : 1024) fill_kernel(FillArgs a) {
                             : (j == 0 ? Mx : Mv[j - 1]);
           const T Sm1 = BWD ? (j == RPT - 1 ? Sx : Sv[j + 1])
                             : (j == 0 ? Sx : Sv[j - 1]);
-          // backpointers: candidate walk in order 0..3 with strict >, then
-          // the stay override
-          const bool nfirst = row[j] > 0;
-          const T ins_c = nfirst ? Mm1 + lin : T(0);
-          const T s4 = nfirst ? Mm1 + esrc[j] + lst : NB;
-          const T s5 = nfirst ? Sm1 + esrc[j] + lex : NB;
-          T val = T(0);
-          uint8_t stp = 0;
-          if (skip_c[j] > val) {
-            val = skip_c[j];
-            stp = valid_i[j] ? SKIP : IMPLICIT;
-          }
-          if (match_c[j] > val) {
-            val = match_c[j];
-            stp = valid_ul[j] ? MATCH : IMPLICIT;
-          }
-          if (ins_c > val) { val = ins_c; stp = INSERT; }
-          if (ignore_c[j] > val) { val = ignore_c[j]; stp = IGNORE; }
-          if (Sv[j] > val) stp = STAY;
-          T sval = nfirst ? T(0) : NB;
-          uint8_t sstp = 0;
-          if (s4 > sval) { sval = s4; sstp = STAY; }
-          if (s5 > sval) sstp = EXTEND;
+          uint8_t stp, sstp;
+          step_codes(skip_c[j], match_c[j], ignore_c[j], valid_i[j],
+                     valid_ul[j], Sv[j], Mm1, Sm1, esrc[j], row[j] > 0, lin,
+                     lst, lex, stp, sstp);
           const size_t base = ce * W + row[j];
           a.steps_m[base] = live[j] ? stp : 0;
           a.steps_s[base] = live[j] ? sstp : 0;
@@ -443,12 +479,207 @@ __global__ void __launch_bounds__(XW ? 640 : 1024) fill_kernel(FillArgs a) {
       esrc[j] = esrc_n[j];
     }
   }
-  if (t == (XW ? 32 * nwr : 0)) {  // the finisher: the event's best
-    const bool hit = run > T(0);
-    static_cast<T*>(a.best)[e] = mx(run, T(0));
-    a.best_i[e] = hit ? a.i0[(size_t)e * (C + 1) + c_star + 1] + a_star : 0;
-    a.best_j[e] = hit ? c_star + 1 : 0;
+  if (t == (XW ? 32 * nwr : 0)) best.finish(a, e);   // the finisher
+}
+
+// The wide instance: bands past RPT_ROWS rows (realign width 2048 and up).
+// A column's six scan values a row outrun the registers (6 W of them past
+// 4095 rows, against 65,536 registers an SM), so the column lives in
+// memory: prevM, prevO, the column's emissions and the scan rows, WIDE_ARRAYS
+// W values, in dynamic shared memory where they fit (W <= 6,449 in f32,
+// 3,223 in f64) and else in the event's slice of a device scratch [E,
+// WIDE_ARRAYS, W] that the wrapper allocates.  One block of 1024 threads an
+// event; every phase of a column strides over the band rows (thread t takes
+// positions t, t + 1024, ...): the emissions, the scan elements, the scan
+// itself level by level (common.cuh:mp_scan_mem, the same combine tree as
+// the twin's _assoc_scan), then the outputs, the step bytes and the
+// column's first argmax, then the previous-column arrays; block barriers
+// between phases and scan levels (2 log2 W + 4 a column).  Each cell is
+// computed as in fill_kernel, so the results are the same bit for bit.  A
+// simple instance: its latency is the barriers' and the memory's (no loads
+// in flight across a column).
+template <typename T, bool BWD, bool STEPS>
+__global__ void __launch_bounds__(1024) fill_wide_kernel(FillArgs a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int W = a.W, C = a.C, E = a.E, Tlen = a.Tlen;
+  const int e = blockIdx.x, t = threadIdx.x, nt = blockDim.x;
+  const int lane = t & 31, warp = t >> 5, nw = nt >> 5;
+  const size_t sw = (size_t)W;
+  T* red_v = reinterpret_cast<T*>(smem_raw);            // [32] partials
+  int* red_i = reinterpret_cast<int*>(red_v + 32);      // [32]
+  T* prevM = a.scratch                                  // previous column,
+      ? static_cast<T*>(a.scratch) + (size_t)e * WIDE_ARRAYS * sw  // by row
+      : reinterpret_cast<T*>(red_i + 32);
+  T* prevO = prevM + sw;
+  T* evr = prevO + sw;          // the column's emission by row (0 off band)
+  T* sc = evr + sw;             // [6][W] scan elements by position
+
+  const T NB = neg_big<T>();
+  const T* mean = static_cast<const T*>(a.mean) + (size_t)e * Tlen;
+  const T* stdv = static_cast<const T*>(a.stdv) + (size_t)e * Tlen;
+  const T* lsx = static_cast<const T*>(a.lsx) + (size_t)e * Tlen;
+  const T lsk = static_cast<const T*>(a.lik[0])[e];
+  const T lst = static_cast<const T*>(a.lik[1])[e];
+  const T lex = static_cast<const T*>(a.lik[2])[e];
+  const T lin = static_cast<const T*>(a.lik[3])[e];
+  const T off = T(a.lik_offset);
+  const bool act_e = a.active[e] != 0;
+  T* Mo = static_cast<T*>(a.M);
+  T* So = static_cast<T*>(a.S);
+  T* cmax = static_cast<T*>(a.cmax);
+  // position p's physical band row
+  auto row_of = [&](int p) { return BWD ? W - 1 - p : p; };
+
+  // the running best, carried by thread 0 (fill_kernel's finisher)
+  Running<T> best;
+
+  for (int r = t; r < W; r += nt) { prevM[r] = T(0); prevO[r] = T(0); }
+  int p0 = 0, p1 = a.n0[e];     // the blank column [0, n0]
+  __syncthreads();
+
+  for (int tt = 0; tt < C; ++tt) {
+    const int c = BWD ? C - 1 - tt : tt;
+    const size_t ce = (size_t)c * E + e;
+    if (a.is_pad[ce]) {         // dead column: zeros out, carry unchanged
+      for (int r = t; r < W; r += nt) {
+        const size_t base = ce * sw + r;
+        Mo[base] = T(0);
+        So[base] = T(0);
+        if (STEPS) { a.steps_m[base] = 0; a.steps_s[base] = 0; }
+      }
+      if (t == 0) {
+        cmax[ce] = NB;
+        a.carg[ce] = 0;
+        best.column(a, e, tt, c, NB, 0);
+      }
+      continue;
+    }
+    const int i0c = a.i0[(size_t)e * (C + 1) + c + 1];
+    const int i1c = a.i1[(size_t)e * (C + 1) + c + 1];
+    const int st = a.states[ce];
+    const int stc = min(max(st, 0), 1023);
+    T m[6];
+#pragma unroll
+    for (int k = 0; k < 6; ++k)
+      m[k] = static_cast<const T*>(a.model[k])[(size_t)e * 1024 + stc];
+    const int dv = i0c - p0;
+
+    // each row's emission, 0 out of band
+    for (int r = t; r < W; r += nt) {
+      const int idx = i0c + r - 1;
+      const bool ok = idx >= 0 && idx < Tlen;
+      const T em = emission<T>(ok ? mean[idx] : T(0), ok ? stdv[idx] : T(1),
+                               ok ? lsx[idx] : T(0), m[0], m[1], m[2], m[3],
+                               m[4], m[5], off);
+      evr[r] = i0c + r <= i1c ? em : T(0);
+    }
+    __syncthreads();            // the emissions (backward: row r+1's)
+
+    // a row's previous-column candidates (implicit-zero local restarts) and
+    // its within-column source emission: the cell's own (forward) or the
+    // source i+1 cell's (backward)
+    struct Cand {
+      bool valid_i, valid_ul;
+      T skip_c, match_c, ignore_c, esrc;
+    };
+    auto cand = [&](int r) {
+      const int i = i0c + r;
+      Cand k;
+      k.valid_i = i >= p0 && i <= p1;
+      T pm_i, pm_d;
+      if (BWD) {
+        pm_i = at_or_zero(prevM, r + min(max(dv, -DMAX), 0), W);
+        const int sd = min(max(dv + 1, -DMAX + 1), 1);
+        pm_d = at_or_zero(prevM, r + sd, W);
+        const T pobs_d = at_or_zero(prevO, r + sd, W);
+        k.valid_ul = i >= p0 && i < p1;
+        k.match_c = k.valid_ul ? pm_d + pobs_d : T(0);
+        k.esrc = r + 1 < W ? evr[r + 1] : T(0);
+      } else {
+        pm_i = at_or_zero(prevM, r + min(max(dv, 0), DMAX), W);
+        pm_d = at_or_zero(prevM, r + min(max(dv - 1, -1), DMAX - 1), W);
+        k.valid_ul = i > p0 && i <= p1;
+        k.match_c = (k.valid_ul ? pm_d : T(0)) + evr[r];
+        k.esrc = evr[r];
+      }
+      k.skip_c = (k.valid_i ? pm_i : T(0)) + lsk;
+      k.ignore_c = k.valid_ul ? pm_d + lin : T(0);
+      return k;
+    };
+    auto live_row = [&](int r) { return i0c + r <= i1c && st >= 0 && act_e; };
+
+    // the scan elements, by position
+    for (int p = t; p < W; p += nt) {
+      const int r = row_of(p), i = i0c + r;
+      const Cand k = cand(r);
+      const T D = mx(mx(T(0), k.skip_c), mx(k.match_c, k.ignore_c));
+      const bool cut = BWD ? (i >= i1c) : (r == 0);
+      const T floor0 = (BWD ? (i == i1c) : cut) ? NB : T(0);
+      const T a_stay = k.esrc + lst, a_ext = k.esrc + lex;
+      sc[p] = cut ? NB : mx(lin, a_stay);
+      sc[sw + p] = cut ? NB : a_ext;
+      sc[2 * sw + p] = cut ? NB : a_stay;
+      sc[3 * sw + p] = cut ? NB : a_ext;
+      sc[4 * sw + p] = D;
+      sc[5 * sw + p] = floor0;
+    }
+    __syncthreads();
+    mp_scan_mem(sc, W);         // ends on a barrier: every position final
+
+    // outputs, step bytes and the thread's first maximum (smallest row
+    // among equals)
+    T cv = NB;
+    int ci = INT_MAX;
+    for (int p = t; p < W; p += nt) {
+      const int r = row_of(p);
+      const bool live = live_row(r);
+      const T Mv = live ? sc[4 * sw + p] : T(0);
+      const T Sv = live ? sc[5 * sw + p] : T(0);
+      const size_t base = ce * sw + r;
+      Mo[base] = Mv;
+      So[base] = Sv;
+      if (STEPS) {
+        // M, S of row r-1 (position p+1 backward, p-1 forward) as the
+        // column left them
+        const Cand k = cand(r);
+        const int pm1 = BWD ? p + 1 : p - 1;
+        const bool lm1 = r > 0 && live_row(r - 1);
+        uint8_t stp, sstp;
+        step_codes(k.skip_c, k.match_c, k.ignore_c, k.valid_i, k.valid_ul,
+                   Sv, lm1 ? sc[4 * sw + pm1] : T(0),
+                   lm1 ? sc[5 * sw + pm1] : T(0), k.esrc, r > 0, lin, lst,
+                   lex, stp, sstp);
+        a.steps_m[base] = live ? stp : 0;
+        a.steps_s[base] = live ? sstp : 0;
+      }
+      const T ov = live ? Mv : NB;
+      if (ov > cv || (ov == cv && r < ci)) { cv = ov; ci = r; }
+    }
+    warp_argmax(cv, ci);
+    if (lane == 0) { red_v[warp] = cv; red_i[warp] = ci; }
+    __syncthreads();            // every read of prevM, prevO and evr done
+
+    for (int p = t; p < W; p += nt) {
+      const int r = row_of(p);
+      const bool live = live_row(r);
+      prevM[r] = live ? sc[4 * sw + p] : T(0);
+      prevO[r] = live ? evr[r] : T(0);
+    }
+    if (warp == 0) {            // the column's max and first argmax
+      T v = lane < nw ? red_v[lane] : NB;
+      int i = lane < nw ? red_i[lane] : INT_MAX;
+      warp_argmax(v, i);
+      if (lane == 0) {
+        cmax[ce] = v;
+        a.carg[ce] = i;
+        best.column(a, e, tt, c, v, i);
+      }
+    }
+    p0 = i0c;
+    p1 = i1c;
+    __syncthreads();            // prevM, prevO written; the partials read
   }
+  if (t == 0) best.finish(a, e);
 }
 
 template <typename T, bool BWD, bool STEPS, bool XW, int RPT>
@@ -463,13 +694,28 @@ static int launch_block(const FillArgs& a, int threads, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+// the wide instance: one block of 1024 threads an event, its column
+// arrays in dynamic shared memory, or in a.scratch when the wrapper gives one
+template <typename T, bool BWD, bool STEPS>
+static int launch_wide(const FillArgs& a, cudaStream_t stream) {
+  const size_t smem = 32 * (sizeof(T) + sizeof(int)) +
+                      (a.scratch ? 0 : (size_t)WIDE_ARRAYS * a.W * sizeof(T));
+  auto kern = fill_wide_kernel<T, BWD, STEPS>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  kern<<<a.E, 1024, smem, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
 // the instance of a.rpt band rows a thread (engine/fill.py
-// rows_per_thread): W <= 1024 rpt, at most MAX_W
+// rows_per_thread): W <= 1024 rpt up to RPT_ROWS; rpt 0, the wide instance
 template <typename T, bool BWD, bool STEPS>
 static int launch_one(const FillArgs& a, cudaStream_t stream) {
-  if (a.W < 1 || a.W > MAX_W ||
-      !(a.rpt == 1 || a.rpt == 2 || a.rpt == 4) || a.W > 1024 * a.rpt)
+  if (a.W < 1 || !(a.rpt == 0 || a.rpt == 1 || a.rpt == 2 || a.rpt == 4) ||
+      (a.rpt > 0 && a.W > 1024 * a.rpt) || (a.rpt == 0 && a.W <= RPT_ROWS))
     return (int)cudaErrorInvalidValue;
+  if (a.rpt == 0) return launch_wide<T, BWD, STEPS>(a, stream);
   const int rows = ((a.W + a.rpt - 1) / a.rpt + 31) / 32 * 32;
   if (a.rpt == 1) {
     if (rows + 32 <= 640)

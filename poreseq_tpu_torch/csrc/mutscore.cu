@@ -25,7 +25,8 @@
 // L2/DRAM per slot.  The design gives every (group, event row) its own block
 // of ceil32(Ws) threads (tens of thousands of blocks fill the card; past
 // 1024 window rows a thread holds RPT = 2 or 4 adjacent rows, so
-// ceil32(Ws / RPT) threads), keeps
+// ceil32(Ws / RPT) threads; past 4095 rows group_wide_kernel, below, keeps
+// the step's column in memory), keeps
 // the carried column and the selected column in shared memory, precomputes
 // the band anchor each step shifts from, and lets a slot stop at its last
 // active step.  A step runs the warp-shuffle scan of common.cuh:mp_scan
@@ -65,11 +66,19 @@ struct MutArgs {
   void* totals;                         // [G, P]
   int C1, E, W, Ws, Q1, RS, K, P, DM, E_g, G;
   double lik_offset;
-  int rpt;                              // window rows a thread: 1, 2 or 4
+  int rpt;                              // window rows a thread: 1, 2 or 4;
+                                        // 0: group_wide_kernel
+  void* scratch;                        // [blocks, WIDE_ARRAYS, Ws] the wide
+                                        // instance's arrays, or null: in
+  int scratch_blocks;                   // shared memory (blocks a grid)
 };
 
-// the widest scoring window: scoring_width 2047 (engine/mutscore.py MAX_WS)
-constexpr int MAX_WS = 4095;
+// the register-held scan's widest window: scoring width 2047 (engine/fill.py
+// rows_per_thread); wider windows run group_wide_kernel
+constexpr int RPT_ROWS = 4095;
+// the wide instance's arrays of Ws values: the carried and the selected
+// columns (M, S) and the six scan rows
+constexpr int WIDE_ARRAYS = 9;
 
 __device__ __forceinline__ int clampi(int x, int lo, int hi) {
   return min(max(x, lo), hi);
@@ -87,6 +96,99 @@ struct StepData {
   T m[6];
   T w[RPT][3];
 };
+
+// The parts of a (group, event row) pair's score that both instances of
+// the group kernel share.  Every thread of the block calls old_score and
+// new_score (block_max); their results are valid in warp 0.
+
+// the band anchor step k shifts from: it advances whenever ANY slot of the
+// group (valid or not) is still refilling at step k; one thread writes
+// cik[k < K]
+__device__ __forceinline__ void group_anchors(const MutArgs& a, int g,
+                                              int startind, int st0, int wi0,
+                                              const int* i0r_e, int* cik) {
+  const int K = a.K, P = a.P;
+  int ci0 = wi0 + a.RS;
+  for (int k = 0; k < K; ++k) {
+    cik[k] = ci0;
+    bool any = false;
+    for (int p = 0; p < P; ++p) {
+      const int gp = g * P + p, mlen = a.s_mlen[gp], nst = a.s_nst[gp];
+      const int nfill = clampi(min(startind + mlen + 6, nst) - startind, 0,
+                               K);
+      any |= k < mlen + 6 && startind + 1 + k <= nst && k < nfill;
+    }
+    if (any) ci0 = i0r_e[clampi(st0 + 1 + k, 0, a.C1 - 1)];
+  }
+}
+
+// old score: lag-0 join of the unmutated lattices at max(start-3, 1)
+template <typename T>
+__device__ __forceinline__ T old_score(const MutArgs& a, int e, int start,
+                                       int sS, int n0e, const int* i0f_e,
+                                       T* red) {
+  const int E = a.E, W = a.W, C1 = a.C1;
+  const T* Mf = static_cast<const T*>(a.Mf);
+  const T* Sf = static_cast<const T*>(a.Sf);
+  const T* Mb = static_cast<const T*>(a.Mb);
+  const T* Sb = static_cast<const T*>(a.Sb);
+  const int q_old = clampi(max(start - 3, 1), 0, sS);
+  const size_t base = ((size_t)clampi(q_old, 0, C1 - 1) * E + e) * W;
+  const int fao = i0f_e[clampi(q_old, 0, C1 - 1)];
+  T m = T(0);
+  for (int rr = threadIdx.x; rr < W; rr += blockDim.x) {
+    const int ii = fao + rr;
+    if (ii >= 1 && ii <= n0e)
+      m = mx(m, mx(Mf[base + rr] + Mb[base + rr],
+                   Sf[base + rr] + Sb[base + rr]));
+  }
+  m = block_max(m, red);
+  const size_t qe = (size_t)clampi(q_old, 0, C1 - 1) * E + e;
+  return mx(mx(mx(m, T(0)), static_cast<const T*>(a.bpf)[qe]),
+            static_cast<const T*>(a.bpb)[qe]);
+}
+
+// new score of a slot: the selected refill column (selM, selS [Ws], anchor
+// sa, best sbest) or, for a copied column (use_sel false), the forward
+// column at the start (Mw, Sw [W], anchor wi0, best wbest) against the back
+// column at rab = nst - refind_used + 1
+template <typename T>
+__device__ __forceinline__ T new_score(const MutArgs& a, int e, int sS,
+                                       int n0e, const int* i0f_e, int nst,
+                                       int refind_used, bool use_sel, int sa,
+                                       T sbest, const T* selM, const T* selS,
+                                       int wi0, T wbest, const T* Mw,
+                                       const T* Sw, T* red) {
+  const int E = a.E, W = a.W, Ws = a.Ws, C1 = a.C1;
+  const T* Mb = static_cast<const T*>(a.Mb);
+  const T* Sb = static_cast<const T*>(a.Sb);
+  const int span = DMAX * a.DM + 64;
+  const int JMIN = -span, JMAX = a.RS + span, CMIN = -span, CMAX = span;
+  const int rab_new = clampi(nst - refind_used + 1, 0, sS);
+  const int q_b = clampi(sS - rab_new + 1, 0, C1 - 1);
+  const size_t bb = ((size_t)q_b * E + e) * W;
+  const int ba = i0f_e[q_b];
+  const T bbest = static_cast<const T*>(a.bpb)[(size_t)q_b * E + e];
+  const int fa = use_sel ? sa : wi0;
+  const T fbest = use_sel ? sbest : wbest;
+  const int s = fa - ba;
+  const bool inr = use_sel ? (s >= JMIN && s <= JMAX)
+                           : (s >= CMIN && s <= CMAX);
+  T m = T(0);
+  for (int rr = threadIdx.x; rr < W; rr += blockDim.x) {
+    const T FM = use_sel ? (rr < Ws ? selM[rr] : T(0)) : Mw[rr];
+    const T FS = use_sel ? (rr < Ws ? selS[rr] : T(0)) : Sw[rr];
+    if (fa + rr >= 1 && fa + rr <= n0e) {
+      const T BMs = inr ? at_or_zero(Mb + bb, rr + s, W) : T(0);
+      const T BSs = inr ? at_or_zero(Sb + bb, rr + s, W) : T(0);
+      m = mx(m, mx(mx(FM + BMs, FS + BSs), mx(FM, FS)));
+    }
+    if (ba + rr >= 1 && ba + rr <= n0e)
+      m = mx(m, mx(Mb[bb + rr], Sb[bb + rr]));
+  }
+  m = block_max(m, red);
+  return mx(mx(mx(m, T(0)), fbest), bbest);
+}
 
 // RPT: window rows a thread (1 for Ws <= 1024, 2 up to 2048, 4 up to
 // 4095), adjacent scan positions (common.cuh:mp_scan)
@@ -120,10 +222,7 @@ __global__ void __launch_bounds__(1024) group_kernel(MutArgs a) {
   const T NB = neg_big<T>();
   const T* Mf = static_cast<const T*>(a.Mf);
   const T* Sf = static_cast<const T*>(a.Sf);
-  const T* Mb = static_cast<const T*>(a.Mb);
-  const T* Sb = static_cast<const T*>(a.Sb);
   const T* bpf = static_cast<const T*>(a.bpf);
-  const T* bpb = static_cast<const T*>(a.bpb);
   const int* i0f_e = a.i0f + (size_t)e * C1;
   const int* i0r_e = a.i0r + (size_t)e * C1;
   const int* i1r_e = a.i1r + (size_t)e * C1;
@@ -147,44 +246,10 @@ __global__ void __launch_bounds__(1024) group_kernel(MutArgs a) {
   const T* wm = static_cast<const T*>(a.win[0]);
   const T* wsd = static_cast<const T*>(a.win[1]);
   const T* wl = static_cast<const T*>(a.win[2]);
-  const int span = DMAX * a.DM + 64;
-  const int JMIN = -span, JMAX = a.RS + span, CMIN = -span, CMAX = span;
   const int FSMIN = -64, FSMAX = a.RS + 64 + DMAX;
 
-  // the band anchor step k shifts from: it advances whenever ANY slot of
-  // the group (valid or not) is still refilling at step k
-  if (r == 0) {
-    int ci0 = wi0 + a.RS;
-    for (int k = 0; k < K; ++k) {
-      cik[k] = ci0;
-      bool any = false;
-      for (int p = 0; p < P; ++p) {
-        const int gp = g * P + p, mlen = a.s_mlen[gp], nst = a.s_nst[gp];
-        const int nfill = clampi(min(startind + mlen + 6, nst) - startind,
-                                 0, K);
-        any |= k < mlen + 6 && startind + 1 + k <= nst && k < nfill;
-      }
-      if (any) ci0 = i0r_e[clampi(st0 + 1 + k, 0, C1 - 1)];
-    }
-  }
-
-  // old score: lag-0 join of the unmutated lattices at max(start-3, 1)
-  T old;
-  {
-    const int q_old = clampi(max(start - 3, 1), 0, sS);
-    const size_t base = ((size_t)clampi(q_old, 0, C1 - 1) * E + e) * W;
-    const int fao = i0f_e[clampi(q_old, 0, C1 - 1)];
-    T m = T(0);
-    for (int rr = r; rr < W; rr += nt) {
-      const int ii = fao + rr;
-      if (ii >= 1 && ii <= n0e)
-        m = mx(m, mx(Mf[base + rr] + Mb[base + rr],
-                     Sf[base + rr] + Sb[base + rr]));
-    }
-    m = block_max(m, red_j);                  // valid in warp 0
-    const size_t qe = (size_t)clampi(q_old, 0, C1 - 1) * E + e;
-    old = mx(mx(mx(m, T(0)), bpf[qe]), bpb[qe]);
-  }
+  if (r == 0) group_anchors(a, g, startind, st0, wi0, i0r_e, cik);
+  const T old = old_score(a, e, start, sS, n0e, i0f_e, red_j);
   __syncthreads();              // cik visible
 
   for (int p = 0; p < P; ++p) {
@@ -331,34 +396,184 @@ __global__ void __launch_bounds__(1024) group_kernel(MutArgs a) {
       for (int j = 0; j < RPT; ++j) eo[j] = eo_n[j];
     }
 
-    // new score: the selected refill column (or the copied column) vs the
-    // back column at rab = nst - refind_used + 1
-    const int rab_new = clampi(nst - refind_used + 1, 0, sS);
-    const int q_b = clampi(sS - rab_new + 1, 0, C1 - 1);
-    const size_t bb = ((size_t)q_b * E + e) * W;
-    const int ba = i0f_e[q_b];
-    const T bbest = bpb[(size_t)q_b * E + e];
-    const bool use_sel = k_star >= 0;
-    const int fa = use_sel ? sa : wi0;
-    const T fbest = use_sel ? sbest : wbest;
-    const int s = fa - ba;
-    const bool inr = use_sel ? (s >= JMIN && s <= JMAX)
-                             : (s >= CMIN && s <= CMAX);
-    T m = T(0);
-    for (int rr = r; rr < W; rr += nt) {
-      const T FM = use_sel ? (rr < Ws ? selM[rr] : T(0)) : Mw[rr];
-      const T FS = use_sel ? (rr < Ws ? selS[rr] : T(0)) : Sw[rr];
-      if (fa + rr >= 1 && fa + rr <= n0e) {
-        const T BMs = inr ? at_or_zero(Mb + bb, rr + s, W) : T(0);
-        const T BSs = inr ? at_or_zero(Sb + bb, rr + s, W) : T(0);
-        m = mx(m, mx(mx(FM + BMs, FS + BSs), mx(FM, FS)));
-      }
-      if (ba + rr >= 1 && ba + rr <= n0e)
-        m = mx(m, mx(Mb[bb + rr], Sb[bb + rr]));
-    }
-    m = block_max(m, red_j);                  // valid in warp 0
-    const T newv = mx(mx(mx(m, T(0)), fbest), bbest);
+    const T newv = new_score(a, e, sS, n0e, i0f_e, nst, refind_used,
+                             k_star >= 0, sa, sbest, selM, selS, wi0, wbest,
+                             Mw, Sw, red_j);
     if (r == 0) out[(size_t)p * a.E_g] = newv - old;
+  }
+}
+
+// The wide instance: windows past RPT_ROWS rows (scoring width 2048 and
+// up), whose six scan values a row outrun the registers.  A step's column
+// lives in memory with the carried and selected columns, WIDE_ARRAYS Ws
+// values: in dynamic shared memory where they fit (Ws <= 6,449 in f32 and
+// 3,221 in f64 at K = 0), else in a device scratch of
+// scratch_blocks slices, one for each block of a grid of that many blocks
+// that strides over the (group, event row) pairs.  1024 threads a block;
+// every phase of a step strides over the window rows (thread r takes rows
+// r, r + 1024, ...): the emissions and the scan elements, the scan level by
+// level (common.cuh:mp_scan_mem, the twin's tree), then the carried and
+// selected columns and the column max; the anchors, the joins and the
+// deltas are group_kernel's.  Each value is computed as there, so the
+// deltas are the same bit for bit.
+template <typename T>
+__global__ void __launch_bounds__(1024) group_wide_kernel(MutArgs a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int Ws = a.Ws, W = a.W, P = a.P, K = a.K, E = a.E, C1 = a.C1;
+  const size_t sws = (size_t)Ws;
+  T* red_s = reinterpret_cast<T*>(smem_raw);        // [32] step column max
+  T* red_j = red_s + 32;                            // [32] joins
+  T* Mc = a.scratch                                 // carried column
+      ? static_cast<T*>(a.scratch) + (size_t)blockIdx.x * WIDE_ARRAYS * sws
+      : red_j + 32;
+  T* selM = Mc + sws;                               // selected column
+  T* selS = selM + sws;
+  T* sc = selS + sws;                               // [6][Ws] scan elements
+  int* cik = reinterpret_cast<int*>(a.scratch ? red_j + 32 : sc + 6 * sws);
+
+  const int r = threadIdx.x, nt = blockDim.x;
+  const int lane = r & 31, warp = r >> 5, nw = nt >> 5;
+  const T NB = neg_big<T>();
+  const T* Mf = static_cast<const T*>(a.Mf);
+  const T* Sf = static_cast<const T*>(a.Sf);
+  const T* bpf = static_cast<const T*>(a.bpf);
+  const T* wm = static_cast<const T*>(a.win[0]);
+  const T* wsd = static_cast<const T*>(a.win[1]);
+  const T* wl = static_cast<const T*>(a.win[2]);
+  const T off = T(a.lik_offset);
+  const int FSMIN = -64, FSMAX = a.RS + 64 + DMAX;
+  const long long items = (long long)a.G * a.E_g;
+
+  for (long long item = blockIdx.x; item < items; item += gridDim.x) {
+    __syncthreads();            // the previous pair's shared reads done
+    const int g = (int)(item / a.E_g), el = (int)(item % a.E_g);
+    T* out = static_cast<T*>(a.deltas) + (size_t)g * P * a.E_g + el;
+    const int greg = a.g_region[g];
+    const int e = clampi(a.g_evoff[g], 0, E - a.E_g) + el;
+    if (!(a.active[e] && a.ev_region[e] == greg)) {
+      if (r < P) out[(size_t)r * a.E_g] = T(0);
+      continue;
+    }
+    const int* i0f_e = a.i0f + (size_t)e * C1;
+    const int* i0r_e = a.i0r + (size_t)e * C1;
+    const int* i1r_e = a.i1r + (size_t)e * C1;
+    const int start = a.g_start[g], startind = a.g_startind[g];
+    const int sS = a.g_S[g];
+    const int n0e = a.n0[e];
+    const int st0 = clampi(startind, 0, C1 - 1);
+    const T* Mw = Mf + ((size_t)st0 * E + e) * W;
+    const T* Sw = Sf + ((size_t)st0 * E + e) * W;
+    const int wi0 = i0f_e[st0], wi1 = a.i1f[(size_t)e * C1 + st0];
+    const T wbest = bpf[(size_t)st0 * E + e];
+    const T lsk = static_cast<const T*>(a.lik[0])[e];
+    const T lst = static_cast<const T*>(a.lik[1])[e];
+    const T lex = static_cast<const T*>(a.lik[2])[e];
+    const T lin = static_cast<const T*>(a.lik[3])[e];
+
+    if (r == 0) group_anchors(a, g, startind, st0, wi0, i0r_e, cik);
+    const T old = old_score(a, e, start, sS, n0e, i0f_e, red_j);
+
+    for (int p = 0; p < P; ++p) {
+      const int gp = g * P + p;
+      if (!a.s_valid[gp]) {     // delta masked to 0
+        if (r == 0) out[(size_t)p * a.E_g] = T(0);
+        continue;
+      }
+      const int mlen = a.s_mlen[gp], nst = a.s_nst[gp];
+      const int nfill = clampi(min(startind + mlen + 6, nst) - startind, 0,
+                               K);
+      const int Lf = startind + nfill;
+      const int refind_used = min(start + mlen + 1, max(Lf, startind));
+      const int k_star = refind_used - startind - 1;   // -1: copied column
+      __syncthreads();          // cik; the previous slot's join read selM
+      for (int w = r; w < Ws; w += nt) {
+        Mc[w] = T(0);
+        selM[w] = T(0);
+        selS[w] = T(0);
+      }
+      int sa = wi0 + a.RS;
+      T sbest = wbest, cbest = wbest;   // meaningful in warp 0
+      __syncthreads();
+
+      for (int k = 0; k < K; ++k) {
+        if (!(k < mlen + 6 && startind + 1 + k <= nst && k < nfill)) break;
+        const int q = clampi(st0 + 1 + k, 0, C1 - 1);
+        const int i0c = i0r_e[q], i1c = i1r_e[q];
+        const int st = a.s_win[(size_t)gp * K + k];
+        const int stc = clampi(st, 0, 1023);
+        T m6[6];
+#pragma unroll
+        for (int j = 0; j < 6; ++j)
+          m6[j] = static_cast<const T*>(a.model[j])[(size_t)e * 1024 + stc];
+        const int qw = clampi(st0 + 1 + k, 0, a.Q1 - 1);
+        const size_t wrow = ((size_t)qw * E + e) * sws;
+        // the previous column: the forward column through the seam offset
+        // (k = 0) or the carried refill column shifted by d
+        const int s0 = i0c - wi0 - 1;
+        const bool inr = s0 >= FSMIN - 1 && s0 <= FSMAX;
+        const int ci0 = k == 0 ? 0 : cik[k];
+        const int d = i0c - ci0;
+        const bool okd = d >= 0 && d <= DMAX;
+        const int p0 = k == 0 ? wi0 : ci0;
+        const int p1 = k == 0 ? wi1 : ci0 + Ws - 1;
+
+        for (int w = r; w < Ws; w += nt) {
+          const T em = emission<T>(wm[wrow + w], wsd[wrow + w], wl[wrow + w],
+                                   m6[0], m6[1], m6[2], m6[3], m6[4], m6[5],
+                                   off);
+          const T eo = i0c + w <= i1c && st >= 0 ? em : T(0);
+          T pm_i, pm_im1;
+          if (k == 0) {
+            pm_im1 = inr ? at_or_zero(Mw, w + s0, W) : T(0);
+            pm_i = inr ? at_or_zero(Mw, w + s0 + 1, W) : T(0);
+          } else {
+            pm_i = okd ? at_or_zero(Mc, w + d, Ws) : T(0);
+            pm_im1 = okd ? at_or_zero(Mc, w + d - 1, Ws) : T(0);
+          }
+          const int i = i0c + w;
+          const bool valid_i = i >= p0 && i <= p1;
+          const bool valid_ul = i > p0 && i <= p1;
+          const T skip_c = (valid_i ? pm_i : T(0)) + lsk;
+          const T match_c = (valid_ul ? pm_im1 : T(0)) + eo;
+          const T ignore_c = valid_ul ? pm_im1 + lin : T(0);
+          const T D = mx(mx(T(0), skip_c), mx(match_c, ignore_c));
+          const T a_stay = eo + lst, a_ext = eo + lex;
+          const bool cut = w == 0;
+          sc[w] = cut ? NB : mx(lin, a_stay);
+          sc[sws + w] = cut ? NB : a_ext;
+          sc[2 * sws + w] = cut ? NB : a_stay;
+          sc[3 * sws + w] = cut ? NB : a_ext;
+          sc[4 * sws + w] = D;
+          sc[5 * sws + w] = cut ? NB : T(0);
+        }
+        __syncthreads();        // the elements, and every read of Mc done
+        mp_scan_mem(sc, Ws);
+        T lmax = NB;            // the thread's column max
+        for (int w = r; w < Ws; w += nt) {
+          const bool live = i0c + w <= i1c && st >= 0;
+          const T Mn = live ? sc[4 * sws + w] : T(0);
+          const T Sn = live ? sc[5 * sws + w] : T(0);
+          lmax = mx(lmax, live ? Mn : NB);
+          Mc[w] = Mn;
+          if (k == k_star) { selM[w] = Mn; selS[w] = Sn; }
+        }
+        const T wmax = warp_max(lmax);
+        if (lane == 0) red_s[warp] = wmax;
+        if (k == k_star) sa = i0c;
+        __syncthreads();        // Mc and the partial maxima visible
+        if (warp == 0) {
+          const T cmax = warp_max(lane < nw ? red_s[lane] : NB);
+          const T bestn = mx(cmax, cbest);
+          cbest = bestn;
+          if (k == k_star) sbest = bestn;
+        }
+      }
+
+      const T newv = new_score(a, e, sS, n0e, i0f_e, nst, refind_used,
+                               k_star >= 0, sa, sbest, selM, selS, wi0, wbest,
+                               Mw, Sw, red_j);
+      if (r == 0) out[(size_t)p * a.E_g] = newv - old;
+    }
   }
 }
 
@@ -387,15 +602,41 @@ static int launch_groups(const MutArgs* a, cudaStream_t st) {
   return (int)cudaGetLastError();
 }
 
+// the wide instance: a block of 1024 threads for every (group, event row)
+// pair, its arrays in dynamic shared memory; or, with a scratch, a grid of
+// scratch_blocks blocks striding over the pairs, its arrays there
+template <typename T>
+static int launch_wide(const MutArgs* a, cudaStream_t st) {
+  const size_t smem =
+      64 * sizeof(T) + (size_t)a->K * sizeof(int) +
+      (a->scratch ? 0 : (size_t)WIDE_ARRAYS * a->Ws * sizeof(T));
+  cudaError_t err = cudaFuncSetAttribute(
+      group_wide_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  long long blocks = (long long)a->G * a->E_g;
+  if (a->scratch) {
+    if (a->scratch_blocks < 1) return (int)cudaErrorInvalidValue;
+    blocks = blocks < a->scratch_blocks ? blocks : a->scratch_blocks;
+  }
+  if (blocks > 0)
+    group_wide_kernel<T><<<(unsigned)blocks, 1024, smem, st>>>(*a);
+  return (int)cudaGetLastError();
+}
+
 // the group kernel's instance of a->rpt window rows a thread
-// (engine/mutscore.py:rows_per_thread): Ws <= 1024 rpt, at most MAX_WS
+// (engine/fill.py:rows_per_thread): Ws <= 1024 rpt up to RPT_ROWS; rpt 0,
+// the wide instance
 template <typename T>
 static int launch(const MutArgs* a, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (a->Ws < 1 || a->Ws > MAX_WS ||
-      !(a->rpt == 1 || a->rpt == 2 || a->rpt == 4) || a->Ws > 1024 * a->rpt)
+  if (a->Ws < 1 ||
+      !(a->rpt == 0 || a->rpt == 1 || a->rpt == 2 || a->rpt == 4) ||
+      (a->rpt > 0 && a->Ws > 1024 * a->rpt) ||
+      (a->rpt == 0 && a->Ws <= RPT_ROWS))
     return (int)cudaErrorInvalidValue;
-  const int err = a->rpt == 1   ? launch_groups<T, 1>(a, st)
+  const int err = a->rpt == 0   ? launch_wide<T>(a, st)
+                  : a->rpt == 1 ? launch_groups<T, 1>(a, st)
                   : a->rpt == 2 ? launch_groups<T, 2>(a, st)
                                 : launch_groups<T, 4>(a, st);
   if (err != cudaSuccess) return err;

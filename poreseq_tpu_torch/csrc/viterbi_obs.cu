@@ -42,14 +42,24 @@
 //   memory loads (the event, then its tables) and divides: it is bound by
 //   their latency, which the warps an SM can hold (32 at E_pad 14)
 //   hide only in part.
-// - The general path (E > CAP; the main path does not reach it): a block
-//   holds one row's 256 states and the row's level data in shared memory
-//   (E (3 sizeof(T) + 1) bytes, so a row takes up to 8192 events,
-//   engine/viterbi.py:OBS_MAX_EVENTS) and reads the tables from device
-//   memory.  A row with a trim finds the drop threshold, the nskip-th
-//   smallest (value, index), in a sorted list of KBUF registers (nskip <=
-//   KBUF) or by nskip selection passes, then recomputes each emission and
-//   sums those after the threshold.
+// - The general paths (E > CAP; the main path does not reach them): a block
+//   holds one row's 256 states and reads the tables from device memory.
+//   The staged path (E <= STAGED_EVENTS) keeps the row's level data in
+//   shared memory (E (3 sizeof(T) + 1) bytes); past it the level data is
+//   read from device memory as each emission needs it (every thread of a
+//   block reads the same event at a time: one broadcast load a warp), the
+//   stdv's clamp and log recomputed with the emission.  A row with a trim
+//   finds the drop threshold, the nskip-th smallest (value, index), in a
+//   sorted list of KBUF registers (nskip <= KBUF), or else by bisecting the
+//   values' order keys (common.cuh:order_key: a larger value a larger key,
+//   -0 and +0 one key): one pass over the row's emissions a key bit (32 in
+//   f32, 64 in f64) counts the valid events below the bit's midpoint, then
+//   one pass finds the rank-th event of the threshold's key in event order
+//   (the tie by index), so O(E bits) emissions where nskip passes took
+//   O(E nskip); then it recomputes each emission and sums those after the
+//   threshold, in event order.  Each pass streams the block's tables from
+//   device memory again (6 E NT sizeof(T) bytes), 34 passes in f32 and 66
+//   in f64 for a trimmed row: a simple path that is right, not a fast one.
 #include "common.cuh"
 
 namespace {
@@ -63,8 +73,11 @@ constexpr int RT = 16;      // rows per block, tiled path
 constexpr int NW = NS * RG / 32;     // warps per block, tiled path
 constexpr int RW = RT / NW;          // rows each warp stages
 static_assert(RT % NW == 0, "a whole number of rows for each warp to stage");
-constexpr int NT = 256;     // states per block, general path
-constexpr int KBUF = 8;     // the general path's register drop list
+constexpr int NT = 256;     // states per block, general paths
+constexpr int KBUF = 8;     // the general paths' register drop list
+// the staged path's events a row at most (engine/viterbi.py obs_path)
+constexpr int STAGED_EVENTS = 8192;
+enum Path : int { TILED = 0, STAGED = 1, UNSTAGED = 2 };
 
 __device__ __forceinline__ float lg(float x) { return logf(x); }
 __device__ __forceinline__ double lg(double x) { return log(x); }
@@ -175,8 +188,44 @@ obs_kernel(const T* __restrict__ lvl, const T* __restrict__ sd,
   }
 }
 
-// general path.  The same operands; grid (1024 / NT, R, B)
-template <typename T>
+// the drop threshold of a row's trim past KBUF: the nskip-th smallest
+// (value, event index) of its valid events (ok(e)) as (tv, ti), by
+// bisecting the values' order keys bit by bit from the top (the events
+// whose key agrees with the threshold's above bit b and has 0 there are
+// counted: rank fewer or more sets the bit), then the rank-th event of the
+// threshold's key in event order.  Every pass recomputes the emissions
+// (em(e)).
+template <typename T, typename Ok, typename Em>
+__device__ void bisect_threshold(int E, int nskip, Ok ok, Em em, T& tv,
+                                 int& ti) {
+  using Key = decltype(order_key(T(0)));
+  constexpr int BITS = 8 * sizeof(Key);
+  Key key = 0;
+  int rank = nskip;
+  for (int b = BITS - 1; b >= 0; --b) {
+    int below = 0;
+    for (int e = 0; e < E; ++e)
+      if (ok(e)) below += (order_key(em(e)) >> b) == (key >> b);
+    if (below < rank) {
+      key |= Key(1) << b;
+      rank -= below;
+    }
+  }
+  for (int e = 0; e < E; ++e) {
+    if (!ok(e)) continue;
+    const T v = em(e);
+    if (order_key(v) == key && --rank == 0) {
+      tv = v;
+      ti = e;
+      return;
+    }
+  }
+}
+
+// general paths.  The same operands; grid (1024 / NT, R, B).  STAGED_ROW:
+// the row's level data staged in shared memory, else read from device
+// memory with each emission.
+template <typename T, bool STAGED_ROW>
 __global__ void __launch_bounds__(NT)
 obs_rows_kernel(const T* __restrict__ lvl, const T* __restrict__ sd,
                 const uint8_t* __restrict__ valid, const T* __restrict__ tabs,
@@ -189,17 +238,25 @@ obs_rows_kernel(const T* __restrict__ lvl, const T* __restrict__ sd,
 
   const int s = blockIdx.x * NT + threadIdx.x;
   const size_t row = (size_t)blockIdx.z * R + blockIdx.y;
-  for (int e = threadIdx.x; e < E; e += NT) {
-    const T sdc = mx(sd[row * E + e], T(1e-30));
-    s_lvl[e] = lvl[row * E + e];
-    s_sdc[e] = sdc;
-    s_lsd[e] = lg(sdc);
-    s_ok[e] = valid[row * E + e];
+  const T* r_lvl = lvl + row * E;
+  const T* r_sd = sd + row * E;
+  const uint8_t* r_ok = valid + row * E;
+  if constexpr (STAGED_ROW) {
+    for (int e = threadIdx.x; e < E; e += NT) {
+      const T sdc = mx(r_sd[e], T(1e-30));
+      s_lvl[e] = r_lvl[e];
+      s_sdc[e] = sdc;
+      s_lsd[e] = lg(sdc);
+      s_ok[e] = r_ok[e];
+    }
+    __syncthreads();
   }
-  __syncthreads();
+  auto ok = [&](int e) -> bool {
+    if constexpr (STAGED_ROW) return s_ok[e]; else return r_ok[e];
+  };
 
   int nlik = 0;
-  for (int e = 0; e < E; ++e) nlik += s_ok[e];
+  for (int e = 0; e < E; ++e) nlik += ok(e);
   int nskip = nlik / 4;
   if (nskip > nlik - 2 || nlik <= 1) nskip = 0;
 
@@ -208,8 +265,18 @@ obs_rows_kernel(const T* __restrict__ lvl, const T* __restrict__ sd,
   const size_t kst = (size_t)E * 1024;
   auto em = [&](int e) {
     const T* t = tb + (size_t)e * 1024;
-    return emission<T>(s_lvl[e], s_sdc[e], s_lsd[e], t[0], t[kst],
-                       t[2 * kst], t[3 * kst], t[4 * kst], t[5 * kst], T(0));
+    T x, sdc, lsd;
+    if constexpr (STAGED_ROW) {
+      x = s_lvl[e];
+      sdc = s_sdc[e];
+      lsd = s_lsd[e];
+    } else {
+      x = r_lvl[e];
+      sdc = mx(r_sd[e], T(1e-30));
+      lsd = lg(sdc);
+    }
+    return emission<T>(x, sdc, lsd, t[0], t[kst], t[2 * kst], t[3 * kst],
+                       t[4 * kst], t[5 * kst], T(0));
   };
 
   // the threshold: (tv, ti) the last dropped pair, every pair after it kept
@@ -221,7 +288,7 @@ obs_rows_kernel(const T* __restrict__ lvl, const T* __restrict__ sd,
 #pragma unroll
     for (int j = 0; j < KBUF; ++j) { bv[j] = pos_inf<T>(); bi[j] = INT_MAX; }
     for (int e = 0; e < E; ++e) {
-      if (!s_ok[e]) continue;
+      if (!ok(e)) continue;
       T v = em(e);
       int ie = e;
 #pragma unroll
@@ -237,40 +304,34 @@ obs_rows_kernel(const T* __restrict__ lvl, const T* __restrict__ sd,
       if (j == nskip - 1) { tv = bv[j]; ti = bi[j]; }
     }
   } else if (nskip > 0) {
-    for (int k = 0; k < nskip; ++k) {          // the next pair after (tv, ti)
-      T mv = pos_inf<T>();
-      int mi = INT_MAX;
-      for (int e = 0; e < E; ++e) {
-        if (!s_ok[e]) continue;
-        const T v = em(e);
-        if (before(tv, ti, v, e) && before(v, e, mv, mi)) { mv = v; mi = e; }
-      }
-      tv = mv;
-      ti = mi;
-    }
+    bisect_threshold(E, nskip, ok, em, tv, ti);
   }
 
   T acc = T(0);
   for (int e = 0; e < E; ++e) {
-    if (!s_ok[e]) continue;
+    if (!ok(e)) continue;
     const T v = em(e);
     if (before(tv, ti, v, e)) acc = acc + v;
   }
   obs[row * 1024 + s] = acc / T(max(nlik - nskip, 1));
 }
 
+// path: engine/viterbi.py obs_path's choice, checked against E
 template <typename T>
 int launch(const void* lvl, const void* sd, const void* valid,
-           const void* tabs, void* obs, int B, int R, int E, void* stream) {
+           const void* tabs, void* obs, int B, int R, int E, int path,
+           void* stream) {
   if (B == 0 || R == 0) return 0;
   if (E < 0 || B > 65535) return (int)cudaErrorInvalidValue;
+  if (path != (E <= CAP ? TILED : E <= STAGED_EVENTS ? STAGED : UNSTAGED))
+    return (int)cudaErrorInvalidValue;
   const auto st = static_cast<cudaStream_t>(stream);
   const auto a = static_cast<const T*>(lvl);
   const auto d = static_cast<const T*>(sd);
   const auto ok = static_cast<const uint8_t*>(valid);
   const auto tb = static_cast<const T*>(tabs);
   const auto out = static_cast<T*>(obs);
-  if (E <= CAP) {
+  if (path == TILED) {
     const int tiles = (R + RT - 1) / RT;
     if (tiles > 65535) return (int)cudaErrorInvalidValue;
     const size_t smem = (size_t)RT * E * sizeof(Ev<T>) +
@@ -281,14 +342,18 @@ int launch(const void* lvl, const void* sd, const void* valid,
     if (err != cudaSuccess) return (int)err;
     obs_kernel<T><<<dim3(1024 / NS, tiles, B), NS * RG, smem, st>>>(
         a, d, ok, tb, out, R, E);
-  } else {
+  } else if (path == STAGED) {
     if (R > 65535) return (int)cudaErrorInvalidValue;
     const size_t smem = (size_t)E * (3 * sizeof(T) + 1);
     cudaError_t err = cudaFuncSetAttribute(
-        obs_rows_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        obs_rows_kernel<T, true>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
-    obs_rows_kernel<T><<<dim3(1024 / NT, R, B), NT, smem, st>>>(
+    obs_rows_kernel<T, true><<<dim3(1024 / NT, R, B), NT, smem, st>>>(
+        a, d, ok, tb, out, R, E);
+  } else {
+    if (R > 65535) return (int)cudaErrorInvalidValue;
+    obs_rows_kernel<T, false><<<dim3(1024 / NT, R, B), NT, 0, st>>>(
         a, d, ok, tb, out, R, E);
   }
   return (int)cudaGetLastError();
@@ -298,14 +363,14 @@ int launch(const void* lvl, const void* sd, const void* valid,
 
 extern "C" int psq_viterbi_obs_f32(const void* lvl, const void* sd,
                                    const void* valid, const void* tabs,
-                                   void* obs, int B, int R, int E,
+                                   void* obs, int B, int R, int E, int path,
                                    void* stream) {
-  return launch<float>(lvl, sd, valid, tabs, obs, B, R, E, stream);
+  return launch<float>(lvl, sd, valid, tabs, obs, B, R, E, path, stream);
 }
 
 extern "C" int psq_viterbi_obs_f64(const void* lvl, const void* sd,
                                    const void* valid, const void* tabs,
-                                   void* obs, int B, int R, int E,
+                                   void* obs, int B, int R, int E, int path,
                                    void* stream) {
-  return launch<double>(lvl, sd, valid, tabs, obs, B, R, E, stream);
+  return launch<double>(lvl, sd, valid, tabs, obs, B, R, E, path, stream);
 }

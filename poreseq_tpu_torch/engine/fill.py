@@ -38,25 +38,50 @@ class _FillArgs(ctypes.Structure):
         ("C", ctypes.c_int), ("E", ctypes.c_int), ("W", ctypes.c_int),
         ("Tlen", ctypes.c_int), ("backward", ctypes.c_int),
         ("need_steps", ctypes.c_int), ("lik_offset", ctypes.c_double),
-        ("rpt", ctypes.c_int),
+        ("rpt", ctypes.c_int), ("scratch", ctypes.c_void_p),
     ]
 
 
-#: the widest band a kernel instance takes: realign_width 2047
-MAX_W = 4095
+#: the register-held scan's widest band, 1024 threads of 4 rows (realign
+#: width 2047; csrc/fill.cu and csrc/mutscore.cu RPT_ROWS)
+RPT_ROWS = 4095
+#: the wide instances' column arrays of n values (csrc WIDE_ARRAYS): the
+#: fill's prevM, prevO and emissions, the group scorer's carried and
+#: selected columns, and both kernels' six scan rows
+WIDE_ARRAYS = 9
+#: the dynamic shared memory a block may take on the H100 (227 KB)
+SMEM_BYTES = 232_448
 
 
 def rows_per_thread(n: int, what: str = "fill") -> int:
     """Band rows a thread of csrc/fill.cu (and window rows of
-    csrc/mutscore.cu's group kernel) holds at width n: the kernels' scan
-    (common.cuh:mp_scan) covers 1024 rows a block at one row a thread, so
-    1 for n <= 1024, 2 up to 2048, 4 up to MAX_W; past it, or below 1,
-    ValueError."""
-    if not 1 <= n <= MAX_W:
-        raise ValueError(f"{what} kernel needs 1 <= width <= {MAX_W} band "
-                         f"rows (realign/scoring width <= {MAX_W // 2}), "
-                         f"got {n}")
-    return 1 if n <= 1024 else 2 if n <= 2048 else 4
+    csrc/mutscore.cu's group kernel) holds in registers at width n: the
+    kernels' scan (common.cuh:mp_scan) covers 1024 rows a block at one row
+    a thread, so 1 for n <= 1024, 2 up to 2048, 4 up to RPT_ROWS; past it
+    0, the wide instance, whose column lives in shared or device memory
+    (common.cuh:mp_scan_mem); below 1, ValueError."""
+    if n < 1:
+        raise ValueError(f"{what} kernel needs a width of at least 1 band "
+                         f"row, got {n}")
+    return (1 if n <= 1024 else 2 if n <= 2048 else 4 if n <= RPT_ROWS
+            else 0)
+
+
+def instance_name(rpt: int) -> str:
+    """A fill or group-scorer instance's name in ``Kernel.instances``."""
+    return "wide" if rpt == 0 else f"{rpt} row{'s' if rpt > 1 else ''}"
+
+
+def wide_scratch(rows: int, n: int, dtype, extra: int, device):
+    """The wide instance's column arrays (WIDE_ARRAYS x n values of dtype
+    for each of ``rows`` blocks) in device memory, or None where a block's
+    arrays and its ``extra`` bytes of shared memory fit SMEM_BYTES (the
+    kernel then keeps them in shared memory)."""
+    size = torch.empty((), dtype=dtype).element_size()
+    if WIDE_ARRAYS * n * size + extra <= SMEM_BYTES:
+        return None
+    return torch.empty((max(rows, 1), WIDE_ARRAYS, n), dtype=dtype,
+                       device=device)
 
 
 _SIG = [ctypes.POINTER(_FillArgs), ctypes.c_void_p]
@@ -100,6 +125,10 @@ def fill_cuda(batch: EventBatch, states, i0, i1, is_pad, lik_offset,
     best = torch.empty((E,), dtype=dt, device=dev)
     best_i = torch.empty((E,), dtype=torch.int32, device=dev)
     best_j = torch.empty((E,), dtype=torch.int32, device=dev)
+    # the wide instance's shared memory beside its arrays: 32 partial
+    # maxima and their rows
+    scratch = (wide_scratch(E, W, dt, 32 * (M.element_size() + 4), dev)
+               if rpt == 0 else None)
     args = _FillArgs(
         ptr(batch.mean), ptr(batch.stdv), ptr(lsx),
         (ctypes.c_void_p * 6)(*[t.data_ptr() for t in model]),
@@ -107,9 +136,10 @@ def fill_cuda(batch: EventBatch, states, i0, i1, is_pad, lik_offset,
         ptr(batch.n0), ptr(active), ptr(states), ptr(pad), ptr(i0), ptr(i1),
         ptr(M), ptr(S), ptr(sm), ptr(ss), ptr(cmax), ptr(carg),
         ptr(best_pfx), ptr(best), ptr(best_i), ptr(best_j), C, E, W, T,
-        int(backward), int(need_steps), float(lik_offset), rpt)
+        int(backward), int(need_steps), float(lik_offset), rpt,
+        None if scratch is None else scratch.data_ptr())
     FILL.call(f"psq_fill_{dtype_suffix(dt)}", dev, ctypes.byref(args),
-              stream(dev))
+              stream(dev), instance=instance_name(rpt))
     return M, S, sm, ss, cmax, carg, best_pfx, best, best_i, best_j
 
 

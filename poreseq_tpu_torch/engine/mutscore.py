@@ -33,7 +33,7 @@ from ..core.sequence import (_POW4, apply_mutation, seq_to_codes,
 from .align import both_dev, both_dev_sharded
 from .dp import (DMAX, MODEL_FIELDS, column_solve, emission,
                  level_windows, neg_big, window)
-from .fill import rows_per_thread
+from .fill import instance_name, rows_per_thread, wide_scratch
 from .pack import (event_ref_indexes, fill_geometry, limited_geometry,
                    place_full, round_up)
 from .types import make_mutscores
@@ -593,7 +593,15 @@ class _MutArgs(ctypes.Structure):
         + [("deltas", ctypes.c_void_p), ("totals", ctypes.c_void_p)]
         + [(n, ctypes.c_int) for n in
            ("C1", "E", "W", "Ws", "Q1", "RS", "K", "P", "DM", "E_g", "G")]
-        + [("lik_offset", ctypes.c_double), ("rpt", ctypes.c_int)])
+        + [("lik_offset", ctypes.c_double), ("rpt", ctypes.c_int),
+           ("scratch", ctypes.c_void_p), ("scratch_blocks", ctypes.c_int)])
+
+
+#: the wide group scorer's grid when its arrays are in device memory: one
+#: block for each of the H100's 132 SMs (a 1024-thread block takes an SM's
+#: registers), striding over the (group, event row) pairs; any count is
+#: correct
+SCRATCH_BLOCKS = 132
 
 
 _SIG = [ctypes.POINTER(_MutArgs), ctypes.c_void_p]
@@ -654,6 +662,11 @@ def _launch_groups(with_totals, batch, Mf, Sf, Mb, Sb, i0f, i1f, i0r, i1r,
     deltas = torch.empty((G, P, E_g), dtype=dt, device=dev)
     totals = (torch.empty((G, P), dtype=dt, device=dev) if with_totals
               else None)
+    # the wide instance's shared memory beside its arrays: 64 partial
+    # maxima and the K anchors
+    scratch = (wide_scratch(min(G * E_g, SCRATCH_BLOCKS), Ws, dt,
+                            64 * deltas.element_size() + 4 * K, dev)
+               if rpt == 0 else None)
     args = _MutArgs(
         *[t.data_ptr() for t in (Mf, Sf, Mb, Sb, i0f, i1f, i0r, i1r)],
         (ctypes.c_void_p * 3)(*[t.data_ptr() for t in win]),
@@ -662,9 +675,12 @@ def _launch_groups(with_totals, batch, Mf, Sf, Mb, Sb, i0f, i1f, i0r, i1r,
         (ctypes.c_void_p * 6)(*[t.data_ptr() for t in model]),
         *[garr[k].data_ptr() for k in GROUP_FIELDS],
         deltas.data_ptr(), totals.data_ptr() if with_totals else None,
-        C1, E, W, Ws, Q1, RS, K, P, DM, E_g, G, float(lik_offset), rpt)
+        C1, E, W, Ws, Q1, RS, K, P, DM, E_g, G, float(lik_offset), rpt,
+        None if scratch is None else scratch.data_ptr(),
+        0 if scratch is None else scratch.shape[0])
     MUTSCORE.call(f"psq_mutscore_{dtype_suffix(dt)}", dev,
-                  ctypes.byref(args), stream(dev))
+                  ctypes.byref(args), stream(dev),
+                  instance=instance_name(rpt))
     return totals, deltas
 
 

@@ -178,14 +178,17 @@ def trimmed_mean(per, valid):
     summed in event index order and divided by max(nlik - nskip, 1).  The
     JAX package sorts and sums in XLA's order; this order is the one
     csrc/viterbi_obs.cu can follow, and it equals the JAX one in f64 within
-    rounding."""
+    rounding.  The drop set comes from a stable sort over events with the
+    invalid ones at +inf: each (region, row, state)'s first nskip sorted
+    entries are its nskip smallest pairs (the emissions are finite)."""
     B, R, E, S = per.shape
     nlik, nskip = trim_counts(valid)
-    keep = valid[..., None].expand(B, R, E, S).clone()
-    for j in range(int(nskip.max()) if nskip.numel() else 0):
-        worst = torch.where(keep, per, torch.inf).argmin(dim=2, keepdim=True)
-        drop = (j < nskip)[..., None, None].expand(B, R, 1, S)
-        keep.scatter_(2, worst, ~drop & torch.gather(keep, 2, worst))
+    key = torch.where(valid[..., None], per, torch.inf)
+    order = torch.sort(key, dim=2, stable=True).indices
+    rank = torch.empty_like(order).scatter_(
+        2, order, torch.arange(E, device=per.device).view(1, 1, E, 1)
+        .expand(B, R, E, S))
+    keep = valid[..., None] & (rank >= nskip[:, :, None, None])
     tot = torch.zeros((B, R, S), dtype=per.dtype, device=per.device)
     for e in range(E):
         tot = tot + torch.where(keep[:, :, e], per[:, :, e], 0.0)
@@ -210,28 +213,28 @@ def obs_multi_reference(lvl, sd, valid, tabs):
     return trimmed_mean(obs_emissions(lvl, sd, tabs), valid)
 
 
-_OBS_SIG = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+_OBS_SIG = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 VITERBI_OBS = Kernel(
     "viterbi_obs",
     "poreseq_tpu/engine/tpu/viterbi.py:109 _obs_device / :442 _obs_multi_fn",
     {"psq_viterbi_obs_f32": _OBS_SIG, "psq_viterbi_obs_f64": _OBS_SIG})
-# the kernel keeps a row's event data in shared memory (3 values and a flag
-# an event): E_pad past this raises, far above max_coverage (30 reads by
-# default).  A limit of the port's own, kept: the JAX engine's
-# _obs_multi_fn builds [R, E, 1024] and sorts it, 33.6 GB in f32 at E =
-# 8193 and R = 1000 positions before the sort's copy, more than any chip it
-# was written for holds.
-OBS_MAX_EVENTS = 8192
+#: the observation kernel's paths by events a region (csrc/viterbi_obs.cu
+#: CAP and STAGED_EVENTS): the tiled path's register list, then the
+#: general path with the row's level data staged in shared memory, then
+#: the general path reading it from device memory
+OBS_PATHS = ((32, "tiled"), (8192, "staged"), (None, "unstaged"))
+
+
+def obs_path(E: int) -> tuple[int, str]:
+    """(index, name) of the observation kernel's path for E_pad events."""
+    return next((i, name) for i, (cap, name) in enumerate(OBS_PATHS)
+                if cap is None or E <= cap)
 
 
 def obs_multi_cuda(lvl, sd, valid, tabs):
     """Launch csrc/viterbi_obs.cu: the twin's [B, R, 1024]."""
     B, R, E = lvl.shape
     dev, dt = lvl.device, lvl.dtype
-    if E > OBS_MAX_EVENTS:
-        raise ValueError(f"viterbi_obs kernel takes at most "
-                         f"{OBS_MAX_EVENTS} events a region, got {E}: "
-                         f"lower max_coverage in the params file")
     check("lvl", lvl, dt, (B, R, E), dev)
     check("sd", sd, dt, (B, R, E), dev)
     check("valid", valid, torch.bool, (B, R, E), dev)
@@ -240,9 +243,10 @@ def obs_multi_cuda(lvl, sd, valid, tabs):
         raise ValueError("tabs: must start on a 16-byte boundary (the "
                          "kernel stages it 16 bytes a copy)")
     obs = torch.empty((B, R, 1024), dtype=dt, device=dev)
+    path, name = obs_path(E)
     VITERBI_OBS.call(f"psq_viterbi_obs_{dtype_suffix(dt)}", dev, ptr(lvl),
-                     ptr(sd), ptr(valid), ptr(tabs), ptr(obs), B, R, E,
-                     stream(dev))
+                     ptr(sd), ptr(valid), ptr(tabs), ptr(obs), B, R, E, path,
+                     stream(dev), instance=name)
     return obs
 
 

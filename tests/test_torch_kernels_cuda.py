@@ -4,9 +4,11 @@ at main-path shapes).  The fill runs at W = 41, 201, 601 and 801 (one or
 two warps of scan, a ragged last warp, the realign width, and a band wide
 enough for the block without a spare warp) and at W = 1023, 1025, 1401,
 2047 and 4095 (one row a thread at the edge, then two and four rows a
-thread), forward with steps and backward with and without, the group
-scorer at Ws = 41 and 201 (Refine's point width and Mutate's scoring
-width), 1025 and 1201 (two window rows a thread) and 4095 (four): f64 must
+thread) and, on a small region, at W = 4097 and 8193 (the wide instance,
+its column in shared memory or a device scratch), forward with steps and
+backward with and without, the group scorer at Ws = 41 and 201 (Refine's
+point width and Mutate's scoring width), 1025 and 1201 (two window rows a
+thread), 4095 (four) and 4097 (the wide instance, on a small region): f64 must
 equal the twin exactly, f32 within tolerances, with the step bytes, best
 coordinates and accept signs held, and the fill's running best (best,
 best_i, best_j, best_pfx) equal to dp.finish_fill on its own column maxima.
@@ -14,8 +16,9 @@ The backtrace (W = 49 and 1401), the Viterbi sweep (with and without backpointer
 with all rows real or none), the sampler (1 and 16 candidates) and its
 Gumbel kernel alone (R = 1, nk = 1, rows below, at and above one pass of
 its grid), the Viterbi observations (E_pad 1 to 32: the tiled
-path, 33 and 64: the general path's register drop list and selection
-passes; ragged row tiles), the per-base likes (T up to 3000, and a
+path, 33, 64 and 100: the staged general path's register drop list and its
+order-key bisection past it; 8193 and 12,289: the unstaged path, rows with
+every event valid, some, one and none; ragged row tiles), the per-base likes (T up to 3000, and a
 backtrace at W = 1401), the scoring geometry (unsorted rows; T 1 to 4000
 levels, C 1 to 3000 columns; at, past and twice its shared-memory level
 cap) and its windows (T not a multiple of 32; Ws up to 1201) must equal
@@ -87,6 +90,21 @@ def _tols(dtype):
 def test_fill_kernel_matches_twin(engine, backward, steps, realign):
     data = _data(realign=realign, ref_len=max(240, 2 * realign))
     _hold_fill(engine, _fill_args(engine, data, backward, steps))
+
+
+@pytest.mark.parametrize("engine", DTYPES, indirect=True)
+@pytest.mark.parametrize("backward,steps",
+                         [(False, True), (True, False), (True, True)])
+@pytest.mark.parametrize("realign", [2048, 4096])
+def test_fill_wide_instance_matches_twin(engine, backward, steps, realign):
+    """W = 4097 and 8193 (the wide instance: in f32 at 4097 its column in
+    shared memory, else in a device scratch) on a 240 b region at 6X."""
+    from poreseq_tpu_torch.engine.fill import FILL
+
+    n = FILL.instances["wide"]
+    _hold_fill(engine, _fill_args(engine, _data(realign=realign), backward,
+                                  steps))
+    assert FILL.instances["wide"] == n + 1
 
 
 def _hold_fill(engine, args):
@@ -310,6 +328,44 @@ def test_viterbi_obs_kernel_matches_twin(engine, E, R):
     n = VITERBI_OBS.launches
     sweep_inputs(_viterbi_events(), "cuda", engine.dtype)
     assert VITERBI_OBS.launches == n + 1
+
+
+def _obs_rows_inputs(E, dtype, fracs, seed=0):
+    """Observation operands of one region [1, R, E], row r with each event
+    valid with probability fracs[r] (1.0: all), then rows of 2, 1 and 0
+    valid events; event 1 a copy of event 0 (ties), stdv 0 now and then."""
+    rng = np.random.default_rng(seed + E)
+    R = len(fracs) + 3
+    lvl, sd, valid, tabs = (x.cpu().numpy() for x in _obs_inputs(
+        E, torch.float64, seed, B=1, R=R))
+    for r, frac in enumerate(fracs):
+        valid[0, r] = rng.random(E) < frac
+    valid[0, len(fracs):] = False
+    valid[0, len(fracs), :2] = True
+    valid[0, len(fracs) + 1, E // 2] = True
+    t = lambda x, d=dtype: torch.as_tensor(x, dtype=d, device="cuda")
+    return t(lvl), t(sd), t(valid, torch.bool), t(tabs)
+
+
+@pytest.mark.parametrize("engine", DTYPES, indirect=True)
+@pytest.mark.parametrize("E,path", [(100, "staged"), (8193, "unstaged"),
+                                    (12289, "unstaged")])
+def test_viterbi_obs_kernel_bisects_past_its_register_list(engine, E, path):
+    """Rows of every event valid, 60 % and 5 % of them (nskip up to 3,072,
+    past the register list of 8: the order-key bisection) and of 2, 1 and 0
+    valid events, at E = 100 (the staged path) and past the staged path's
+    8192 events (the level data read from device memory): equal to the
+    twin in f64 and f32, counted under the path's name."""
+    from poreseq_tpu_torch.engine.viterbi import (VITERBI_OBS,
+                                                  obs_multi_cuda,
+                                                  obs_multi_reference)
+
+    args = _obs_rows_inputs(E, engine.dtype, (1.0, 0.6, 0.05))
+    n = VITERBI_OBS.instances[path]
+    got = obs_multi_cuda(*args)
+    assert VITERBI_OBS.instances[path] == n + 1
+    assert torch.equal(got, obs_multi_reference(*args))
+    assert int(args[2][0, 0].sum()) // 4 > 8
 
 
 @pytest.mark.parametrize("engine", DTYPES, indirect=True)
@@ -565,6 +621,41 @@ def test_group_kernel_matches_twin(engine, coverages, scoring):
             assert not bool(((((tot_k - 1e-6) > 0) != ((tot_r - 1e-6) > 0))
                              & valid).any())
     assert (clamped > 0) == (len(coverages) > 1)
+
+
+@pytest.mark.parametrize("engine", DTYPES, indirect=True)
+def test_group_kernel_wide_instance_matches_twin(engine):
+    """Ws = 4097 (scoring and realign width 2048: the wide instance, in f32
+    its arrays in shared memory, in f64 in a device scratch striding over
+    132 blocks) on a 240 b region at 6X: point mutations at every 8th base
+    and a tail insertion, every group held to the twin."""
+    from poreseq_tpu_torch.engine.mutscore import (MUTSCORE, group_launches,
+                                                   group_totals_cuda,
+                                                   sum_rows_reference)
+
+    data = _data(realign=2048, scoring=2048)
+    tail = MutationInfo()
+    tail.start, tail.orig, tail.mut = len(data.sequence), "", "ACGTACGTA"
+    muts = [m for m in find_point_mutations(data) if m.start % 8 == 0]
+    n, launches, nonzero = MUTSCORE.instances["wide"], 0, 0
+    for gp, _, args in group_launches(engine, [data], [muts + [tail]],
+                                      [True]):
+        assert args[16] == 4097
+        args = (*args[:13], {k: v[: gp["G"]] for k, v in args[13].items()},
+                *args[14:])
+        tot_k, _ = group_totals_cuda(*args)
+        launches += 1
+        tot_r = sum_rows_reference(_group_deltas_in_chunks(args))
+        if engine.dtype == torch.float64:
+            assert torch.equal(tot_k, tot_r)
+        else:
+            torch.testing.assert_close(tot_k, tot_r, rtol=2e-4, atol=3e-3)
+            valid = args[13]["s_valid"].bool()
+            assert not bool(((((tot_k - 1e-6) > 0) != ((tot_r - 1e-6) > 0))
+                             & valid).any())
+        nonzero += int((tot_r != 0).sum())
+    assert launches > 0 and MUTSCORE.instances["wide"] == n + launches
+    assert nonzero > 0
 
 
 # the genome-scale path's shapes: a 10,050 b region of a 14 kb genome whose

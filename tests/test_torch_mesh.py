@@ -122,6 +122,54 @@ def test_mesh_group_scorer_equals_single_device_f32():
         assert torch.equal(a, b)
 
 
+def test_mesh_group_scorer_equals_single_device_at_scoring_width_2048():
+    """Ws = 4097 (the wide instance's width on the card) on a 2x2 mesh of
+    CPU shards, f64, host geometry, two regions of 40 b at 6X and 8X with
+    point substitutions at 2 starts each, the launch's real groups: totals
+    equal to one device's bit for bit."""
+    from poreseq_tpu_torch.core.regions import MutationInfo
+    from poreseq_tpu_torch.engine.mutscore import (GROUP_FIELDS,
+                                                   group_launches,
+                                                   group_totals,
+                                                   group_totals_sharded)
+
+    def subs(seq):
+        out = []
+        for st in (9, 27):
+            m = MutationInfo()
+            m.start, m.orig = st, seq[st]
+            m.mut = "A" if seq[st] != "A" else "C"
+            out.append(m)
+        return out
+
+    params = dict(PARAMS, realign_width=2048, scoring_width=2048)
+    totals = {}
+    for name, mesh in (("single", None), ("mesh", _cpu_mesh(2, 2))):
+        datas = [AlignData.from_session(simulate_session(
+            np.random.default_rng(seed), ref_len=40, coverage=cov,
+            draft_error=0.04, params=dict(params))[0])
+            for seed, cov in ((1, 6), (2, 8))]
+        eng = TorchEngine("cpu", torch.float64, mesh=mesh)
+        totals[name] = []
+        for gp, _, args in group_launches(eng, datas,
+                                          [subs(d.sequence) for d in datas],
+                                          [True] * 2, host_geometry=True):
+            real = {k: gp[k][: gp["G"]] for k in GROUP_FIELDS}
+            if mesh is None:
+                assert args[16] == 4097
+                real = {k: torch.as_tensor(v) for k, v in real.items()}
+                totals[name].append(group_totals(
+                    *args[:13], real, *args[14:]))
+            else:
+                assert args[6] == 4097
+                totals[name].append(group_totals_sharded(
+                    *args[:3], real, *args[4:]))
+    assert len(totals["single"]) == len(totals["mesh"]) > 0
+    for a, b in zip(totals["single"], totals["mesh"]):
+        assert torch.equal(a, b)
+    assert any(bool((t != 0).any()) for t in totals["single"])
+
+
 def _step_inputs(n_ev, n_mut, seed=1, coverage=8, n_muts=16):
     """One region's operands for sharded_consensus_step, as
     __graft_entry__._tiny_inputs builds the JAX step's: substitutions at

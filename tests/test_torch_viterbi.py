@@ -648,11 +648,34 @@ def _np_before(a, ia, b, ib):
     return (a < b) | ((a == b) & (ia < ib))
 
 
+def _np_bisect_threshold(per, ev, nskip):
+    """NumPy model of viterbi_obs.cu bisect_threshold over the states of
+    per [E, S] at the valid events ev: the threshold's order key bit by bit
+    from the top (the events agreeing with it above the bit and 0 there
+    counted against the rank), then the rank-th event of that key in event
+    order.  Returns (tv, ti) [S]."""
+    keys = _order_key(per[ev])                          # [nlik, S]
+    ut = keys.dtype.type
+    S = per.shape[1]
+    key = np.zeros(S, dtype=keys.dtype)
+    rank = np.full(S, nskip)
+    for b in range(8 * keys.itemsize - 1, -1, -1):
+        below = ((keys >> ut(b)) == (key >> ut(b))).sum(axis=0)
+        up = below < rank
+        key = np.where(up, key | (ut(1) << ut(b)), key)
+        rank = np.where(up, rank - below, rank)
+    hit = np.cumsum(keys == key, axis=0)
+    j = np.argmax((keys == key) & (hit == rank), axis=0)
+    assert ((keys == key) & (hit == rank)).any(axis=0).all()
+    return per[ev[j], np.arange(S)], ev[j]
+
+
 def _np_obs_general_row(per, ok, kbuf):
-    """NumPy model of one row of the general path: the drop threshold, the
-    nskip-th smallest (value, event index), from a sorted list of kbuf
-    (nskip <= kbuf) or nskip selection passes; the pairs after it summed in
-    event order."""
+    """NumPy model of one row of the general paths (staged and unstaged
+    alike: they differ only in where the row's level data lives): the drop
+    threshold, the nskip-th smallest (value, event index), from a sorted
+    list of kbuf (nskip <= kbuf) or by bisecting the order keys; the pairs
+    after it summed in event order."""
     one = per.dtype.type
     E, S = per.shape
     ev = np.nonzero(ok)[0]
@@ -673,13 +696,7 @@ def _np_obs_general_row(per, ok, kbuf):
                 bi[j], xi = np.where(sw, xi, bi[j]), np.where(sw, bi[j], xi)
         tv, ti = bv[nskip - 1], bi[nskip - 1]
     elif nskip > 0:
-        for _ in range(nskip):
-            mv, mi = np.full(S, np.inf, per.dtype), np.full(S, big)
-            for e in ev:
-                take = (_np_before(tv, ti, per[e], e)
-                        & _np_before(per[e], e, mv, mi))
-                mv, mi = np.where(take, per[e], mv), np.where(take, e, mi)
-            tv, ti = mv, mi
+        tv, ti = _np_bisect_threshold(per, ev, nskip)
     acc = np.zeros(S, dtype=per.dtype)
     for e in ev:
         acc = np.where(_np_before(tv, ti, per[e], e), acc + per[e], acc)
@@ -689,12 +706,13 @@ def _np_obs_general_row(per, ok, kbuf):
 def _np_obs_grid(per, valid):
     """NumPy model of csrc/viterbi_obs.cu's grid: E <= CAP takes the tiled
     path (a block: NS states x RT rows of one region, its thread group g of
-    RG taking rows g, g + RG, ... of the tile), else the general path (a
+    RG taking rows g, g + RG, ... of the tile), else a general path (a
     block: NT states of one row).  Asserts that every (region, row, state)
     is written exactly once; returns obs [B, R, 1024]."""
     cap, ns, rg, rt, nt, kbuf = _cu_consts("viterbi_obs", "CAP", "NS", "RG",
                                            "RT", "NT", "KBUF")
     B, R, E, S = per.shape
+    assert tv.obs_path(E)[1] == ("tiled" if E <= cap else "staged")
     out = np.full((B, R, S), np.nan, dtype=per.dtype)
     hits = np.zeros((B, R, S), dtype=int)
     if E <= cap:
@@ -721,8 +739,8 @@ def test_obs_kernel_grid_model_equals_twin(B, R, E, dtype):
     """The observation kernel's decomposition, bit for bit against
     obs_multi_reference: R = 1, B = 8 and R not a multiple of the row tile;
     E_pad 31 and 32 take the tiled path (at and below its cap), 33 and 40
-    the general one, whose rows reach nskip 9 and 10 (past its register
-    list: selection passes).  Each region has rows with no valid event and
+    the staged general one, whose rows reach nskip 9 and 10 (past its
+    register list: the order-key bisection).  Each region has rows with no valid event and
     with every event valid; event 1 is a copy of event 0 (ties), and a stdv
     is 0 now and then (the clamp)."""
     cap, = _cu_consts("viterbi_obs", "CAP")
@@ -756,6 +774,42 @@ def test_obs_kernel_grid_model_equals_twin(B, R, E, dtype):
     assert (nlik == E).any() and (R == 1 or (nlik == 0).any())
     if E == 40:
         assert (nlik // 4 > 8).any()
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+@pytest.mark.parametrize("E,counts", [(40, (40, 39, 36, 12, 2, 1, 0)),
+                                      (100, (100, 97, 64, 37, 36, 5))])
+def test_obs_bisect_threshold_equals_twin(E, counts, dtype):
+    """The general paths' selection past the register list (nskip > KBUF)
+    by order-key bisection, on rows of `counts` valid events of E: values
+    drawn from a few magnitudes with -0 and +0 among them, so that equal
+    keys (ties by index) are common; the row model equals the twin's trim
+    bit for bit."""
+    kbuf, = _cu_consts("viterbi_obs", "KBUF")
+    rng = np.random.default_rng(E)
+    S = 64
+    pool = np.array([-3.7, -3.7, -0.0, 0.0, 0.3, 2.2, 1e7, -1e-3, -41.9])
+    per = rng.choice(pool, (1, len(counts), E, S)).astype(dtype)
+    per += (rng.random(per.shape) < 0.2) * rng.normal(size=per.shape)
+    per = per.astype(dtype)
+    valid = np.zeros((1, len(counts), E), dtype=bool)
+    for r, n in enumerate(counts):
+        valid[0, r, rng.choice(E, n, replace=False)] = True
+    ref = tv.trimmed_mean(torch.as_tensor(per), torch.as_tensor(valid))
+    for r, n in enumerate(counts):
+        got = _np_obs_general_row(per[0, r], valid[0, r], kbuf)
+        np.testing.assert_array_equal(got, ref[0, r].numpy())
+    assert max(counts) // 4 > kbuf
+
+
+def test_obs_paths_follow_the_kernel_constants():
+    """obs_path's limits are csrc/viterbi_obs.cu's CAP and STAGED_EVENTS;
+    past the staged path any event count takes the unstaged one."""
+    cap, staged = _cu_consts("viterbi_obs", "CAP", "STAGED_EVENTS")
+    got = [tv.obs_path(E) for E in (1, cap, cap + 1, staged, staged + 1,
+                                    12289, 1 << 20)]
+    assert got == [(0, "tiled")] * 2 + [(1, "staged")] * 2 + [
+        (2, "unstaged")] * 3
 
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])

@@ -1,7 +1,7 @@
-"""A model of the CUDA kernels' max-plus column scan (csrc/common.cuh
-mp_scan) on the CPU.  Thread t holds the RPT adjacent positions t RPT + j
-(RPT = 1 up to 1024 rows, 2 up to 2048, 4 up to 4095:
-engine/fill.py rows_per_thread): the up-sweep's levels below log2(RPT) run
+"""Models of the CUDA kernels' max-plus column scans (csrc/common.cuh
+mp_scan and mp_scan_mem) on the CPU.  In mp_scan thread t holds the RPT
+adjacent positions t RPT + j (RPT = 1 up to 1024 rows, 2 up to 2048, 4 up
+to 4095: engine/fill.py rows_per_thread): the up-sweep's levels below log2(RPT) run
 inside each thread, the next five on each warp's chunk of 32 RPT positions
 by shuffles of the threads' last positions, one warp runs every higher
 level on the chunk tails, and the down-sweep runs the same levels back,
@@ -11,7 +11,11 @@ previous chunk's tail for lane 0) as theirs; the down-sweep computes only
 the u part (M, S) of its combines.  Replayed in f32 on seeded elements, it
 must give the u part of the twin's scan (dp._assoc_scan,
 jax.lax.associative_scan's tree) bit for bit, and make exactly the (source,
-destination) combines of the tree's index formulas, level by level."""
+destination) combines of the tree's index formulas, level by level.  Past
+4095 rows the wide instances' mp_scan_mem keeps the positions in memory and
+runs the same tree level by level, the block's 1024 threads striding over a
+level's pairs: its NumPy model must equal the twin's scan bit for bit in
+f32 and f64."""
 
 import numpy as np
 import pytest
@@ -25,6 +29,8 @@ torch.set_num_threads(1)
 
 LENGTHS = [1, 2, 31, 32, 33, 41, 63, 64, 65, 201, 511, 601, 1023, 1024,
            1025, 1401, 2047, 2048, 2049, 4095]
+# the wide instances' widths (rows_per_thread 0)
+WIDE_LENGTHS = [4096, 4097, 6000, 8191, 8193, 16385]
 # rows a thread at a width that does not need them: the schedule is the
 # same tree at any n
 EXTRA = [(2, 1), (2, 33), (2, 64), (2, 129), (4, 1), (4, 5), (4, 127),
@@ -175,10 +181,80 @@ def test_warp_scan_model_at_any_rows_a_thread(rpt, n):
 
 
 def test_rows_per_thread_limits():
-    """1 row a thread to 1024, 2 to 2048, 4 to 4095; outside, ValueError
-    naming the limit."""
-    assert [rows_per_thread(n) for n in (1, 1024, 1025, 2048, 2049, 4095)] \
-        == [1, 1, 2, 2, 4, 4]
-    for n in (0, 4096, 4097):
-        with pytest.raises(ValueError, match="4095"):
+    """1 row a thread to 1024, 2 to 2048, 4 to 4095, then 0 (the wide
+    instance, no rows in registers) at any width; below 1, ValueError."""
+    assert [rows_per_thread(n) for n in (1, 1024, 1025, 2048, 2049, 4095,
+                                         4096, 4097, 8193, 1 << 20)] \
+        == [1, 1, 2, 2, 4, 4, 0, 0, 0, 0]
+    for n in (0, -1):
+        with pytest.raises(ValueError, match="at least 1"):
             rows_per_thread(n)
+
+
+def _np_combine(l, v):
+    """common.cuh mp_combine in NumPy (the dtype of the operands): v after
+    l, [6, m] each."""
+    mx = np.maximum
+    return np.stack([mx(v[0] + l[0], v[1] + l[2]), mx(v[0] + l[1],
+                                                      v[1] + l[3]),
+                     mx(v[2] + l[0], v[3] + l[2]), mx(v[2] + l[1],
+                                                      v[3] + l[3]),
+                     mx(mx(v[0] + l[4], v[1] + l[5]), v[4]),
+                     mx(mx(v[2] + l[4], v[3] + l[5]), v[5])])
+
+
+def wide_scan_model(elems, log=None, nt=1024):
+    """common.cuh mp_scan_mem on stacked NumPy elements [6, n]: up-sweep
+    level L pairs k < n >> (L+1) (destination (k+1) 2^(L+1) - 1, source
+    2^L below), down-sweep level L pairs m = 1.. nd = ((n >> L) - 1) >> 1
+    (destination (2m+1) 2^L - 1, source 2^L below, the u rows only); thread
+    t takes the level's pairs t, t + nt, ..., a barrier after each level.
+    Asserts that no position of a level is both a source and a destination
+    (so its pairs may run in any order); returns the u rows [2, n]; log, if
+    given, collects (phase, level, source, destination)."""
+    sc = elems.copy()
+    n = sc.shape[1]
+
+    def level(phase, L, count, dst_of):
+        for t in range(min(nt, count)):       # thread t's pairs
+            k = np.arange(t, count, nt)
+            d = dst_of(k)
+            s = d - (1 << L)
+            new = _np_combine(sc[:, s], sc[:, d])
+            if phase == "down":
+                sc[4:, d] = new[4:]
+            else:
+                sc[:, d] = new
+            if log is not None:
+                log.extend((phase, L, int(a), int(b)) for a, b in zip(s, d))
+        k = np.arange(count)
+        d = dst_of(k)
+        assert not np.intersect1d(d, d - (1 << L)).size
+
+    L = 0
+    while (2 << L) <= n:
+        level("up", L, n >> (L + 1), lambda k: ((k + 1) << (L + 1)) - 1)
+        L += 1
+    for L in range(L - 1, -1, -1):
+        level("down", L, ((n >> L) - 1) >> 1,
+              lambda m: ((2 * (m + 1) + 1) << L) - 1)
+    return sc[4:]
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("n", WIDE_LENGTHS)
+def test_wide_scan_model_equals_twin_scan(n, dtype):
+    """Past 4095 rows, forward and reversed: the model's u rows equal the
+    twin's scan bit for bit, its combines are exactly the tree's."""
+    assert rows_per_thread(n) == 0
+    elems = _elements(n, seed=n).numpy().astype(dtype)
+    for rev in (False, True):
+        x = elems[:, ::-1].copy() if rev else elems
+        log = []
+        got = wide_scan_model(x, log)
+        ref = _assoc_scan(torch.as_tensor(x))[4:].numpy()
+        assert got.dtype == ref.dtype == dtype
+        np.testing.assert_array_equal(got.view(f"u{got.itemsize}"),
+                                      ref.view(f"u{ref.itemsize}"))
+        assert sorted(log) == sorted(tree_combines(n))
+        assert len(log) == scan_combines(n)

@@ -1,14 +1,16 @@
-"""The port past 1024 band rows and past the geometry's level cap, on the
-CPU: the plain twins the wide kernel instances are held to against the JAX
-package at widths the kernels run two or four rows a thread (the fill at
-realign width 600 and 1023 against dp.make_fill, the group scorer at
-scoring width 600 against _group_kernel_body, a scoring width above the
-realign width against TpuEngine, the geometry at 57,600 levels against
-_geom_body, and TorchEngine against TpuEngine at widths 600/600/20 in f64:
-ScoreEvents, and ScoreMutations marked `slow`), and the kernel wrappers with the
-C library stubbed: each width reaches its C entry with its instance's
-arguments, and past the limits the wrappers raise; the observation
-kernel's event cap ends a Viterbi call in EngineError."""
+"""The port past 1024 band rows, past the geometry's level cap and past
+8192 events a region, on the CPU: the plain twins the wide kernel instances
+are held to against the JAX package at widths the kernels run two or four
+rows a thread or their wide instance (the fill at realign width 600, 1023
+and 2048 against dp.make_fill, the group scorer at scoring width 600 and
+2048 against _group_kernel_body, a scoring width above the realign width
+against TpuEngine, the geometry at 57,600 levels against _geom_body, the
+observations at 8193 events against _obs_multi_fn, and TorchEngine against
+TpuEngine at widths 600/600/20 in f64: ScoreEvents, and ScoreMutations
+marked `slow`), and the kernel wrappers with the C library stubbed: each
+width reaches its C entry with its instance's arguments (a width below 1
+is refused), and a region of 8193 events reaches the observations'
+unstaged path."""
 
 import numpy as np
 import pytest
@@ -88,12 +90,13 @@ def test_engine_at_wide_bands_scores_mutations_as_jax_f64(x64):
     assert np.count_nonzero(out["torch"]) > 3
 
 
-@pytest.mark.parametrize("width,backward", [(600, False), (1023, True)])
+@pytest.mark.parametrize("width,backward", [(600, False), (1023, True),
+                                            (2048, False)])
 def test_fill_twin_at_wide_bands_matches_make_fill_f64(x64, width,
                                                        backward):
-    """W = 1201 forward and W = 2047 backward, with steps: the twin's
-    lattices within 1e-9 of dp.make_fill's, backpointers, best coordinates
-    and bands equal."""
+    """W = 1201 forward, W = 2047 backward and W = 4097 (the wide instance's
+    width on the card) forward, with steps: the twin's lattices within 1e-9
+    of dp.make_fill's, backpointers, best coordinates and bands equal."""
     from test_torch_fill import _inputs, _jax_fill, _port_fill
 
     arrays, states2, fi = _inputs(60, 2, width, seed=4)
@@ -142,26 +145,71 @@ def _jax_group_totals(args):
                            *(j(gpd[k]) for k in GROUP_FIELDS), off))
 
 
-def test_group_twin_at_scoring_width_600_matches_jax(x64):
-    """Ws = 1201 (two window rows a thread on the card), point
-    substitutions: the twin's totals on the launch's real groups equal
-    _group_kernel_body's within 1e-8."""
+def _group_twin_against_jax(width, ref_len):
+    """The twin's totals on the real groups of a Mutate launch at widths
+    (width, width, 20), point substitutions at 3 starts, against
+    _group_kernel_body's within 1e-8; returns the count of nonzero
+    totals."""
     from poreseq_tpu_torch.engine.mutscore import group_launches, group_totals
 
-    pa = _session(5, (600, 600, 20), ref_len=100)
+    pa = _session(5, (width, width, 20), ref_len=ref_len)
     data = AlignData.from_session(pa)
-    muts = _point_subs(data.sequence, (20, 50, 77))
+    muts = _point_subs(data.sequence, (ref_len // 5, ref_len // 2,
+                                       ref_len - 23))
     eng = TorchEngine("cpu", torch.float64)
     n = 0
     for gp, _, args in group_launches(eng, [data], [muts], [True]):
-        assert args[16] == 1201
+        assert args[16] == 2 * width + 1
         sub = {k: v[: gp["G"]] for k, v in args[13].items()}
         args = args[:13] + (sub,) + args[14:]
         got = group_totals(*args).numpy()
         np.testing.assert_allclose(got, _jax_group_totals(args), rtol=0,
                                    atol=1e-8)
         n += np.count_nonzero(got)
-    assert n == 3
+    return n
+
+
+def test_group_twin_at_scoring_width_600_matches_jax(x64):
+    """Ws = 1201 (two window rows a thread on the card), point
+    substitutions: the twin's totals on the launch's real groups equal
+    _group_kernel_body's within 1e-8."""
+    assert _group_twin_against_jax(600, 100) == 3
+
+
+def test_group_twin_at_scoring_width_2048_matches_jax(x64):
+    """Ws = 4097 (the wide instance on the card), point substitutions: the
+    twin's totals on the launch's real groups equal _group_kernel_body's
+    within 1e-8."""
+    assert _group_twin_against_jax(2048, 60) == 3
+
+
+def test_obs_twin_past_the_staged_events_matches_jax(x64):
+    """E = 8193 events a region (the unstaged path on the card), R = 2 rows:
+    every event valid, and half of them; obs_multi_reference within 1e-9 of
+    _obs_multi_fn (the JAX package's sort-based trim) in f64."""
+    from poreseq_tpu.engine.tpu import viterbi as jv
+
+    from poreseq_tpu_torch.engine import viterbi as tv
+
+    rng = np.random.default_rng(8193)
+    B, R, E = 1, 2, 8193
+    lvl = rng.normal(60, 8, (B, R, E))
+    sd = rng.uniform(0.5, 3, (B, R, E))
+    valid = np.ones((B, R, E), dtype=bool)
+    valid[:, 1] = rng.random(E) < 0.5
+    tabs = np.empty((B, 6, E, 1024))
+    tabs[:, 0] = rng.normal(60, 8, (E, 1024))
+    tabs[:, 1] = rng.uniform(1, 3, (E, 1024))
+    tabs[:, 2] = np.log(tabs[:, 1])
+    tabs[:, 3] = rng.uniform(0.8, 2, (E, 1024))
+    tabs[:, 4] = rng.uniform(1, 4, (E, 1024))
+    tabs[:, 5] = np.log(tabs[:, 4])
+    got = tv.obs_multi(*(torch.as_tensor(x) for x in (lvl, sd, valid,
+                                                      tabs))).numpy()
+    ref = np.asarray(jv._obs_multi_fn()(*(jnp.asarray(x) for x in (
+        lvl, sd, valid, tabs))))
+    np.testing.assert_allclose(got, ref, rtol=0, atol=1e-9)
+    assert tv.obs_path(E)[1] == "unstaged"
 
 
 def test_scoring_width_above_realign_width_matches_jax(x64, monkeypatch):
@@ -233,23 +281,23 @@ def stub(monkeypatch):
     import contextlib
 
     from poreseq_tpu_torch import _build
-    from poreseq_tpu_torch.engine import fill, mutscore
+    from poreseq_tpu_torch.engine import fill, mutscore, viterbi
 
     lib = _Lib()
     monkeypatch.setattr(torch.cuda, "device",
                         lambda dev: contextlib.nullcontext())
     for k in _build.KERNELS:
         monkeypatch.setattr(k, "_lib", lib)
-    for mod in (fill, mutscore):
+    for mod in (fill, mutscore, viterbi):
         monkeypatch.setattr(mod, "stream", lambda dev: None)
     return lib
 
 
-def _fill_operands(W):
+def _fill_operands(W, dtype=torch.float32):
     from poreseq_tpu_torch.engine.dp import MODEL_FIELDS, EventBatch
 
     E, T, C = 2, 40, 3
-    f = lambda *shape: torch.zeros(shape, dtype=torch.float32)
+    f = lambda *shape: torch.zeros(shape, dtype=dtype)
     batch = EventBatch(**{n: f(E, T) for n in ("mean", "stdv", "lsr",
                                                 "lsd")},
                        **{n: f(E, 1024) for n in MODEL_FIELDS},
@@ -277,14 +325,31 @@ def test_fill_cuda_reaches_its_instance(stub, W, rpt, backward):
     assert M.shape == (3, 2, W)
 
 
-@pytest.mark.parametrize("W", [0, 4096, 4097])
-def test_fill_cuda_refuses_widths_past_its_instances(stub, W):
+@pytest.mark.parametrize("W,dtype,in_shared", [
+    (0, torch.float32, None), (4096, torch.float32, True),
+    (4097, torch.float32, True), (8193, torch.float32, False),
+    (4097, torch.float64, False)])
+def test_fill_cuda_refuses_widths_past_its_instances(stub, W, dtype,
+                                                     in_shared):
+    """W = 0 is refused before any launch; every width past the register
+    instances reaches the wide one (rows a thread 0), its column arrays in
+    shared memory where 9 W values fit 227 KB (f32 up to W = 6,449), else in
+    a device scratch [E, 9, W] given to the C entry; counted under "wide"."""
     from poreseq_tpu_torch.engine.fill import FILL, fill_cuda
 
-    n = FILL.launches
-    with pytest.raises(ValueError, match="4095"):
-        fill_cuda(*_fill_operands(W), False, W, True)
-    assert stub.calls == [] and FILL.launches == n
+    n, wide = FILL.launches, FILL.instances["wide"]
+    if W == 0:
+        with pytest.raises(ValueError, match="at least 1"):
+            fill_cuda(*_fill_operands(W, dtype), False, W, True)
+        assert stub.calls == [] and FILL.launches == n
+        return
+    M = fill_cuda(*_fill_operands(W, dtype), False, W, True)[0]
+    (fn, (args, _)), = stub.calls
+    a = args._obj
+    assert fn == f"psq_fill_{'f32' if dtype == torch.float32 else 'f64'}"
+    assert (a.W, a.rpt) == (W, 0) and M.shape == (3, 2, W)
+    assert (a.scratch is None) == in_shared
+    assert FILL.launches == n + 1 and FILL.instances["wide"] == wide + 1
 
 
 def _group_operands(W, Ws):
@@ -321,13 +386,34 @@ def test_group_scorer_reaches_its_instance(stub, Ws, rpt):
 
 @pytest.mark.parametrize("Ws", [4096, 4097])
 def test_group_scorer_refuses_widths_past_its_instances(stub, Ws):
-    from poreseq_tpu_torch.engine.mutscore import (MUTSCORE,
+    """Scoring windows past the register instances reach the wide one (rows
+    a thread 0), counted under "wide": in f32 its arrays fit shared memory,
+    in f64 the C entry gets a device scratch for min(G E_g, SCRATCH_BLOCKS)
+    blocks, the grid's; Ws = 0 is refused before any launch."""
+    from poreseq_tpu_torch.engine.mutscore import (MUTSCORE, SCRATCH_BLOCKS,
                                                    group_totals_cuda)
 
-    n = MUTSCORE.launches
-    with pytest.raises(ValueError, match="4095"):
-        group_totals_cuda(*_group_operands(Ws, Ws))
-    assert stub.calls == [] and MUTSCORE.launches == n
+    n, wide = MUTSCORE.launches, MUTSCORE.instances["wide"]
+    ops = _group_operands(Ws, Ws)
+    totals, deltas = group_totals_cuda(*ops)
+    to64 = lambda x: (x.double() if torch.is_tensor(x) and x.is_floating_point()
+                      else x)
+    batch64 = type(ops[0])(*(to64(x) for x in ops[0]))
+    f64 = (batch64, *(to64(x) for x in ops[1:9]),
+           tuple(to64(w) for w in ops[9]), *(to64(x) for x in ops[10:]))
+    group_totals_cuda(*f64)
+    (f1, (a1, _)), (f2, (a2, _)) = stub.calls
+    a1, a2 = a1._obj, a2._obj
+    assert (f1, f2) == ("psq_mutscore_f32", "psq_mutscore_f64")
+    assert (a1.Ws, a1.rpt, a2.Ws, a2.rpt) == (Ws, 0, Ws, 0)
+    assert a1.scratch is None and a1.scratch_blocks == 0
+    assert a2.scratch and a2.scratch_blocks == min(2 * 2, SCRATCH_BLOCKS)
+    assert totals.shape == (2, 9) and deltas.shape == (2, 9, 2)
+    assert MUTSCORE.launches == n + 2 and MUTSCORE.instances["wide"] == \
+        wide + 2
+    with pytest.raises(ValueError, match="at least 1"):
+        group_totals_cuda(*_group_operands(Ws, 0))
+    assert MUTSCORE.launches == n + 2
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
@@ -355,24 +441,26 @@ def test_geom_cuda_takes_the_scratch_instance_past_the_cap(stub, dtype):
     assert a2[6:10] == (E, cap + 256, C, 8)
 
 
-def test_viterbi_obs_cap_ends_in_engine_error(monkeypatch):
-    """A region of 8193 events (max_coverage past the observation kernel's
-    8192) ends in EngineError naming the limit and max_coverage, before any
-    launch (the route stubbed to the kernel's, the operands stand-ins of
-    the region's shape)."""
-    from poreseq_tpu_torch.engine import EngineError
+def test_viterbi_obs_cap_ends_in_engine_error(stub, monkeypatch):
+    """A region of 8193 events (past the staged path's 8192) no longer ends
+    in EngineError: the engine's observation call (sweep_inputs, the route
+    stubbed to the kernel's, the operands of the region's shape) reaches the
+    C entry with E = 8193 and the unstaged path, counted under its name."""
     from poreseq_tpu_torch.engine import viterbi as vit
 
     def obs_inputs(events_lists, device, dtype):
         E = len(events_lists[0])
         z = torch.zeros((1, 64, E), dtype=dtype)
-        return [0], (z, z, z.bool(), None), torch.tensor([60])
+        tabs = torch.empty((1, 6, E, 1024), dtype=dtype)   # never touched
+        return [0], (z, z, z.bool(), tabs), torch.tensor([60])
 
     monkeypatch.setattr(vit, "obs_inputs", obs_inputs)
     monkeypatch.setattr(vit, "route", lambda *t: "cuda")
-    n = vit.VITERBI_OBS.launches
-    with pytest.raises(EngineError, match="at most 8192 events.*8193.*"
-                                          "max_coverage"):
-        TorchEngine("cpu", torch.float32).viterbi_mutate_multi(
-            [[None] * 8193], 16, 0.05, 0.01, 0.33, 0.75)
-    assert vit.VITERBI_OBS.launches == n
+    n, unstaged = vit.VITERBI_OBS.launches, \
+        vit.VITERBI_OBS.instances["unstaged"]
+    act, obs, _ = vit.sweep_inputs([[None] * 8193], "cpu", torch.float32)
+    (fn, a), = stub.calls
+    assert fn == "psq_viterbi_obs_f32" and a[5:9] == (1, 64, 8193, 2)
+    assert act == [0] and obs.shape == (1, 64, 1024)
+    assert vit.VITERBI_OBS.launches == n + 1
+    assert vit.VITERBI_OBS.instances["unstaged"] == unstaged + 1
