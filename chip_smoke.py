@@ -37,12 +37,16 @@ non-zero, nothing runs on the CPU instead):
                 twice the cap (the instance that reads the row from device
                 memory), equal; past the register-held scan, on a 240 b
                 region at 8X, the fill at realign widths 2048 and 4096 (W =
-                4097 and 8193, the wide instance: its column in shared
-                memory or a device scratch) on 8 event rows and the group
-                scorer at scoring width 2048 (Ws = 4097) on 60 mutations'
-                groups, and the observations past the staged path (E =
-                8193 events, 8 rows) equal; each timed in f32 (event and
-                queued ms) under the kernel's "wide" key;
+                4097 and 8193) on 8 event rows in both of its instances
+                there (the cluster instance, 5 and 9 CTAs an event in a
+                thread-block cluster, and the wide one, its column in
+                shared memory or a device scratch), the group scorer at
+                scoring width 2048 (Ws = 4097) on 60 mutations' groups,
+                and the observations past the staged path (E = 8193
+                events, 8 rows) equal; each timed in f32 (event and
+                queued ms) under the kernel's "wide" key, the fill's two
+                instances in turns at 8 and at 128 event rows (the 8
+                repeated; timed only);
   2b. viterbi — the sampler's threefry2x32 on the card gives JAX's row keys
                 and 32- and 64-bit words (PINNED_KEYS, PINNED_WORDS,
                 computed with JAX) bit for bit, the twin's uniforms on the
@@ -108,8 +112,9 @@ non-zero, nothing runs on the CPU instead):
                 twins (phase 2's tolerances) and timed; then phase 3's
                 first polished region alone (its second: the first has 2
                 reads, under the pipeline's 5; cut: 1 of 8) at 2048/2048/20
-                (W = Ws = 4097), -i 4 --region-batch 1: the fill's and the
-                scorer's wide instances launched (counted by instance),
+                (W = Ws = 4097), -i 4 --region-batch 1: the fill's cluster
+                instance and the scorer's wide one launched (counted by
+                instance),
                 accuracy no more than 0.5 points below the region's in
                 phase 3, its largest fills (8 event rows) and Ws = 4097
                 scorer launch (its first 2048 groups) held to the twins and
@@ -331,32 +336,41 @@ def _tolerance(f64: bool):
     return (0.0, 0.0) if f64 else (2e-5, 2e-4)
 
 
-def hold_fill(args, where: str, timing: dict | None = None) -> float:
-    """One fill launch (fill_cuda's arguments) against its plain twin on the
-    same operands: M, S and cmax equal (f64) or within the tolerance (f32),
-    step bytes equal (f64) or >= 99.95 % equal (f32), first argmaxes and
-    best coordinates equal; the kernel's running best (best_pfx, best,
-    best_i, best_j) equal to dp.finish_fill on its own cmax and carg.
-    Returns the max |diff|; timing: gets the twin's wall (ms, one call
-    closed by a synchronize) under "plain_ms"."""
+def hold_fill(args, where: str, timing: dict | None = None,
+              instance: str | None = None, cache: dict | None = None) -> float:
+    """One fill launch (fill_cuda's arguments; instance: the one named, else
+    the route's) against its plain twin on the same operands: M, S and
+    cmax equal (f64) or within the tolerance (f32), step bytes equal (f64)
+    or >= 99.95 % equal (f32), first argmaxes and best coordinates equal;
+    the kernel's running best (best_pfx, best, best_i, best_j) equal to
+    dp.finish_fill on its own cmax and carg.  Returns the max |diff|;
+    timing: gets the twin's wall (ms, one call closed by a synchronize)
+    under "plain_ms"; cache: keeps the twin's outputs under "ref", and an
+    earlier hold's there stand in for a twin call on the same operands."""
     import torch
 
     from poreseq_tpu_torch.engine.dp import fill_reference, finish_fill
     from poreseq_tpu_torch.engine.fill import fill_cuda
 
+    args = args[:9]     # a kept launch's bound arguments end in instance
     batch, states, i0, i1, pad, off, backward, W, need_steps = args
     f64 = batch.mean.dtype == torch.float64
     rtol, atol = _tolerance(f64)
-    got = fill_cuda(*args)
+    got = fill_cuda(*args, instance=instance)
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    ref = fill_reference(*args)
-    torch.cuda.synchronize()
-    if timing is not None:
-        timing["plain_ms"] = (time.perf_counter() - t0) * 1e3
+    ref = None if cache is None else cache.get("ref")
+    if ref is None:
+        t0 = time.perf_counter()
+        ref = fill_reference(*args)
+        torch.cuda.synchronize()
+        if timing is not None:
+            timing["plain_ms"] = (time.perf_counter() - t0) * 1e3
+        if cache is not None:
+            cache["ref"] = ref
     own = finish_fill(*got[:6], i0, i1, backward)
     torch.cuda.synchronize()
-    what = f"{where} fill (f64={f64}, backward={backward})"
+    what = (f"{where} fill{f' ({instance})' if instance else ''} "
+            f"(f64={f64}, backward={backward})")
     err = 0.0
     for n, a, b in zip(FILL_OUTPUTS, got, ref):
         if a.shape != b.shape:
@@ -931,6 +945,12 @@ SCAN_WIDE_WIDTHS = dict(realign_width=2048, scoring_width=2048,
                         point_width=20)
 SCAN_WIDE_REGION = dict(ref_len=240, coverage=8)
 SCAN_WIDE_ROWS, SCAN_WIDE_MUTS = 8, 60
+# the fill past the register-held scan runs two instances, both held to the
+# twin and timed at each SCAN_WIDE_FILL width: the cluster instance and the
+# wide (memory) one; timed also on SCAN_TIMED_ROWS event rows (the held 8
+# rows 16 times: every SM busy for either instance), not held there
+FILL_PAST_REGISTERS = ("cluster", "wide")
+SCAN_TIMED_ROWS = 128
 OBS_WIDE_EVENTS, OBS_WIDE_ROWS = 8193, 8
 
 
@@ -985,13 +1005,16 @@ def _obs_wide_inputs(seed: int, dtype):
 
 def check_wide(engine, seed: int, f64: bool, report: dict):
     """The wide instances held to their twins: the fill at WIDE_FILL and
-    SCAN_WIDE_FILL (forward with steps, backward without: the main path's)
-    with phase 2's tolerances, the group scorer on a Mutate call's groups at
-    WIDE_WIDTHS (8 regions) and SCAN_WIDE_WIDTHS (one small region), the
-    geometry past its staged cap and the observations past the staged path
-    bit-equal; in f32 each wide launch timed (event and queued ms) beside
-    its bound, under the kernel's "wide" key.  Each instance's launches are
-    counted (Kernel.instances) and every new one must have run."""
+    SCAN_WIDE_FILL (forward with steps, backward without: the main path's;
+    at SCAN_WIDE_FILL both FILL_PAST_REGISTERS instances) with phase 2's
+    tolerances, the group scorer on a Mutate call's groups at WIDE_WIDTHS
+    (8 regions) and SCAN_WIDE_WIDTHS (one small region), the geometry past
+    its staged cap and the observations past the staged path bit-equal; in
+    f32 each wide launch timed (event and queued ms) beside its bound,
+    under the kernel's "wide" key (the fill's two instances past the
+    register-held scan in turns, at SCAN_WIDE_ROWS and SCAN_TIMED_ROWS
+    event rows).  Each instance's launches are counted (Kernel.instances)
+    and every new one must have run."""
     import torch
 
     from poreseq_tpu_torch.engine.fill import FILL, fill_cuda
@@ -1027,17 +1050,35 @@ def check_wide(engine, seed: int, f64: bool, report: dict):
             batch, states, i0, i1, pad, off = _fill_inputs(
                 engine, _session(seed, width))
         shape = dict(E=batch.mean.shape[0], C=states.shape[0])
+        insts = FILL_PAST_REGISTERS if width in SCAN_WIDE_FILL else (None,)
         for name, backward, steps in (("forward", False, True),
                                       ("backward", True, False)):
             args = (batch, states, i0, i1, pad, off, backward, W, steps)
-            twin = {}
-            errs["fill"] = max(errs["fill"],
-                               hold_fill(args, f"kernels wide W={W}", twin))
-            if not f64:
+            twin, cache = {}, {}
+            for inst in insts:          # the twin called once
+                errs["fill"] = max(errs["fill"], hold_fill(
+                    args, f"kernels wide W={W}", twin, inst, cache))
+            del cache
+            if f64:
+                continue
+            if insts == (None,):
                 wide["fill"].setdefault(f"W={W}", {})[name] = time_it(
                     lambda: fill_cuda(*args),
                     fill_work(batch, states, pad, W, steps), **shape,
                     **twin)
+                continue
+            rows = torch.arange(SCAN_TIMED_ROWS, device=states.device)
+            many = _rows(args, rows % shape["E"])
+            for a, held in ((args, twin), (many, {})):
+                E = a[1].shape[1]
+                # the two instances in turns, each twice
+                for inst in insts + insts[::-1]:
+                    d = time_it(lambda: fill_cuda(*a, instance=inst),
+                                fill_work(*a[:2], a[4], W, steps), E=E,
+                                C=shape["C"], **held)
+                    runs = wide["fill"].setdefault(
+                        f"W={W} E={E} {inst}", {})
+                    runs[name if name not in runs else f"{name} (2)"] = d
 
     datas, mlists = _mut_regions(seed, WIDE_WIDTHS)["mutate"]
     data = _session(seed, SCAN_WIDE_WIDTHS["realign_width"],
@@ -1084,7 +1125,8 @@ def check_wide(engine, seed: int, f64: bool, report: dict):
             R=OBS_WIDE_ROWS, **twin)
     del ops, got, ref
     ran = {k.name: dict(k.instances - n0[k]) for k in n0}
-    if not (ran["fill"].get("wide") and ran["mutscore"].get("wide")
+    if not (ran["fill"].get("wide") and ran["fill"].get("cluster")
+            and ran["mutscore"].get("wide")
             and ran["viterbi_obs"].get("unstaged")):
         fail(f"kernels wide: the new instances did not all run: {ran}")
 
@@ -1114,7 +1156,8 @@ def check_wide(engine, seed: int, f64: bool, report: dict):
             f", twin {d['plain_ms']:.1f} ms" if "plain_ms" in d else "")
     print(f"[kernels] wide f{'64' if f64 else '32'}: fill W="
           f"{[2 * w + 1 for w in WIDE_FILL + SCAN_WIDE_FILL]} forward with "
-          f"steps and backward held to the twin (max |diff| "
+          f"steps and backward held to the twin (past 4095 rows the "
+          f"{' and '.join(FILL_PAST_REGISTERS)} instances; max |diff| "
           f"{errs['fill']:.3e}); mutscore on {n_groups} groups (by Ws) of "
           f"{len(datas)} regions and one region held (max |diff| "
           f"{errs['mutscore']:.3e}); geom T={cap + 256} and {2 * cap} equal "
@@ -2129,8 +2172,9 @@ WIDE_CONF = (CONF_WIDTHS
              .replace("realign_width = 300", "realign_width = 700")
              .replace("scoring_width = 100", "scoring_width = 600"))
 # phase 9's second run: phase 3's first polished region alone at widths
-# 2048/2048/20 (W = Ws = 4097: the fill's and the group scorer's wide
-# instances), -i 4 --region-batch 1, f32 (cut: one region of phase 3's 8);
+# 2048/2048/20 (W = Ws = 4097: the fill's cluster instance, the group
+# scorer's wide one), -i 4 --region-batch 1, f32 (cut: one region of phase
+# 3's 8);
 # its largest fills held on their first SCAN_HOLD_ROWS active rows, its
 # largest Ws = 4097 scorer launch on its first HOLD_GROUPS groups.  Phase
 # 3's first region (synthref:0:1000) has 2 reads, under the pipeline's
@@ -2207,16 +2251,16 @@ def phase_wide(seed: int, e2e: dict):
 def _scan_wide_run(seed: int, e2e: dict):
     """Phase 9's second run (SCAN_WIDE_CONF): phase 3's first polished
     region alone through the CLI at W = Ws = 4097; it must launch the
-    fill's and the
-    group scorer's wide instances and come within 0.5 points of that
-    region's accuracy in phase 3.  Its largest forward and backward fill
+    fill's instance there (fill_instance: the cluster instance) and the
+    group scorer's wide one and come within 0.5 points of that region's
+    accuracy in phase 3.  Its largest forward and backward fill
     (the first SCAN_HOLD_ROWS active rows) and its largest Ws = 4097 scorer
     launch (the first HOLD_GROUPS groups) are held to the twins and timed.
     Returns (launches, {held key: timing})."""
     import torch
 
     from poreseq_tpu_torch import cli
-    from poreseq_tpu_torch.engine.fill import FILL, fill_cuda
+    from poreseq_tpu_torch.engine.fill import FILL, fill_cuda, fill_instance
     from poreseq_tpu_torch.engine.mutscore import MUTSCORE, group_totals_cuda
     from poreseq_tpu_torch.engine.roofline import fill_work, group_work
     from poreseq_tpu_torch.io.fasta import read_fasta
@@ -2289,9 +2333,12 @@ def _scan_wide_run(seed: int, e2e: dict):
                                     for k, v in times.items())
           + f"; run wall {time.perf_counter() - t_run:.1f} s | "
           f"{gpu_line()}", flush=True)
-    if not (instances["fill"].get("wide")
+    routed = {fill_instance(W, kept[k][1].shape[1], torch.float32)
+              for k in ("fill fwd", "fill bwd")}
+    if not (all(instances["fill"].get(r) for r in routed)
             and instances["mutscore"].get("wide")):
-        fail(f"wide W={W}: the wide instances were not launched: "
+        fail(f"wide W={W}: the fill's instances past the register-held scan "
+             f"({routed}) or the scorer's wide one were not launched: "
              f"{instances}")
     if acc < acc3 - 0.5:
         fail(f"wide W={W}: accuracy {acc:.3f}% more than 0.5 points below "
@@ -2336,7 +2383,8 @@ def path_shapes():
     import threading
 
     from poreseq_tpu_torch.engine import TorchEngine, fill, mutscore
-    from poreseq_tpu_torch.engine.fill import instance_name, rows_per_thread
+    from poreseq_tpu_torch.engine.fill import (fill_instance, instance_name,
+                                               rows_per_thread)
     from poreseq_tpu_torch.io import load
 
     out = dict(loaded=0, trimmed=0, levels=0, C=0, E=0, T=0, fill=set(),
@@ -2383,8 +2431,12 @@ def path_shapes():
     load._set_trim_hint = hint
     TorchEngine._prepare_multi, TorchEngine.score_alignments_multi = (prep,
                                                                      score)
+    def fill_name(a):
+        return a.get("instance") or fill_instance(
+            a["W"], a["states"].shape[1], a["batch"].mean.dtype)
+
     fill.fill_cuda = instance(real["fill"], "fill", lambda a: (
-        f"W={a['W']} ({instance_name(rows_per_thread(a['W']))})"))
+        f"W={a['W']} ({fill_name(a)})"))
     mutscore.group_totals_cuda = instance(real["scorer"], "scorer", lambda a: (
         f"Ws={a['Ws']} ({instance_name(rows_per_thread(a['Ws']))})"))
     mutscore.geom_cuda = instance(real["geom"], "geom", geom_instance)

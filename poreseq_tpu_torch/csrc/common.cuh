@@ -124,11 +124,15 @@ __host__ __device__ constexpr int log2_rpt() {
 
 // up-sweep levels 0-(LR+4) on this warp's chunk; its last lane writes the
 // chunk's tail to tails[k*32 + warp] (k < 6).  Every lane must call it.
+// base: the block's first position, a multiple of its blockDim RPT
+// positions (the cluster instance's CTA k holds [k S, (k+1) S)), so every
+// guard is the tree's on global positions.
 template <typename T, int RPT>
-__device__ __forceinline__ void scan_up(T (&v)[RPT][6], T* tails, int n) {
+__device__ __forceinline__ void scan_up(T (&v)[RPT][6], T* tails, int n,
+                                        int base = 0) {
   constexpr int LR = log2_rpt<RPT>();
   const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
-  const int last = t * RPT + RPT - 1;
+  const int last = base + t * RPT + RPT - 1;
 #pragma unroll
   for (int L = 0; L < LR; ++L) {
 #pragma unroll
@@ -182,15 +186,18 @@ __device__ __forceinline__ void scan_tails(T* tails, int n) {
 // chunk's; then the in-thread levels, whose one outside source is the
 // previous thread's last position (lane 0: the previous chunk's tail).
 // tails keeps the full chunks' final u parts (k = 4, 5) until the next
-// scan_up.
+// scan_up.  base as in scan_up; prev: the final u part at base - 1 (the
+// cluster instance's previous CTA's last position), warp 0's outside
+// source, or null (base 0).
 template <typename T, int RPT>
 __device__ __forceinline__ void scan_down(T (&v)[RPT][6], const T* tails,
-                                          int n) {
+                                          int n, int base = 0,
+                                          const T* prev = nullptr) {
   constexpr int LR = log2_rpt<RPT>();
   const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
-  const int last = t * RPT + RPT - 1;
+  const int last = base + t * RPT + RPT - 1;
   T* x = v[RPT - 1];
-  if (lane == 31 && warp < (n >> (5 + LR))) {
+  if (lane == 31 && warp + (base >> (5 + LR)) < (n >> (5 + LR))) {
     x[4] = tails[4 * 32 + warp];
     x[5] = tails[5 * 32 + warp];
   }
@@ -198,18 +205,18 @@ __device__ __forceinline__ void scan_down(T (&v)[RPT][6], const T* tails,
   for (int L = 4; L >= 0; --L) {
     T s4 = __shfl_up_sync(FULL, x[4], 1 << L);
     T s5 = __shfl_up_sync(FULL, x[5], 1 << L);
-    if (lane == (1 << L) - 1 && warp > 0) {   // source: the previous
-      s4 = tails[4 * 32 + warp - 1];           // chunk's final tail
-      s5 = tails[5 * 32 + warp - 1];
+    if (lane == (1 << L) - 1 && (warp > 0 || prev)) {  // source: the
+      s4 = warp > 0 ? tails[4 * 32 + warp - 1] : prev[0];  // previous
+      s5 = warp > 0 ? tails[5 * 32 + warp - 1] : prev[1];  // chunk's tail
     }
     if (down_dst(last, L + LR, n)) mp_combine_u(s4, s5, x);
   }
   if constexpr (RPT > 1) {
     T q4 = __shfl_up_sync(FULL, x[4], 1);
     T q5 = __shfl_up_sync(FULL, x[5], 1);
-    if (lane == 0 && warp > 0) {
-      q4 = tails[4 * 32 + warp - 1];
-      q5 = tails[5 * 32 + warp - 1];
+    if (lane == 0 && (warp > 0 || prev)) {
+      q4 = warp > 0 ? tails[4 * 32 + warp - 1] : prev[0];
+      q5 = warp > 0 ? tails[5 * 32 + warp - 1] : prev[1];
     }
 #pragma unroll
     for (int L = LR - 1; L >= 0; --L) {
@@ -288,6 +295,135 @@ __device__ void mp_scan_mem(T* sc, int n) {
     }
     __syncthreads();
   }
+}
+
+// Thread-block clusters (sm_90): the CTA's rank in its cluster, the
+// cluster barrier in two halves (arrive releases the caller's earlier
+// writes, shared and distributed; wait acquires every other thread's; each
+// thread alternates them), and a pointer into another CTA's shared memory
+// (the generic address of the same variable in CTA `rank`).
+__device__ __forceinline__ unsigned cluster_rank() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+  return r;
+}
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive;" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait;" ::: "memory");
+}
+template <typename P>
+__device__ __forceinline__ P* cluster_map(P* p, unsigned rank) {
+  uint64_t out;
+  asm volatile("mapa.u64 %0, %1, %2;"
+               : "=l"(out)
+               : "l"(reinterpret_cast<uint64_t>(p)), "r"(rank));
+  return reinterpret_cast<P*>(out);
+}
+
+// The cluster instance's scan (fill.cu, bands past 4095 rows): positions
+// [0, n) over the `ncta` CTAs of a cluster, CTA `rank` holding [base, base
+// + S), S = blockDim RPT a power of two, thread t its positions base + t RPT
+// + j, with the combine tree of mp_scan (the twin's _assoc_scan).  The
+// levels below log2 S pair positions of one CTA: the in-thread and warp
+// levels run as in mp_scan (scan_up, scan_down on global positions), the
+// chunk tails' levels in warp 0.  The levels above pair CTA tails (last
+// positions, (k+1) S - 1), whose up-sweep values are the full CTAs'
+// totals: each full CTA sends its total to every higher rank's tops
+// ([6][32], lane k: rank k's), and after the cluster barrier warp 0 of
+// every CTA runs those levels over the totals of ranks up to its own
+// (lanes above zero: a lane's result reads only lanes below it, so its own
+// and rank - 1's are the tree's).  Its own lane's u part is its last
+// position's final value (written to its tails, where scan_down takes
+// it); rank - 1's, the previous CTA's last position, is the one outside
+// source of its down-sweep (pref[2]): the first destination of each level
+// below log2 S.  The same combines on the same operands, so the u part is
+// bit-equal to the twin's (a NumPy model, tests/test_torch_warp_scan.py
+// cluster_scan_model, holds the schedule).  Block barriers A and B as in
+// mp_scan, one cluster barrier; idle() runs in the other warps while
+// warp 0 waits on it, in warp 0 after B.  Every thread of every CTA must
+// call it; tops must not be written again before the cluster's next
+// barrier.
+template <typename T, int RPT, typename Idle>
+__device__ void mp_scan_cluster(T (&v)[RPT][6], T* tails, T* tops, T* pref,
+                                int n, int base, unsigned rank,
+                                unsigned ncta, Idle idle) {
+  constexpr int LR = log2_rpt<RPT>();
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nch = blockDim.x >> 5;              // chunks a CTA
+  const int c0 = base >> (5 + LR), ntg = n >> (5 + LR);
+  const unsigned nfull = n / (nch << (5 + LR));  // full CTAs
+  scan_up<T, RPT>(v, tails, n, base);
+  __syncthreads();                               // A
+  T x[6], s[6];
+  if (warp == 0) {              // the chunk tails' up-sweep
+    const bool mine = lane < nch, full = mine && c0 + lane < ntg;
+#pragma unroll
+    for (int k = 0; k < 6; ++k) x[k] = full ? tails[k * 32 + lane] : T(0);
+#pragma unroll
+    for (int L = 0; L < 5; ++L) {
+      if ((2 << L) > nch) break;
+      shfl_up6(x, s, 1 << L);
+      if (mine && up_dst(c0 + lane, L, ntg)) mp_combine(s, x);
+    }
+    T tot[6];                   // the CTA's total: its last chunk's tail
+#pragma unroll
+    for (int k = 0; k < 6; ++k) tot[k] = __shfl_sync(FULL, x[k], nch - 1);
+    if (rank < nfull && lane > (int)rank && lane < (int)ncta) {
+      T* dst = cluster_map(tops, lane);
+#pragma unroll
+      for (int k = 0; k < 6; ++k) dst[k * 32 + rank] = tot[k];
+    }
+    cluster_arrive();
+    cluster_wait();
+    T y[6];                     // the levels above log2 S
+#pragma unroll
+    for (int k = 0; k < 6; ++k)
+      y[k] = lane < (int)rank ? tops[k * 32 + lane]
+                              : lane == (int)rank && rank < nfull ? tot[k]
+                                                                  : T(0);
+#pragma unroll
+    for (int L = 0; L < 5; ++L) {
+      if ((2 << L) > (int)nfull) break;
+      shfl_up6(y, s, 1 << L);
+      if (up_dst(lane, L, nfull)) mp_combine(s, y);
+    }
+#pragma unroll
+    for (int L = 4; L >= 0; --L) {
+      if ((3 << L) > (int)nfull) continue;
+      const T s4 = __shfl_up_sync(FULL, y[4], 1 << L);
+      const T s5 = __shfl_up_sync(FULL, y[5], 1 << L);
+      if (down_dst(lane, L, nfull)) mp_combine_u(s4, s5, y);
+    }
+    const int pl = rank > 0 ? rank - 1 : 0;
+    const T p4 = __shfl_sync(FULL, y[4], pl);
+    const T p5 = __shfl_sync(FULL, y[5], pl);
+    const T o4 = __shfl_sync(FULL, y[4], rank);
+    const T o5 = __shfl_sync(FULL, y[5], rank);
+    // the chunk tails' down-sweep, from the previous CTA's last position
+#pragma unroll
+    for (int L = 4; L >= 0; --L) {
+      if ((2 << L) > nch) continue;
+      T s4 = __shfl_up_sync(FULL, x[4], 1 << L);
+      T s5 = __shfl_up_sync(FULL, x[5], 1 << L);
+      if (lane == (1 << L) - 1 && rank > 0) { s4 = p4; s5 = p5; }
+      if (mine && down_dst(c0 + lane, L, ntg)) mp_combine_u(s4, s5, x);
+    }
+    if (lane == nch - 1 && rank < nfull) { x[4] = o4; x[5] = o5; }
+    if (full) {
+      tails[4 * 32 + lane] = x[4];
+      tails[5 * 32 + lane] = x[5];
+    }
+    if (lane == 0) { pref[0] = p4; pref[1] = p5; }
+  } else {
+    cluster_arrive();
+    idle();
+    cluster_wait();
+  }
+  __syncthreads();                               // B
+  if (warp == 0) idle();
+  scan_down<T, RPT>(v, tails, n, base, rank > 0 ? pref : nullptr);
 }
 
 template <typename T>

@@ -32,7 +32,7 @@
 //    (W <= 2048) or 4 (W <= 4095) adjacent positions t RPT + j, whose
 //    lowest scan levels run in its registers (common.cuh:mp_scan), so one
 //    block of at most 1024 threads still holds an event's band (wider
-//    bands: fill_wide_kernel, below, its column in memory);
+//    bands: the cluster instance, next, or fill_wide_kernel, below);
 //  - the scan (common.cuh) runs the combine tree of
 //    jax.lax.associative_scan, the twin's, levels 0-4 in registers by warp
 //    shuffles, the chunk tails' levels in one warp, the down-sweep on the u
@@ -53,14 +53,46 @@
 //    the tails' scan (none when W < 64: one tail, final already) and C
 //    after the previous-column buffers are written; the backward fill
 //    with steps has one more (each warp's first M, S for the warp below).
+// The cluster instance (CL, bands past RPT_ROWS rows up to CL_MAX CTAs;
+// engine/fill.py fill_instance): past 4095 rows one block no longer holds
+// the band in registers, and one block an event leaves most SMs idle, so
+// an event takes a thread-block cluster of ceil(W / 1024) CTAs (up to 16,
+// the card's non-portable size), CTA k holding positions [1024 k, 1024 (k
+// + 1)) at 2 rows a thread of 512 (the 512-thread launch bound leaves 128
+// registers: no spill in f32).  Each cell is computed by the same code as
+// above; what crosses CTAs goes through distributed shared memory:
+//  - the scan (common.cuh:mp_scan_cluster): each CTA's levels below 1024
+//    as mp_scan's, its total to the higher ranks, one cluster barrier,
+//    then every CTA's warp 0 runs the levels above over the lower ranks'
+//    totals and its own, which gives its last position's final value and
+//    the previous CTA's, its down-sweep's outside source: the tree's
+//    combines, bit-equal;
+//  - the seams: a row reads the previous column's M and emission DMAX rows
+//    either side, so each CTA keeps its rows' prevM / prevO with a halo of
+//    DMAX rows a side, which its neighbours write when they write theirs;
+//    the forward step of a CTA's first row reads the previous CTA's last
+//    final (M, S), the scan's outside source; the backward step of its
+//    last row reads the next CTA's first, one level-0 combine of its own
+//    last final value and that CTA's first element, sent before the scan;
+//  - the column's max and first argmax: each CTA reduces its rows, rank 0
+//    reduces the CTAs' partials (ties to the smaller row, as in one
+//    block) and carries the running best;
+//  - a second cluster barrier a column, split: each CTA arrives once its
+//    halo and partial are sent and waits before the next live column reads
+//    them (rank 0 then finishes the column before), so a column costs two
+//    cluster barriers beside the three block barriers; dead columns cost
+//    none (a pending column is finished at the first after it).
 // Shared memory per block: (2W + 6*32 + 32 + 64) T + 32 int, i.e. 6,088
 // bytes in f32 and 12,048 in f64 at W = 601 (66,040 in f64 at W = 4095).
+// The cluster instance's CTA: (2 (1024 + 2 DMAX) + 520) T + 64 int, 10,656
+// bytes in f32, 21,056 in f64.
 // Registers (nvcc -Xptxas -v, sm_90a; chip_smoke.py prints them):
 // the W <= 608 instances 71-81 in f32 and 96 in f64, no spills but 16
 // and 108 bytes in the f64 backward fills; the wider instances are held
 // to 64 by their 1024-thread launch bound and spill up to 24 bytes in f32
 // and 500 in f64 at one row a thread, 128 and 1,228 at two, 440 and 2,032
-// at four.
+// at four; the cluster instance 100-112 in f32, no spill, and 128 in f64,
+// spilling 72-184 bytes.
 //
 // Built with --fmad=false so the kernel evaluates the twin's expression
 // tree without fused multiply-adds.
@@ -94,7 +126,8 @@ struct FillArgs {
   int C, E, W, Tlen, backward, need_steps;
   double lik_offset;
   int rpt;                 // band rows a thread: 1, 2 or 4; 0: the wide
-                           // instance (fill_wide_kernel)
+                           // instance (fill_wide_kernel); RPT_CLUSTER: the
+                           // cluster instance
   void* scratch;           // [E, WIDE_ARRAYS, W] the wide instance's column
                            // arrays in device memory, or null: in shared
 };
@@ -106,6 +139,14 @@ constexpr int RPT_ROWS = 4095;
 // the wide instance's column arrays of W values: prevM, prevO, the column's
 // emissions and its six scan rows
 constexpr int WIDE_ARRAYS = 9;
+// the cluster instance (FillArgs.rpt RPT_CLUSTER; engine/fill.py
+// fill_instance): CL_THREADS threads of CL_RPT rows a CTA, so a CTA spans
+// CL_THREADS * CL_RPT band positions (a power of two), and at most CL_MAX
+// CTAs a cluster (past 8 the card's non-portable cluster sizes)
+constexpr int RPT_CLUSTER = -1;
+constexpr int CL_THREADS = 512;
+constexpr int CL_RPT = 2;
+constexpr int CL_MAX = 16;
 
 // a column's band and state
 struct Col {
@@ -179,34 +220,53 @@ struct ColData {
 // does either (for W <= 608; the 640-thread launch bound leaves 96
 // registers a thread); without it warp 0 does both (W up to 1024 at RPT =
 // 1, 64 registers).  RPT: band rows a thread (1 for W <= 1024, 2 up to
-// 2048, 4 up to 4095), adjacent scan positions (common.cuh:mp_scan).
-template <typename T, bool BWD, bool STEPS, bool XW, int RPT>
-__global__ void __launch_bounds__(XW ? 640 : 1024) fill_kernel(FillArgs a) {
+// 2048, 4 up to 4095), adjacent scan positions (common.cuh:mp_scan).  CL:
+// the cluster instance, CL_THREADS threads of RPT = CL_RPT rows a CTA.
+template <typename T, bool BWD, bool STEPS, bool XW, int RPT, bool CL = false>
+__global__ void __launch_bounds__(XW ? 640 : CL ? CL_THREADS : 1024)
+    fill_kernel(FillArgs a) {
   static_assert(!XW || RPT == 1, "the spare warp is for one row a thread");
+  static_assert(!CL || !XW, "a cluster's CTAs have no spare warp");
   constexpr int LR = log2_rpt<RPT>();
+  constexpr int SPAN = CL_THREADS * RPT;       // CL: positions a CTA
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int W = a.W, C = a.C, E = a.E, Tlen = a.Tlen;
+  // CL: CTA `rank` of `ncta` holds positions [pos0, pos0 + nloc), rows
+  // [lo, lo + nloc), and keeps prevM / prevO of those rows and DMAX more on
+  // each side (the halo its neighbours send), row r at index r + ro
+  const unsigned ncta = CL ? (W + SPAN - 1) / SPAN : 1;
+  const unsigned rank = CL ? cluster_rank() : 0;
+  const int pos0 = rank * SPAN;
+  const int nloc = CL ? min(SPAN, W - pos0) : W;
+  const int lo = CL ? (BWD ? W - pos0 - nloc : pos0) : 0;
+  const int pw = CL ? SPAN + 2 * DMAX : W, ro = CL ? DMAX - lo : 0;
   T* prevM = reinterpret_cast<T*>(smem_raw);   // previous column, by row
-  T* prevO = prevM + W;
-  T* tails = prevO + W;                        // [6][32] mp_scan's
+  T* prevO = prevM + pw;
+  T* tails = prevO + pw;                       // [6][32] mp_scan's
   T* red_v = tails + 6 * 32;                   // [32] argmax partials
   T* head = red_v + 32;                        // [2][32] warps' first M, S
-  int* red_i = reinterpret_cast<int*>(head + 64);
+  T* tops = head + 64;      // CL: [6][32] lower ranks' totals
+  T* pref = tops + 6 * 32;  // CL: [2] the previous CTA's last final u
+  T* first = pref + 2;      // CL: [6] the next CTA's first scan element
+  T* cl_v = first + 6;      // CL, rank 0: [32] the CTAs' column maxima
+  int* red_i = reinterpret_cast<int*>(CL ? cl_v + 32 : head + 64);
+  int* cl_i = red_i + 32;   // CL, rank 0: [32] their first argmaxes
 
-  const int e = blockIdx.x, t = threadIdx.x;
+  const int e = CL ? blockIdx.x / ncta : blockIdx.x, t = threadIdx.x;
   const int lane = t & 31, warp = t >> 5;
   // warps holding band rows
-  const int nwr = (W + (32 << LR) - 1) >> (5 + LR);
+  const int nwr = (nloc + (32 << LR) - 1) >> (5 + LR);
   const bool tail_warp = XW && warp == nwr;
-  // the thread's scan positions t RPT + j: row t RPT + j forward, row W-1-
-  // (t RPT + j) backward (`row` is the physical band row, used for every
-  // band test and every address)
+  // the thread's scan positions pos0 + t RPT + j: row pos0 + t RPT + j
+  // forward, row W-1-(pos0 + t RPT + j) backward (`row` is the physical
+  // band row, used for every band test and every address)
   bool has[RPT];
   int row[RPT];
 #pragma unroll
   for (int j = 0; j < RPT; ++j) {
-    has[j] = t * RPT + j < W;
-    row[j] = BWD ? W - 1 - (t * RPT + j) : t * RPT + j;
+    const int p = pos0 + t * RPT + j;
+    has[j] = p < W;
+    row[j] = BWD ? W - 1 - p : p;
   }
   const T NB = neg_big<T>();
   const T* mean = static_cast<const T*>(a.mean) + (size_t)e * Tlen;
@@ -281,8 +341,40 @@ __global__ void __launch_bounds__(XW ? 640 : 1024) fill_kernel(FillArgs a) {
   };
 
   // the running best, carried by the finisher: lane 0 of the warp that
-  // finishes the column argmax (the spare warp, else warp 0)
+  // finishes the column argmax (the spare warp, else warp 0; CL: rank 0's)
   Running<T> best;
+  // CL: rank 0's warp 0 finishes a column's max and first argmax from the
+  // CTAs' partials (cl_v, cl_i) after the cluster barrier that follows it
+  // (pending: the last live column's, not yet finished)
+  bool pending = false;
+  int pend_tt = 0, pend_c = 0;
+  auto finish_pending = [&]() {
+    cluster_wait();
+    pending = false;
+    if (rank != 0 || warp != 0) return;
+    T cv = lane < (int)ncta ? cl_v[lane] : NB;
+    int ci = lane < (int)ncta ? cl_i[lane] : INT_MAX;
+    warp_argmax(cv, ci);
+    if (lane == 0) {
+      const size_t pe = (size_t)pend_c * E + e;
+      cmax[pe] = cv;
+      a.carg[pe] = ci;
+      best.column(a, e, pend_tt, pend_c, cv, ci);
+    }
+  };
+  // CL: row r's new prevM / prevO also into the halo of the CTA holding
+  // row r - DMAX .. r + DMAX, where that is another
+  auto send_halo = [&](int r, T m, T o) {
+    auto to = [&](unsigned k) {
+      const int b = k * SPAN, nl = min(SPAN, W - b);
+      const int i = r - (BWD ? W - b - nl : b) + DMAX;
+      cluster_map(prevM, k)[i] = m;
+      cluster_map(prevO, k)[i] = o;
+    };
+    if (r - lo < DMAX && lo > 0) to(BWD ? rank + 1 : rank - 1);
+    if (lo + nloc - 1 - r < DMAX && lo + nloc < W)
+      to(BWD ? rank - 1 : rank + 1);
+  };
   // the column's max and first argmax from the row warps' partials
   auto finish_argmax = [&](int tt, int c) {
     T cv = lane < nwr ? red_v[lane] : NB;
@@ -296,14 +388,25 @@ __global__ void __launch_bounds__(XW ? 640 : 1024) fill_kernel(FillArgs a) {
     }
   };
 
+  if constexpr (CL) {
+    for (int i = t; i < pw; i += blockDim.x) {
+      prevM[i] = T(0);
+      prevO[i] = T(0);
+    }
+  } else {
 #pragma unroll
-  for (int j = 0; j < RPT; ++j)
-    if (has[j]) { prevM[row[j]] = T(0); prevO[row[j]] = T(0); }
+    for (int j = 0; j < RPT; ++j)
+      if (has[j]) { prevM[row[j]] = T(0); prevO[row[j]] = T(0); }
+  }
   int p0 = 0, p1 = a.n0[e];     // the blank column [0, n0]
   Col cur = col(0), nxt = col(1);
   T ev[RPT], esrc[RPT];
   emit(load(cur), cur, ev, esrc);
   __syncthreads();
+  if constexpr (CL) {           // every CTA of the cluster running, its
+    cluster_arrive();           // halo zeroed, before any sends
+    cluster_wait();
+  }
 
   for (int tt = 0; tt < C; ++tt) {
     const int c = BWD ? C - 1 - tt : tt;
@@ -340,13 +443,16 @@ __global__ void __launch_bounds__(XW ? 640 : 1024) fill_kernel(FillArgs a) {
         So[base] = T(0);
         if (STEPS) { a.steps_m[base] = 0; a.steps_s[base] = 0; }
       }
-      if (t == 0) {
+      if (CL && pending) finish_pending();
+      if (t == 0 && rank == 0) {
         cmax[ce] = NB;
         a.carg[ce] = 0;
         if (!XW) best.column(a, e, tt, c, NB, 0);
       }
       next_emission();
     } else {
+      // CL: the previous column's halo and partials arrived
+      if (CL && pending) finish_pending();
       const int i0c = cur.i0, i1c = cur.i1, st = cur.st;
       const int dv = i0c - p0;
       T v[RPT][6];
@@ -360,16 +466,17 @@ __global__ void __launch_bounds__(XW ? 640 : 1024) fill_kernel(FillArgs a) {
         // previous-column candidates (implicit-zero local restarts)
         valid_i[j] = i >= p0 && i <= p1;
         T pm_i, pm_d;
+        const T* pM = prevM + ro;
         if (BWD) {
-          pm_i = at_or_zero(prevM, r + min(max(dv, -DMAX), 0), W);
+          pm_i = at_or_zero(pM, r + min(max(dv, -DMAX), 0), W);
           const int sd = min(max(dv + 1, -DMAX + 1), 1);
-          pm_d = at_or_zero(prevM, r + sd, W);
-          const T pobs_d = at_or_zero(prevO, r + sd, W);
+          pm_d = at_or_zero(pM, r + sd, W);
+          const T pobs_d = at_or_zero(prevO + ro, r + sd, W);
           valid_ul[j] = i >= p0 && i < p1;
           match_c[j] = valid_ul[j] ? pm_d + pobs_d : T(0);
         } else {
-          pm_i = at_or_zero(prevM, r + min(max(dv, 0), DMAX), W);
-          pm_d = at_or_zero(prevM, r + min(max(dv - 1, -1), DMAX - 1), W);
+          pm_i = at_or_zero(pM, r + min(max(dv, 0), DMAX), W);
+          pm_d = at_or_zero(pM, r + min(max(dv - 1, -1), DMAX - 1), W);
           valid_ul[j] = i > p0 && i <= p1;
           match_c[j] = (valid_ul[j] ? pm_d : T(0)) + ev[j];
         }
@@ -395,6 +502,17 @@ __global__ void __launch_bounds__(XW ? 640 : 1024) fill_kernel(FillArgs a) {
         next_emission();        // while the tail warp scans them
         if (W >= 64) __syncthreads();     // B: the tails final
         scan_down<T, 1>(v, tails, W);
+      } else if constexpr (CL) {
+        // backward with steps: the CTA's first element (position pos0,
+        // never an up-sweep destination) to the previous CTA, whose last
+        // row's step reads this row's final M, S
+        if (BWD && STEPS && rank > 0 && t == 0) {
+          T* dst = cluster_map(first, rank - 1);
+#pragma unroll
+          for (int k = 0; k < 6; ++k) dst[k] = v[0][k];
+        }
+        mp_scan_cluster<T, RPT>(v, tails, tops, pref, W, pos0, rank, ncta,
+                                next_emission);
       } else {
         mp_scan<T, RPT>(v, tails, W, next_emission);
       }
@@ -420,14 +538,26 @@ __global__ void __launch_bounds__(XW ? 640 : 1024) fill_kernel(FillArgs a) {
           if (lane == 31 && warp + 1 < nwr) {
             Mx = head[warp + 1];
             Sx = head[32 + warp + 1];
+          } else if (CL && lane == 31 && warp + 1 == nwr &&
+                     rank + 1 < ncta) {
+            // the next CTA's first position: its final u is the tree's
+            // level-0 down-sweep combine of this CTA's last position's
+            T f[6];
+#pragma unroll
+            for (int k = 0; k < 6; ++k) f[k] = first[k];
+            mp_combine_u(v[RPT - 1][4], v[RPT - 1][5], f);
+            const bool lm1 =
+                i0c + row[RPT - 1] - 1 <= i1c && st >= 0 && act_e;
+            Mx = lm1 ? f[4] : T(0);
+            Sx = lm1 ? f[5] : T(0);
           }
         } else {
           Mx = __shfl_up_sync(FULL, Mv[RPT - 1], 1);
           Sx = __shfl_up_sync(FULL, Sv[RPT - 1], 1);
-          if (lane == 0 && warp > 0) {
+          if (lane == 0 && (warp > 0 || (CL && rank > 0))) {
             const bool lm1 = i0c + row[0] - 1 <= i1c && st >= 0 && act_e;
-            Mx = lm1 ? tails[4 * 32 + warp - 1] : T(0);
-            Sx = lm1 ? tails[5 * 32 + warp - 1] : T(0);
+            Mx = lm1 ? (warp > 0 ? tails[4 * 32 + warp - 1] : pref[0]) : T(0);
+            Sx = lm1 ? (warp > 0 ? tails[5 * 32 + warp - 1] : pref[1]) : T(0);
           }
         }
 #pragma unroll
@@ -456,8 +586,10 @@ __global__ void __launch_bounds__(XW ? 640 : 1024) fill_kernel(FillArgs a) {
         const size_t base = ce * W + row[j];
         Mo[base] = Mv[j];
         So[base] = Sv[j];
-        prevM[row[j]] = Mv[j];  // its readers passed barrier A
-        prevO[row[j]] = live[j] ? ev[j] : T(0);
+        const T po = live[j] ? ev[j] : T(0);
+        prevM[row[j] + ro] = Mv[j];  // its readers passed barrier A
+        prevO[row[j] + ro] = po;
+        if (CL) send_halo(row[j], Mv[j], po);
         const T ov = live[j] ? Mv[j] : NB;
         if (j == 0 || ov > cv || (ov == cv && row[j] < ci)) {
           cv = ov;
@@ -469,7 +601,25 @@ __global__ void __launch_bounds__(XW ? 640 : 1024) fill_kernel(FillArgs a) {
       p0 = i0c;
       p1 = i1c;
       __syncthreads();          // C: prevM/prevO and the partials
-      if (!XW && warp == 0) finish_argmax(tt, c);
+      if constexpr (CL) {
+        // the CTA's max and first argmax to rank 0; the halo and the
+        // partials are read after the cluster barrier this arrives at
+        if (warp == 0) {
+          T bv = lane < nwr ? red_v[lane] : NB;
+          int bi = lane < nwr ? red_i[lane] : INT_MAX;
+          warp_argmax(bv, bi);
+          if (lane == 0) {
+            cluster_map(cl_v, 0)[rank] = bv;
+            cluster_map(cl_i, 0)[rank] = bi;
+          }
+        }
+        cluster_arrive();
+        pending = true;
+        pend_tt = tt;
+        pend_c = c;
+      } else if (!XW && warp == 0) {
+        finish_argmax(tt, c);
+      }
     }
     cur = nxt;
     nxt = after;
@@ -479,12 +629,15 @@ __global__ void __launch_bounds__(XW ? 640 : 1024) fill_kernel(FillArgs a) {
       esrc[j] = esrc_n[j];
     }
   }
-  if (t == (XW ? 32 * nwr : 0)) best.finish(a, e);   // the finisher
+  if (CL && pending) finish_pending();
+  if (t == (XW ? 32 * nwr : 0) && rank == 0) best.finish(a, e);  // finisher
 }
 
-// The wide instance: bands past RPT_ROWS rows (realign width 2048 and up).
-// A column's six scan values a row outrun the registers (6 W of them past
-// 4095 rows, against 65,536 registers an SM), so the column lives in
+// The wide instance: bands past the cluster instance's CL_MAX CTAs (W >
+// 16,384), or where the route finds it faster (engine/fill.py
+// fill_instance), or named (FillArgs.rpt 0, any W > RPT_ROWS).  In one
+// block a column's six scan values a row outrun the registers (6 W of them
+// past 4095 rows, against 65,536 registers an SM), so the column lives in
 // memory: prevM, prevO, the column's emissions and the scan rows, WIDE_ARRAYS
 // W values, in dynamic shared memory where they fit (W <= 6,449 in f32,
 // 3,223 in f64) and else in the event's slice of a device scratch [E,
@@ -708,13 +861,57 @@ static int launch_wide(const FillArgs& a, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-// the instance of a.rpt band rows a thread (engine/fill.py
-// rows_per_thread): W <= 1024 rpt up to RPT_ROWS; rpt 0, the wide instance
+// the cluster instance: a cluster of ceil(W / (CL_THREADS CL_RPT)) CTAs an
+// event (cudaLaunchKernelEx with a cluster dimension; past 8 CTAs the
+// card's non-portable sizes), refused (cudaErrorLaunchOutOfResources) where
+// the card cannot place one such cluster; never another instance instead
+template <typename T, bool BWD, bool STEPS>
+static int launch_cluster(const FillArgs& a, cudaStream_t stream) {
+  constexpr int SPAN = CL_THREADS * CL_RPT;
+  const int n = (a.W + SPAN - 1) / SPAN;
+  const size_t smem = (size_t)(2 * (SPAN + 2 * DMAX) + 6 * 32 + 32 + 64 +
+                               6 * 32 + 2 + 6 + 32) * sizeof(T) +
+                      64 * sizeof(int);
+  auto kern = fill_kernel<T, BWD, STEPS, false, CL_RPT, true>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err == cudaSuccess && n > 8)
+    err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = n;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(a.E * n);
+  cfg.blockDim = dim3(CL_THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int placed = 0;
+  err = cudaOccupancyMaxActiveClusters(&placed, (void*)kern, &cfg);
+  if (err != cudaSuccess) return (int)err;
+  if (placed < 1) return (int)cudaErrorLaunchOutOfResources;
+  err = cudaLaunchKernelEx(&cfg, kern, a);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// the instance a.rpt names (engine/fill.py fill_instance): band rows a
+// thread 1, 2 or 4 (W <= 1024 rpt <= RPT_ROWS); 0, the wide instance (W >
+// RPT_ROWS); RPT_CLUSTER, the cluster instance (RPT_ROWS < W <= CL_MAX CTAs
+// of CL_THREADS CL_RPT rows)
 template <typename T, bool BWD, bool STEPS>
 static int launch_one(const FillArgs& a, cudaStream_t stream) {
-  if (a.W < 1 || !(a.rpt == 0 || a.rpt == 1 || a.rpt == 2 || a.rpt == 4) ||
-      (a.rpt > 0 && a.W > 1024 * a.rpt) || (a.rpt == 0 && a.W <= RPT_ROWS))
+  if (a.W < 1 || !(a.rpt == RPT_CLUSTER || a.rpt == 0 || a.rpt == 1 ||
+                   a.rpt == 2 || a.rpt == 4) ||
+      (a.rpt > 0 && a.W > 1024 * a.rpt) || (a.rpt <= 0 && a.W <= RPT_ROWS) ||
+      (a.rpt == RPT_CLUSTER && a.W > CL_MAX * CL_THREADS * CL_RPT))
     return (int)cudaErrorInvalidValue;
+  if (a.rpt == RPT_CLUSTER) return launch_cluster<T, BWD, STEPS>(a, stream);
   if (a.rpt == 0) return launch_wide<T, BWD, STEPS>(a, stream);
   const int rows = ((a.W + a.rpt - 1) / a.rpt + 31) / 32 * 32;
   if (a.rpt == 1) {

@@ -51,15 +51,32 @@ RPT_ROWS = 4095
 WIDE_ARRAYS = 9
 #: the dynamic shared memory a block may take on the H100 (227 KB)
 SMEM_BYTES = 232_448
+#: the fill's cluster instance (csrc/fill.cu CL_THREADS x CL_RPT): the band
+#: positions a CTA holds in registers, and the most CTAs of a cluster (the
+#: card's largest non-portable cluster size)
+CLUSTER_SPAN = 1024
+CLUSTER_MAX = 16
+#: FillArgs.rpt of each fill instance (csrc/fill.cu RPT_CLUSTER: -1)
+INSTANCE_RPT = {"1 row": 1, "2 rows": 2, "4 rows": 4, "wide": 0,
+                "cluster": -1}
+#: the most event rows a launch of the cluster instance takes, by dtype and
+#: by its CTAs: the largest E of tools/fill_instances.py's grid (E = 8, 32,
+#: 64, 96, 128, 256) up to which it measured faster than the wide instance
+#: at every E, at W = 4097, 6450, 8193, 12289 and 16384 (5, 7, 9, 13 and 16
+#: CTAs; PERF.md §6: NVIDIA H100 80GB HBM3, 700.00 W).  Past it the
+#: card is full for either instance, and the wide one measured faster.
+CLUSTER_ROWS = {torch.float32: {5: 64, 7: 256, 9: 96, 13: 256, 16: 256},
+                torch.float64: {5: 256, 7: 128, 9: 256, 13: 128, 16: 256}}
 
 
 def rows_per_thread(n: int, what: str = "fill") -> int:
     """Band rows a thread of csrc/fill.cu (and window rows of
-    csrc/mutscore.cu's group kernel) holds in registers at width n: the
-    kernels' scan (common.cuh:mp_scan) covers 1024 rows a block at one row
-    a thread, so 1 for n <= 1024, 2 up to 2048, 4 up to RPT_ROWS; past it
-    0, the wide instance, whose column lives in shared or device memory
-    (common.cuh:mp_scan_mem); below 1, ValueError."""
+    csrc/mutscore.cu's group kernel) holds in registers at width n in one
+    block: the kernels' scan (common.cuh:mp_scan) covers 1024 rows a block
+    at one row a thread, so 1 for n <= 1024, 2 up to 2048, 4 up to
+    RPT_ROWS; past it 0: no one-block instance (the fill runs its cluster
+    or its wide instance, fill_instance; the group scorer its wide one);
+    below 1, ValueError."""
     if n < 1:
         raise ValueError(f"{what} kernel needs a width of at least 1 band "
                          f"row, got {n}")
@@ -68,15 +85,48 @@ def rows_per_thread(n: int, what: str = "fill") -> int:
 
 
 def instance_name(rpt: int) -> str:
-    """A fill or group-scorer instance's name in ``Kernel.instances``."""
+    """A group-scorer instance's name in ``Kernel.instances`` (and a fill's
+    up to RPT_ROWS: fill_instance)."""
     return "wide" if rpt == 0 else f"{rpt} row{'s' if rpt > 1 else ''}"
 
 
+def cluster_ctas(W: int) -> int:
+    """The CTAs of the fill's cluster instance at band width W."""
+    return -(-W // CLUSTER_SPAN)
+
+
+def cluster_rows(ctas: int, dtype) -> int:
+    """CLUSTER_ROWS at a cluster of ``ctas`` CTAs: a measured size's, else
+    the lower of the measured sizes' next to it."""
+    rows = CLUSTER_ROWS[dtype]
+    below = max((k for k in rows if k <= ctas), default=min(rows))
+    above = min((k for k in rows if k >= ctas), default=max(rows))
+    return min(rows[below], rows[above])
+
+
+def fill_instance(W: int, E: int, dtype) -> str:
+    """The fill instance csrc/fill.cu runs at band width W for E event rows
+    of dtype: up to RPT_ROWS the one block of rows_per_thread(W) rows a
+    thread ("1 row", "2 rows", "4 rows"); past it the cluster instance
+    ("cluster": cluster_ctas(W) CTAs of CLUSTER_SPAN rows an event, their
+    scan's top levels and the band's seams in distributed shared memory)
+    up to CLUSTER_MAX CTAs and cluster_rows event rows, where it measured
+    faster, else the wide instance ("wide": one block an event, its column
+    in shared or device memory, wide_scratch).  Below 1 row, ValueError."""
+    rpt = rows_per_thread(W)
+    if rpt:
+        return instance_name(rpt)
+    n = cluster_ctas(W)
+    return ("cluster" if n <= CLUSTER_MAX and E <= cluster_rows(n, dtype)
+            else "wide")
+
+
 def wide_scratch(rows: int, n: int, dtype, extra: int, device):
-    """The wide instance's column arrays (WIDE_ARRAYS x n values of dtype
-    for each of ``rows`` blocks) in device memory, or None where a block's
-    arrays and its ``extra`` bytes of shared memory fit SMEM_BYTES (the
-    kernel then keeps them in shared memory)."""
+    """The wide instances' column arrays (WIDE_ARRAYS x n values of dtype
+    for each of ``rows`` blocks: the fill's "wide" instance, the group
+    scorer's) in device memory, or None where a block's arrays and its
+    ``extra`` bytes of shared memory fit SMEM_BYTES (the kernel then keeps
+    them in shared memory)."""
     size = torch.empty((), dtype=dtype).element_size()
     if WIDE_ARRAYS * n * size + extra <= SMEM_BYTES:
         return None
@@ -90,14 +140,19 @@ FILL = Kernel("fill", "poreseq_tpu/engine/tpu/pallas_fill.py:142 _kernel",
 
 
 def fill_cuda(batch: EventBatch, states, i0, i1, is_pad, lik_offset,
-              backward: bool, W: int, need_steps: bool = True):
+              backward: bool, W: int, need_steps: bool = True,
+              instance: str | None = None):
     """Launch csrc/fill.cu: dp.fill_reference's raw outputs (M, S,
     steps_m, steps_s, cmax, carg), then the running best that
     dp.finish_fill derives from them (best_pfx [C, E], best [E], best_i,
-    best_j [E] int32)."""
+    best_j [E] int32).  instance: fill_instance's choice, or one named
+    (past RPT_ROWS "cluster" or "wide", to hold and time both at one
+    shape); the C entry refuses one that does not take W."""
     dev, dt = batch.mean.device, batch.mean.dtype
-    rpt = rows_per_thread(W)
     C, E = states.shape
+    rows_per_thread(W)          # below 1 row: ValueError
+    name = instance or fill_instance(W, E, dt)
+    rpt = INSTANCE_RPT[name]
     T = batch.mean.shape[1]
     f = lambda n, t, shape: check(n, t, dt, shape, dev)
     f("mean", batch.mean, (E, T))
@@ -128,7 +183,7 @@ def fill_cuda(batch: EventBatch, states, i0, i1, is_pad, lik_offset,
     # the wide instance's shared memory beside its arrays: 32 partial
     # maxima and their rows
     scratch = (wide_scratch(E, W, dt, 32 * (M.element_size() + 4), dev)
-               if rpt == 0 else None)
+               if name == "wide" else None)
     args = _FillArgs(
         ptr(batch.mean), ptr(batch.stdv), ptr(lsx),
         (ctypes.c_void_p * 6)(*[t.data_ptr() for t in model]),
@@ -139,7 +194,7 @@ def fill_cuda(batch: EventBatch, states, i0, i1, is_pad, lik_offset,
         int(backward), int(need_steps), float(lik_offset), rpt,
         None if scratch is None else scratch.data_ptr())
     FILL.call(f"psq_fill_{dtype_suffix(dt)}", dev, ctypes.byref(args),
-              stream(dev), instance=instance_name(rpt))
+              stream(dev), instance=name)
     return M, S, sm, ss, cmax, carg, best_pfx, best, best_i, best_j
 
 

@@ -5,10 +5,13 @@ two warps of scan, a ragged last warp, the realign width, and a band wide
 enough for the block without a spare warp) and at W = 1023, 1025, 1401,
 2047 and 4095 (one row a thread at the edge, then two and four rows a
 thread) and, on a small region, at W = 4097 and 8193 (the wide instance,
-its column in shared memory or a device scratch), forward with steps and
-backward with and without, the group scorer at Ws = 41 and 201 (Refine's
-point width and Mutate's scoring width), 1025 and 1201 (two window rows a
-thread), 4095 (four) and 4097 (the wide instance, on a small region): f64 must
+its column in shared memory or a device scratch) and at W = 4097, 6450,
+8193 and 16,384 (the cluster instance, 5 to 16 CTAs an event, with dead
+columns and an inactive event, equal to the twin and to the wide
+instance bit for bit), forward with steps and backward with and without,
+the group scorer at Ws = 41 and 201 (Refine's point width and Mutate's
+scoring width), 1025 and 1201 (two window rows a thread), 4095 (four)
+and 4097 (the wide instance, on a small region): f64 must
 equal the twin exactly, f32 within tolerances, with the step bytes, best
 coordinates and accept signs held, and the fill's running best (best,
 best_i, best_j, best_pfx) equal to dp.finish_fill on its own column maxima.
@@ -97,27 +100,66 @@ def test_fill_kernel_matches_twin(engine, backward, steps, realign):
                          [(False, True), (True, False), (True, True)])
 @pytest.mark.parametrize("realign", [2048, 4096])
 def test_fill_wide_instance_matches_twin(engine, backward, steps, realign):
-    """W = 4097 and 8193 (the wide instance: in f32 at 4097 its column in
-    shared memory, else in a device scratch) on a 240 b region at 6X."""
+    """W = 4097 and 8193 (the wide instance, named: in f32 at 4097 its
+    column in shared memory, else in a device scratch) on a 240 b region at
+    6X."""
     from poreseq_tpu_torch.engine.fill import FILL
 
     n = FILL.instances["wide"]
     _hold_fill(engine, _fill_args(engine, _data(realign=realign), backward,
-                                  steps))
+                                  steps), instance="wide")
     assert FILL.instances["wide"] == n + 1
 
 
-def _hold_fill(engine, args):
-    """One fill launch against its twin: its running best equal to
-    dp.finish_fill on its own column maxima; f64 equal to the twin, f32
-    within tolerances, the step bytes >= 99.95 % equal and the best
-    coordinates equal."""
+@pytest.mark.parametrize("engine", DTYPES, indirect=True)
+@pytest.mark.parametrize("backward,steps",
+                         [(False, True), (False, False), (True, False),
+                          (True, True)])
+@pytest.mark.parametrize("W", [4097, 6450, 8193, 16384])
+def test_fill_cluster_instance_matches_twin(engine, backward, steps, W):
+    """The cluster instance (ceil(W / 1024) CTAs an event, 5 to 16) at W =
+    4097, 6450 (past the wide instance's shared-memory cap in f32), 8193
+    and its widest, 16,384, on a 240 b region at 6X whose shorter events
+    end in dead columns, one event made inactive: every output equal to
+    the twin's (max |diff| 0) and to the wide instance's, its running best
+    equal to dp.finish_fill on its own column maxima."""
+    from poreseq_tpu_torch.engine.dp import fill_reference, finish_fill
+    from poreseq_tpu_torch.engine.fill import FILL, fill_cuda, fill_instance
+
+    args = list(_fill_args(engine, _data(realign=(W - 1) // 2), backward,
+                           steps))
+    args[7] = W
+    batch = args[0]
+    active = batch.active.clone()
+    active[1] = False
+    args[0] = batch._replace(active=active)
+    E = args[1].shape[1]
+    assert bool(args[4].any()) and fill_instance(W, E, engine.dtype) == \
+        "cluster"
+    n = FILL.instances["cluster"]
+    got = fill_cuda(*args, instance="cluster")
+    assert FILL.instances["cluster"] == n + 1
+    ref = fill_reference(*args)
+    own = finish_fill(*got[:6], args[2], args[3], backward)
+    for name, k in zip(("best_pfx", "best", "best_i", "best_j"), got[6:]):
+        assert torch.equal(k, getattr(own, name)), name
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
+    for a, b in zip(got, fill_cuda(*args, instance="wide")):
+        assert torch.equal(a, b)
+
+
+def _hold_fill(engine, args, instance=None):
+    """One fill launch (of the instance named, else the route's) against
+    its twin: its running best equal to dp.finish_fill on its own column
+    maxima; f64 equal to the twin, f32 within tolerances, the step bytes
+    >= 99.95 % equal and the best coordinates equal."""
     from poreseq_tpu_torch.engine.dp import fill_reference, finish_fill
     from poreseq_tpu_torch.engine.fill import FILL, fill_cuda
 
     backward = args[6]
     n = FILL.launches
-    got = fill_cuda(*args)
+    got = fill_cuda(*args, instance=instance)
     assert FILL.launches == n + 1
     i0, i1 = args[2], args[3]
     own = finish_fill(*got[:6], i0, i1, backward)

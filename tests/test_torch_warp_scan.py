@@ -15,7 +15,11 @@ destination) combines of the tree's index formulas, level by level.  Past
 4095 rows the wide instances' mp_scan_mem keeps the positions in memory and
 runs the same tree level by level, the block's 1024 threads striding over a
 level's pairs: its NumPy model must equal the twin's scan bit for bit in
-f32 and f64."""
+f32 and f64.  So must the model of the fill's cluster instance
+(mp_scan_cluster): N CTAs of a power-of-two span, the levels below it in
+each CTA, the levels above over the CTAs' totals, each CTA's down-sweep
+from the u part handed to it (N 2-9, 1 and 2 rows a thread, n 4096 to
+16,385)."""
 
 import numpy as np
 import pytest
@@ -258,3 +262,141 @@ def test_wide_scan_model_equals_twin_scan(n, dtype):
                                       ref.view(f"u{ref.itemsize}"))
         assert sorted(log) == sorted(tree_combines(n))
         assert len(log) == scan_combines(n)
+
+
+def _cluster_cases():
+    """(N, n) with a power-of-two span S a CTA such that N = ceil(n / S):
+    cluster sizes 2-9 at widths past 4095 rows."""
+    out = []
+    for n in CLUSTER_LENGTHS:
+        for N in CLUSTER_SIZES:
+            out += [(N, n)] if any(-(-n // (1 << k)) == N
+                                   for k in range(9, 15)) else []
+    return out
+
+
+CLUSTER_LENGTHS = [4096, 4097, 6144, 8193, 16385]
+CLUSTER_SIZES = [2, 3, 4, 5, 8, 9]
+
+
+def cluster_scan_model(elems, N, rpt, log=None):
+    """common.cuh mp_scan_cluster on NumPy elements [6, n]: N CTAs, CTA k
+    holding positions [k S, (k+1) S) with S the power of two for which
+    ceil(n / S) = N, rpt positions a thread.  Each CTA runs the tree's
+    levels below log2 S on its own positions (up-sweep: in the thread,
+    then on a warp's chunk of 32 rpt positions, then on the chunk tails,
+    each asserted to pair positions where the kernel holds them); the
+    full CTAs' totals (their last positions) go to every higher rank,
+    where one warp runs the levels above log2 S over them and its own
+    total (lanes above its rank zero; asserted equal to the full tree's
+    up to its lane): the u part at its own lane is its last position's
+    final value, the one at its rank - 1 the source of the down-sweep's
+    first destination of each level.
+    Returns the u rows [2, n]; log, if given, collects (phase, level,
+    source, destination) of every combine, the top levels' once."""
+    sc = elems.copy()
+    n = sc.shape[1]
+    S = next(1 << k for k in range(40) if -(-n // (1 << k)) == N)
+    LS, LR, chunk = S.bit_length() - 1, rpt.bit_length() - 1, 32 * rpt
+
+    def combine(phase, L, s, d, src=None):
+        new = _np_combine(sc[:, s] if src is None else src, sc[:, d])
+        if phase == "down":
+            sc[4:, d] = new[4:]
+        else:
+            sc[:, d] = new
+        if log is not None:
+            log.extend((phase, L, int(a), int(b)) for a, b in zip(s, d))
+
+    def placed(L, s, d):
+        """Where the kernel holds a level's pair: one thread, one warp's
+        chunk tails of threads, or the CTA's chunk tails."""
+        if L < LR:
+            assert (s // rpt == d // rpt).all()
+        elif L < LR + 5:
+            assert ((s % rpt == rpt - 1) & (d % rpt == rpt - 1)
+                    & (s // chunk == d // chunk)).all()
+        else:
+            assert ((s % chunk == chunk - 1) & (d % chunk == chunk - 1)).all()
+
+    P = np.arange(n)
+    for k in range(N):
+        mine = P[k * S:(k + 1) * S]
+        for L in range(LS):
+            d = mine[(mine < n) & ((mine + 1) % (2 << L) == 0)]
+            s = d - (1 << L)
+            assert (s >= k * S).all()
+            placed(L, s, d)
+            combine("up", L, s, d)
+    nfull = n // S
+
+    def top_tree(x, full_log=False):
+        """The levels above log2 S over the CTA totals x [6, nfull]; u
+        rows final, level L - LS, on lanes q (positions (q+1) S - 1)."""
+        lanes = np.arange(nfull)
+        tail = lambda q: (q + 1) * S - 1
+        L = 0
+        while (2 << L) <= nfull:
+            d = lanes[(lanes + 1) % (2 << L) == 0]
+            x[:, d] = _np_combine(x[:, d - (1 << L)], x[:, d])
+            if full_log and log is not None:
+                log.extend(("up", L + LS, int(tail(a)), int(tail(b)))
+                           for a, b in zip(d - (1 << L), d))
+            L += 1
+        for L in range(L - 1, -1, -1):
+            q = (lanes + 1) >> L
+            d = lanes[((lanes + 1) % (1 << L) == 0) & (q % 2 == 1)
+                      & (q >= 3)]
+            x[4:, d] = _np_combine(x[:, d - (1 << L)], x[:, d])[4:]
+            if full_log and log is not None:
+                log.extend(("down", L + LS, int(tail(a)), int(tail(b)))
+                           for a, b in zip(d - (1 << L), d))
+        return x
+
+    totals = sc[:, S - 1:nfull * S:S].copy()
+    full = top_tree(totals.copy(), full_log=True)
+    prefix = {}
+    for k in range(N):          # each CTA's own copy of the top levels
+        x = np.where(np.arange(nfull) <= k, totals, 0).astype(sc.dtype)
+        x = top_tree(x)
+        m = min(k + 1, nfull)
+        assert np.array_equal(x[4:, :m], full[4:, :m])
+        if k:
+            prefix[k] = x[:, k - 1]
+        if k < nfull:           # its own last position, final
+            sc[4:, (k + 1) * S - 1] = x[4:, k]
+    for k in range(N):
+        mine = P[k * S:(k + 1) * S]
+        for L in range(LS - 1, -1, -1):
+            q = (mine + 1) >> L
+            d = mine[(mine < n) & ((mine + 1) % (1 << L) == 0) & (q % 2 == 1)
+                     & (q >= 3)]
+            s = d - (1 << L)
+            out = s < k * S                  # the previous CTA's last
+            assert (s[out] == k * S - 1).all() and out.sum() <= 1
+            if out.any():
+                src = np.repeat(prefix[k][:, None], len(d), axis=1)
+                src[:, ~out] = sc[:, s[~out]]
+                combine("down", L, s, d, src)
+            else:
+                combine("down", L, s, d)
+    return sc[4:]
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("rpt", [1, 2])
+@pytest.mark.parametrize("N,n", _cluster_cases())
+def test_cluster_scan_model_equals_twin_scan(N, n, rpt, dtype):
+    """The cluster instance's scan: N CTAs of S positions, the top levels
+    over their totals in one warp of each CTA, each CTA's down-sweep from
+    its handed-in u part; forward and reversed, the u rows equal the
+    twin's scan bit for bit and the combines are exactly the tree's."""
+    elems = _elements(n, seed=n + N).numpy().astype(dtype)
+    for rev in (False, True):
+        x = elems[:, ::-1].copy() if rev else elems
+        log = []
+        got = cluster_scan_model(x, N, rpt, log)
+        ref = _assoc_scan(torch.as_tensor(x))[4:].numpy()
+        np.testing.assert_array_equal(got.view(f"u{got.itemsize}"),
+                                      ref.view(f"u{ref.itemsize}"))
+        assert sorted(log) == sorted(tree_combines(n))

@@ -331,25 +331,95 @@ def test_fill_cuda_reaches_its_instance(stub, W, rpt, backward):
     (4097, torch.float64, False)])
 def test_fill_cuda_refuses_widths_past_its_instances(stub, W, dtype,
                                                      in_shared):
-    """W = 0 is refused before any launch; every width past the register
-    instances reaches the wide one (rows a thread 0), its column arrays in
-    shared memory where 9 W values fit 227 KB (f32 up to W = 6,449), else in
-    a device scratch [E, 9, W] given to the C entry; counted under "wide"."""
+    """W = 0 is refused before any launch; the wide (memory) instance,
+    named, takes any width past the register instances (rows a thread 0),
+    its column arrays in shared memory where 9 W values fit 227 KB (f32 up
+    to W = 6,449), else in a device scratch [E, 9, W] given to the C entry;
+    counted under "wide"."""
     from poreseq_tpu_torch.engine.fill import FILL, fill_cuda
 
     n, wide = FILL.launches, FILL.instances["wide"]
     if W == 0:
         with pytest.raises(ValueError, match="at least 1"):
-            fill_cuda(*_fill_operands(W, dtype), False, W, True)
+            fill_cuda(*_fill_operands(W, dtype), False, W, True,
+                      instance="wide")
         assert stub.calls == [] and FILL.launches == n
         return
-    M = fill_cuda(*_fill_operands(W, dtype), False, W, True)[0]
+    M = fill_cuda(*_fill_operands(W, dtype), False, W, True,
+                  instance="wide")[0]
     (fn, (args, _)), = stub.calls
     a = args._obj
     assert fn == f"psq_fill_{'f32' if dtype == torch.float32 else 'f64'}"
     assert (a.W, a.rpt) == (W, 0) and M.shape == (3, 2, W)
     assert (a.scratch is None) == in_shared
     assert FILL.launches == n + 1 and FILL.instances["wide"] == wide + 1
+
+
+# (W, E, dtype) -> the fill's instance past the register-held scan: the
+# cluster instance up to 16 CTAs of 1024 rows and up to the event rows at
+# which it measured faster (engine/fill.py CLUSTER_ROWS), the wide one
+# past either
+FILL_ROUTES = [
+    (4096, 2, torch.float32, "cluster"), (4097, 8, torch.float32, "cluster"),
+    (4097, 64, torch.float32, "cluster"), (4097, 96, torch.float32, "wide"),
+    (4097, 128, torch.float64, "cluster"),
+    (6450, 8, torch.float32, "cluster"), (6450, 256, torch.float32, "cluster"),
+    (8193, 96, torch.float32, "cluster"), (8193, 128, torch.float32, "wide"),
+    (10241, 128, torch.float32, "wide"), (12289, 160, torch.float64, "wide"),
+    (16384, 2, torch.float64, "cluster"), (16385, 2, torch.float32, "wide"),
+    (20001, 8, torch.float64, "wide")]
+
+
+@pytest.mark.parametrize("W,E,dtype,name", FILL_ROUTES)
+def test_fill_cuda_reaches_its_instance_past_the_registers(stub, W, E, dtype,
+                                                           name):
+    """fill_instance's table past 4095 rows (the wide instance past the
+    cluster's 16 CTAs), and the C entry reached with that instance's
+    FillArgs.rpt (the cluster instance -1, no scratch: its column lives in
+    registers), counted under its name; below the table the register
+    instances keep their routes and W = 0 is refused."""
+    from poreseq_tpu_torch.engine.fill import (FILL, INSTANCE_RPT,
+                                               cluster_ctas, fill_cuda,
+                                               fill_instance)
+
+    assert fill_instance(W, E, dtype) == name
+    assert name == "wide" or cluster_ctas(W) <= 16
+    for w, rows in ((1024, "1 row"), (2048, "2 rows"), (4095, "4 rows")):
+        assert fill_instance(w, E, dtype) == rows
+    with pytest.raises(ValueError, match="at least 1"):
+        fill_instance(0, E, dtype)
+    ops = list(_fill_operands(W, dtype))
+    idx = torch.arange(E) % 2
+    b = ops[0]
+    ops[0] = type(b)(*(x[idx] for x in b))
+    ops[1:5] = [ops[1][:, idx], ops[2][idx], ops[3][idx], ops[4][:, idx]]
+    n, k = FILL.launches, FILL.instances[name]
+    M = fill_cuda(*ops, True, W, False)[0]
+    (fn, (args, _)), = stub.calls
+    a = args._obj
+    assert fn == f"psq_fill_{'f32' if dtype == torch.float32 else 'f64'}"
+    assert (a.W, a.E, a.rpt) == (W, E, INSTANCE_RPT[name])
+    assert (a.backward, a.need_steps) == (1, 0) and M.shape == (3, E, W)
+    if name == "cluster":
+        assert a.scratch is None
+    assert FILL.launches == n + 1 and FILL.instances[name] == k + 1
+
+
+def test_fill_cluster_constants_match_the_source():
+    """engine/fill.py's cluster constants are csrc/fill.cu's."""
+    import re
+    from pathlib import Path
+
+    from poreseq_tpu_torch.engine import fill
+
+    src = (Path(fill.__file__).parents[1] / "csrc" / "fill.cu").read_text()
+    c = {k: int(v) for k, v in re.findall(r"constexpr int (\w+) = (-?\d+);",
+                                          src)}
+    assert c["CL_THREADS"] * c["CL_RPT"] == fill.CLUSTER_SPAN
+    assert c["CL_MAX"] == fill.CLUSTER_MAX
+    assert c["RPT_CLUSTER"] == fill.INSTANCE_RPT["cluster"]
+    assert c["RPT_ROWS"] == fill.RPT_ROWS
+    assert c["CL_THREADS"] in (512, 1024) and c["CL_RPT"] in (1, 2)
 
 
 def _group_operands(W, Ws):
