@@ -42,11 +42,17 @@ non-zero, nothing runs on the CPU instead):
                 thread-block cluster, and the wide one, its column in
                 shared memory or a device scratch), the group scorer at
                 scoring width 2048 (Ws = 4097) on 60 mutations' groups,
-                and the observations past the staged path (E = 8193
-                events, 8 rows) equal; each timed in f32 (event and
-                queued ms) under the kernel's "wide" key, the fill's two
-                instances in turns at 8 and at 128 event rows (the 8
-                repeated; timed only);
+                equal; each timed in f32 (event and queued ms) under the
+                kernel's "wide" key, the fill's two instances in turns at 8
+                and at 128 event rows (the 8 repeated; timed only); and the
+                observations past the tiled instance's cap of 32 events at
+                E = 60, 64, 65, 100, 257, 1024 and 8193 (OBS_SHAPES: rows
+                of every, some, 2, 1 and 0 valid events, ties, a stdv of
+                0, trims past 8 dropped events) on the instance obs_path
+                routes each to (tiled64 up to 64, chunked past it), equal
+                in f64 and f32 and timed in f32 under the kernel's
+                "shapes" key (printed beside the earlier general path's
+                time, OBS_GENERAL_MS);
   2b. viterbi — the sampler's threefry2x32 on the card gives JAX's row keys
                 and 32- and 64-bit words (PINNED_KEYS, PINNED_WORDS,
                 computed with JAX) bit for bit, the twin's uniforms on the
@@ -63,6 +69,16 @@ non-zero, nothing runs on the CPU instead):
                 (with --profile DIR, under torch.profiler: the trace goes to
                 DIR and its summary, device time and launches per kernel
                 and the device-busy share, is printed);
+  3c. coverage — phase 3's run at 30X (COVERAGE: 3x the reads, so that the
+                loader's max_coverage = 30 reads, two event rows each, caps
+                most regions and every Viterbi batch passes 32 event rows),
+                the same CLI call, f32: wall, mean and min accuracy (>= 99.0
+                %), E_pad of every Viterbi call (the first past 32), the
+                observation launches by instance (every call past 32 events
+                on tiled64 or chunked), engine host seconds and peak device
+                memory; its largest observation launch held to the twin bit
+                for bit and timed (event and queued ms) beside its bound,
+                the twin's and the earlier general path's time;
   4. variant  — `variant -m/-a/-f` on a 5 kb run with 10 planted
                 substitutions: reverting mutations score > 0 and corrupting
                 ones < 0, -a prints one line per point mutation of a 1 kb
@@ -91,8 +107,9 @@ non-zero, nothing runs on the CPU instead):
                 equals the single-device call's totals bit for bit, f64 and
                 f32, on the same (host) geometry;
   8. f32_equiv — scripts/f32_equiv.py's protocol at production widths
-                (300/100/20) on --f32-regions 1 kb regions (default 10,
-                the script's own count; region i: seed 1000 + 37 i,
+                (300/100/20) on --f32-regions 1 kb regions (default 6;
+                cut from the script's own 10 for time; region i: seed
+                1000 + 37 i,
                 coverage 8/10/12 and draft error 0.02/0.03/0.05 cycling
                 with i): the port's exact engine (on the CPU, a spawned
                 pool of a process per region, at most one per core) and
@@ -123,13 +140,14 @@ non-zero, nothing runs on the CPU instead):
                 functions (write_run, the CLI's split, consensus per shard,
                 merge), widths 300/100/20, -i 4 --region-batch 8: 10a
                 lambda-2kb, the JAX README's lambda configuration (48.5 kb
-                at 10X, 8 kb reads over 2 kb regions) cut to its first 16
+                at 10X, 8 kb reads over 2 kb regions) cut to its first 10
                 regions, dealt over 2 shards: one merged contig at >= 99.0 %
                 over the covered span, trimmed events (batch T below the
                 reads' levels) and every kernel launched; 10b long-10kb, the
-                lambda genome split at 10 kb (6 regions, 10.4 kb reads) in
-                one lockstep batch on TorchEngine f32 (the CLI) and its
-                first 3 regions on f64 (pipeline.mutate_many, in a process
+                lambda genome split at 10 kb (6 regions, 10.4 kb reads),
+                its first 4 (cut for time) in one lockstep batch on
+                TorchEngine f32 (the CLI) and its first 2 regions on f64
+                (pipeline.mutate_many, in a process
                 of its own while the f32 run's launches are held to their
                 twins; cut for time): each merged at >= 99.0 %, no region
                 degraded in f32
@@ -154,7 +172,7 @@ non-zero, nothing runs on the CPU instead):
 Phase 2 also holds the fill, backtrace and group scorer on cuda:1 in f64
 when torch sees a second card.  Phases 2b-11 reset the kernels' launch
 counters before they start and report them after; each must have launched
-the kernels of its path (phases 3 and 11's bench_e2e run: every kernel;
+the kernels of its path (phases 3, 3c and 11's bench_e2e run: every kernel;
 phases 7 and 10b's f64 run: all but the geometry, which a mesh and f64
 take from the host).  The line
 before the last is a JSON object with one entry per kernel (with each
@@ -190,6 +208,9 @@ from tools.bench import event_ms
 
 P_WIDTHS = dict(realign_width=300, scoring_width=100, point_width=20)
 E2E_REGIONS = 8
+# the coverage phase's: phase 3's run with 3x the reads, so that the
+# loader's cap (max_coverage = 30 reads) holds most regions
+COVERAGE = 30
 
 
 def fail(msg: str):
@@ -937,9 +958,8 @@ WIDE_WIDTHS = dict(realign_width=700, scoring_width=600, point_width=20)
 # ... and the wide instances past the register-held scan: the fill at
 # realign widths 2048 and 4096 (W = 4097, 8193), the group scorer at scoring
 # width 2048 (Ws = 4097), on a 240 b region at 8X (its first 8 event rows,
-# C = 256; 60 random mutations), and the observations' unstaged path at
-# E = 8193 events on 8 rows (all, some, one and no event valid), small so
-# that the twins stay cheap
+# C = 256; 60 random mutations), small so that the twins stay cheap; the
+# observations at 8193 events on 8 rows are OBS_SHAPES' last
 SCAN_WIDE_FILL = (2048, 4096)
 SCAN_WIDE_WIDTHS = dict(realign_width=2048, scoring_width=2048,
                         point_width=20)
@@ -952,6 +972,22 @@ SCAN_WIDE_ROWS, SCAN_WIDE_MUTS = 8, 60
 FILL_PAST_REGISTERS = ("cluster", "wide")
 SCAN_TIMED_ROWS = 128
 OBS_WIDE_EVENTS, OBS_WIDE_ROWS = 8193, 8
+# the observations past the tiled instance's cap of 32 events: E_pad: (B, R)
+# of phase 2's holds and timings (the cap 64's edges, the chunked
+# instance's 100-8193; each region's rows at OBS_ROW_FRACS, then 2, 1 and 0
+# valid events)
+OBS_SHAPES = {60: (8, 256), 64: (8, 256), 65: (8, 256), 100: (8, 256),
+              257: (2, 256), 1024: (1, 128),
+              OBS_WIDE_EVENTS: (1, OBS_WIDE_ROWS)}
+OBS_ROW_FRACS = (1.0, 0.9, 0.6, 0.25, 0.05)
+# the earlier general path's events ms at OBS_SHAPES and at the coverage
+# phase's largest launch (coverage_obs_operands), f32 (a block a row, the
+# tables read from device memory for every row, a trim past 8 dropped
+# events bisecting the order keys; tools/obs_instances.py --parent, PERF.md
+# §6; NVIDIA H100 80GB HBM3 at 700 W), printed beside this run's
+OBS_GENERAL_MS = {60: 10.023, 64: 11.241, 65: 11.511, 100: 18.639,
+                  257: 15.836, 1024: 23.052, OBS_WIDE_EVENTS: 335.597,
+                  "coverage": 19.127}
 
 
 def _long_rows(rng, E: int, T: int):
@@ -972,34 +1008,35 @@ def _long_rows(rng, E: int, T: int):
     return ral, n0, S_e
 
 
-def _obs_wide_inputs(seed: int, dtype):
-    """The observations' operands past the staged path: one region of
-    OBS_WIDE_EVENTS events on OBS_WIDE_ROWS rows (every event valid, then
-    90, 60, 25 and 5 % of them, rows of 2, 1 and 0 valid events), with a
-    stdv of 0 now and then (the clamp) and event 1 a copy of event 0
-    (ties), on the card."""
+def obs_shape_inputs(seed: int, B: int, R: int, E: int, dtype,
+                     device="cuda"):
+    """Observation operands at [B, R, E] (on the card): row r of a region
+    with each event valid at OBS_ROW_FRACS[r] (cycling; 1.0: every event),
+    its last three rows with 2, 1 and 0 valid events, a stdv of 0 now and
+    then (the clamp) and event 1 a copy of event 0 (ties)."""
     import torch
 
-    rng = np.random.default_rng(seed + OBS_WIDE_EVENTS)
-    R, E = OBS_WIDE_ROWS, OBS_WIDE_EVENTS
-    lvl = rng.normal(60, 8, (1, R, E))
-    sd = np.where(rng.random((1, R, E)) < 0.02, 0.0,
-                  rng.uniform(0.5, 3, (1, R, E)))
-    valid = np.zeros((1, R, E), dtype=bool)
-    for r, frac in enumerate((1.0, 0.9, 0.6, 0.25, 0.05)):
-        valid[0, r] = rng.random(E) < frac
-    valid[0, 5, rng.choice(E, 2, replace=False)] = True
-    valid[0, 6, rng.integers(E)] = True
-    tabs = np.empty((1, 6, E, 1024))
-    tabs[:, 0] = rng.normal(60, 8, (E, 1024))
-    tabs[:, 1] = rng.uniform(1, 3, (E, 1024))
+    rng = np.random.default_rng(seed + E)
+    lvl = rng.normal(60, 8, (B, R, E))
+    sd = np.where(rng.random((B, R, E)) < 0.02, 0.0,
+                  rng.uniform(0.5, 3, (B, R, E)))
+    fr = np.resize(OBS_ROW_FRACS, R)
+    valid = rng.random((B, R, E)) < fr[None, :, None]
+    valid[:, -3:] = False
+    for b in range(B):
+        valid[b, -3, rng.choice(E, min(2, E), replace=False)] = True
+        valid[b, -2, rng.integers(E)] = True
+    tabs = np.empty((B, 6, E, 1024))
+    tabs[:, 0] = rng.normal(60, 8, (B, E, 1024))
+    tabs[:, 1] = rng.uniform(1, 3, (B, E, 1024))
     tabs[:, 2] = np.log(tabs[:, 1])
-    tabs[:, 3] = rng.uniform(0.8, 2, (E, 1024))
-    tabs[:, 4] = rng.uniform(1, 4, (E, 1024))
+    tabs[:, 3] = rng.uniform(0.8, 2, (B, E, 1024))
+    tabs[:, 4] = rng.uniform(1, 4, (B, E, 1024))
     tabs[:, 5] = np.log(tabs[:, 4])
-    lvl[:, :, 1], sd[:, :, 1] = lvl[:, :, 0], sd[:, :, 0]
-    tabs[:, :, 1] = tabs[:, :, 0]
-    t = lambda x, d=dtype: torch.as_tensor(x, dtype=d, device="cuda")
+    if E > 1:
+        lvl[:, :, 1], sd[:, :, 1] = lvl[:, :, 0], sd[:, :, 0]
+        tabs[:, :, 1] = tabs[:, :, 0]
+    t = lambda x, d=dtype: torch.as_tensor(x, dtype=d, device=device)
     return t(lvl), t(sd), t(valid, torch.bool), t(tabs)
 
 
@@ -1023,17 +1060,13 @@ def check_wide(engine, seed: int, f64: bool, report: dict):
                                                    group_launches,
                                                    group_totals_cuda)
     from poreseq_tpu_torch.engine.roofline import (fill_work, geom_work,
-                                                   group_work,
-                                                   viterbi_obs_work)
-    from poreseq_tpu_torch.engine.viterbi import (VITERBI_OBS,
-                                                  obs_multi_cuda,
-                                                  obs_multi_reference)
+                                                   group_work)
 
     t0 = time.perf_counter()
     dt = engine.dtype
-    wide = {"fill": {}, "mutscore": {}, "geom": {}, "viterbi_obs": {}}
+    wide = {"fill": {}, "mutscore": {}, "geom": {}}
     errs = {k: 0.0 for k in wide}
-    n0 = {k: k.instances.copy() for k in (FILL, MUTSCORE, VITERBI_OBS)}
+    n0 = {k: k.instances.copy() for k in (FILL, MUTSCORE)}
 
     def time_it(fn, work, reps=20, **shape):
         return dict(shape, queued_ms=queued_ms(fn, reps),
@@ -1107,27 +1140,9 @@ def check_wide(engine, seed: int, f64: bool, report: dict):
                             group_work(*args), G=gp["G"],
                             C=args[1].shape[0], E=args[1].shape[1], **twin))
 
-    ops = _obs_wide_inputs(seed, dt)
-    got = obs_multi_cuda(*ops)
-    torch.cuda.synchronize()
-    t1 = time.perf_counter()
-    ref = obs_multi_reference(*ops)
-    torch.cuda.synchronize()
-    twin = dict(plain_ms=(time.perf_counter() - t1) * 1e3)
-    if not torch.equal(got, ref):
-        fail(f"kernels wide viterbi_obs E={OBS_WIDE_EVENTS} (f64={f64}) "
-             + _differs("obs", got, ref))
-    if not f64:
-        # a launch takes a third of a second: 3 timed launches of each kind
-        wide["viterbi_obs"][f"E={OBS_WIDE_EVENTS}"] = time_it(
-            lambda: obs_multi_cuda(*ops),
-            viterbi_obs_work(ops[0], ops[2], ops[3]), reps=3,
-            R=OBS_WIDE_ROWS, **twin)
-    del ops, got, ref
     ran = {k.name: dict(k.instances - n0[k]) for k in n0}
     if not (ran["fill"].get("wide") and ran["fill"].get("cluster")
-            and ran["mutscore"].get("wide")
-            and ran["viterbi_obs"].get("unstaged")):
+            and ran["mutscore"].get("wide")):
         fail(f"kernels wide: the new instances did not all run: {ran}")
 
     cap = GEOM_MAX_LEVELS[dt]
@@ -1150,8 +1165,7 @@ def check_wide(engine, seed: int, f64: bool, report: dict):
         line["max_abs_err"] = max(line["max_abs_err"], err)
         if not f64:
             line["wide"] = wide[k]
-    fmt = lambda d: (f"E={d['E']} C={d['C']} " if "E" in d else
-                     f"R={d['R']} ") + _timing(d) + \
+    fmt = lambda d: f"E={d['E']} C={d['C']} " + _timing(d) + \
         f", queued {d['queued_ms']:.4f} ms" + (
             f", twin {d['plain_ms']:.1f} ms" if "plain_ms" in d else "")
     print(f"[kernels] wide f{'64' if f64 else '32'}: fill W="
@@ -1161,8 +1175,7 @@ def check_wide(engine, seed: int, f64: bool, report: dict):
           f"{errs['fill']:.3e}); mutscore on {n_groups} groups (by Ws) of "
           f"{len(datas)} regions and one region held (max |diff| "
           f"{errs['mutscore']:.3e}); geom T={cap + 256} and {2 * cap} equal "
-          f"the twin; viterbi_obs E={OBS_WIDE_EVENTS} on {OBS_WIDE_ROWS} "
-          f"rows equal the twin; launches by instance {ran}; "
+          f"the twin; launches by instance {ran}; "
           f"{time.perf_counter() - t0:.1f} s"
           + ("".join(f"; fill {w} {n} {fmt(d)}"
                      for w, runs in wide["fill"].items()
@@ -1171,8 +1184,62 @@ def check_wide(engine, seed: int, f64: bool, report: dict):
                        for w, runs in wide["mutscore"].items() for d in runs)
              + "".join(f"; geom {w} {fmt(d)}"
                        for w, d in wide["geom"].items())
-             + "".join(f"; viterbi_obs {w} {fmt(d)}"
-                       for w, d in wide["viterbi_obs"].items())
+             + f" | {gpu_line()}" if not f64 else ""), flush=True)
+
+
+def check_obs_shapes(engine, seed: int, f64: bool, report: dict):
+    """The observations past the tiled instance's cap: at each E of
+    OBS_SHAPES, the launch (the instance obs_path routes E to) equal to the
+    twin; in f32 each timed (event and queued ms) beside its bound, the
+    twin's ms, under the kernel's "shapes" key (the earlier general path's
+    ms, OBS_GENERAL_MS, a constant from an earlier call, in the printed
+    line only)."""
+    import torch
+
+    from poreseq_tpu_torch.engine.roofline import viterbi_obs_work
+    from poreseq_tpu_torch.engine.viterbi import (VITERBI_OBS, obs_multi_cuda,
+                                                  obs_multi_reference,
+                                                  obs_path)
+
+    t0, dt, shapes = time.perf_counter(), engine.dtype, {}
+    n0 = VITERBI_OBS.instances.copy()
+    for E, (B, R) in OBS_SHAPES.items():
+        ops = obs_shape_inputs(seed, B, R, E, dt)
+        got = obs_multi_cuda(*ops)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        ref = obs_multi_reference(*ops)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t1) * 1e3
+        if not torch.equal(got, ref):
+            fail(f"kernels viterbi_obs E={E} [{B}, {R}] (f64={f64}) "
+                 + _differs("obs", got, ref))
+        del got, ref
+        if not f64:
+            fn = lambda: obs_multi_cuda(*ops)
+            shapes[f"E={E}"] = dict(
+                E=E, B=B, R=R, instance=obs_path(E)[1], plain_ms=plain_ms,
+                queued_ms=queued_ms(fn),
+                **timed(event_ms(fn), viterbi_obs_work(ops[0], ops[2],
+                                                       ops[3]), dt))
+        del ops
+    ran = dict(VITERBI_OBS.instances - n0)
+    want = {obs_path(E)[1] for E in OBS_SHAPES}
+    if set(ran) != want:
+        fail(f"kernels viterbi_obs: launches by instance {ran}, the route "
+             f"gives {want}")
+    if not f64:
+        report[("viterbi_obs", f64)]["shapes"] = shapes
+    print(f"[kernels] viterbi_obs f{'64' if f64 else '32'} past the tiled "
+          f"cap: E = {list(OBS_SHAPES)} ([B, R] "
+          f"{list(OBS_SHAPES.values())}, rows of every, some, 2, 1 and 0 "
+          f"valid events) equal the twin; launches by instance {ran}; "
+          f"{time.perf_counter() - t0:.1f} s"
+          + ("".join(f"; {k} {d['instance']} {_timing(d)}, queued "
+                     f"{d['queued_ms']:.4f} ms, twin {d['plain_ms']:.1f} ms,"
+                     f" general path (earlier, OBS_GENERAL_MS) "
+                     f"{OBS_GENERAL_MS[d['E']]} ms"
+                     for k, d in shapes.items())
              + f" | {gpu_line()}" if not f64 else ""), flush=True)
 
 
@@ -1204,6 +1271,7 @@ def phase_kernels(seed: int):
         check_viterbi(engine, events, seed, True, report)
         check_prologue(engine, _mut_regions(seed)["mutate"][0], True, report)
         check_wide(engine, seed, True, report)
+        check_obs_shapes(engine, seed, True, report)
         held = {k: f.result(timeout=900) for k, f in pending.items()}
     check_fill(engine, seed, True, report, held)
     engine = TorchEngine("cuda", torch.float32)
@@ -1213,6 +1281,7 @@ def phase_kernels(seed: int):
     check_viterbi(engine, events, seed, False, report)
     check_prologue(engine, _mut_regions(seed)["mutate"][0], False, report)
     check_wide(engine, seed, False, report)
+    check_obs_shapes(engine, seed, False, report)
     if torch.cuda.device_count() < 2:
         print(f"[kernels] cuda:1: skipped, torch sees "
               f"{torch.cuda.device_count()} card", flush=True)
@@ -1427,12 +1496,14 @@ CONF_WIDTHS = ("realign_width = 300\nscoring_width = 100\npoint_width = 20\n"
                "max_length = 10000\nlik_offset = 4.5\n")
 
 
-def _e2e_run(d: str, seed: int, conf_text: str = CONF_WIDTHS):
-    """Phase 3's synthetic run: 8 x 1 kb regions at 10X, 2 % draft error
-    (conf_text: the params file's text, phase 9's WIDE_CONF)."""
+def _e2e_run(d: str, seed: int, conf_text: str = CONF_WIDTHS,
+             cov: int = 10):
+    """Phase 3's synthetic run: 8 x 1 kb regions at cov X (phase 3: 10),
+    2 % draft error (conf_text: the params file's text, phase 9's
+    WIDE_CONF)."""
     from poreseq_tpu_torch.sim import write_run
 
-    R, L, cov = E2E_REGIONS, 1000, 10
+    R, L = E2E_REGIONS, 1000
     truth, _, reads_dir, bam, fasta = write_run(
         d, np.random.default_rng(seed), ref_len=R * L,
         n_reads=(cov // 2) * R, read_len=L + 200, draft_error=0.02)
@@ -1441,6 +1512,51 @@ def _e2e_run(d: str, seed: int, conf_text: str = CONF_WIDTHS):
         f.write(conf_text)
     regions = ["synthref:{}:{}".format(r * L, (r + 1) * L) for r in range(R)]
     return truth, fasta, bam, reads_dir, conf, regions
+
+
+def coverage_events(seed: int, which=None) -> list:
+    """The events of phase 3's run at COVERAGE X as the loader gives them
+    (max_coverage = 30 reads, two event rows a read), of each of its 8
+    regions (which: those indexes only)."""
+    from poreseq_tpu_torch.core.params import load_params
+    from poreseq_tpu_torch.core.regions import RegionInfo
+    from poreseq_tpu_torch.io.load import events_from_bam
+
+    _fast5_io()
+    d = tempfile.mkdtemp(prefix="psq_cov_")
+    try:
+        _, _, bam, reads_dir, conf, regions = _e2e_run(d, seed,
+                                                       cov=COVERAGE)
+        params = load_params(conf)
+        return [events_from_bam(reads_dir, bam, RegionInfo(r), params)
+                for i, r in enumerate(regions)
+                if which is None or i in which]
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+
+
+def loader_obs_operands(seed: int, dtype, device="cuda"):
+    """The observation kernel's operands (lvl, sd, valid, tabs) of the
+    coverage run's 8 regions in one batch as the loader gives them
+    (coverage_events), before any refinement: a stand-in beside the
+    engine's own launch (coverage_obs_operands)."""
+    from poreseq_tpu_torch.engine.viterbi import obs_inputs
+
+    return obs_inputs(coverage_events(seed), device, dtype)[1]
+
+
+_COVERAGE_LAUNCH = {}
+
+
+def coverage_obs_operands(seed: int, dtype):
+    """The operands (lvl, sd, valid, tabs) of the largest observation
+    launch the engine makes in the coverage phase's run (coverage_consensus,
+    f32; once a seed in a process), in dtype (f64: the f32 values
+    widened)."""
+    if seed not in _COVERAGE_LAUNCH:
+        _COVERAGE_LAUNCH[seed] = coverage_consensus(seed)["calls"]["largest"]
+    lvl, sd, valid, tabs = _COVERAGE_LAUNCH[seed]
+    return lvl.to(dtype), sd.to(dtype), valid, tabs.to(dtype)
 
 
 def _write_lines(path: str, lines) -> str:
@@ -1616,6 +1732,137 @@ def phase_e2e(seed: int, profile: str | None = None):
     _need_launches("e2e", launches)
     return launches, dict(seqs=seqs, wall=wall, peak=peak, acc=acc,
                           secs=secs)
+
+
+@contextlib.contextmanager
+def obs_calls():
+    """Inside the block, record every observation launch the path makes
+    (viterbi.obs_multi_cuda): (E_pad, [B, R], the instance it ran), and keep
+    a copy of the operands of the largest ([B, R, E_pad] elements, the
+    first of equals) under "largest"."""
+    from poreseq_tpu_torch.engine import viterbi
+
+    real, out = viterbi.obs_multi_cuda, {"calls": [], "largest": None}
+
+    def wrapped(lvl, sd, valid, tabs, instance=None):
+        n0 = viterbi.VITERBI_OBS.instances.copy()
+        obs = real(lvl, sd, valid, tabs, instance)
+        ran, = viterbi.VITERBI_OBS.instances - n0
+        B, R, E = lvl.shape
+        out["calls"].append((E, [B, R], ran))
+        if out["largest"] is None or lvl.numel() > out["largest"][0].numel():
+            out["largest"] = _copied((lvl, sd, valid, tabs))
+        return obs
+
+    viterbi.obs_multi_cuda = wrapped
+    try:
+        yield out
+    finally:
+        viterbi.obs_multi_cuda = real
+
+
+def coverage_consensus(seed: int) -> dict:
+    """Phase 3's run at COVERAGE X through the port's CLI `consensus -i 4
+    --region-batch 8 --device cuda`, f32: dict(truth, seqs, wall, peak
+    device bytes, launches, observation launches by instance, engine host
+    seconds by method, calls: obs_calls' record)."""
+    import torch
+
+    from poreseq_tpu_torch import cli
+    from poreseq_tpu_torch.engine.viterbi import VITERBI_OBS
+    from poreseq_tpu_torch.io.fasta import read_fasta
+
+    _fast5_io()
+    d = tempfile.mkdtemp(prefix="psq_smoke_cov_")
+    try:
+        truth, fasta, bam, reads_dir, conf, regions = _e2e_run(
+            d, seed, cov=COVERAGE)
+        rf = _write_lines(os.path.join(d, "regions.txt"), regions)
+        out = os.path.join(d, "out.fasta")
+        _reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with engine_seconds() as secs, obs_calls() as calls:
+            cli.main(["consensus", fasta, bam, reads_dir, "-R", rf, "-p",
+                      conf, "-o", out, "-i", "4", "--region-batch", "8",
+                      "--device", "cuda"])
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        launches = _launches()
+        instances = dict(VITERBI_OBS.instances)
+        seqs = read_fasta(out)
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    return dict(truth=truth, seqs=seqs, wall=wall, peak=peak,
+                launches=launches, instances=instances, secs=secs,
+                calls=calls)
+
+
+def phase_coverage(seed: int):
+    """3c: phase 3's run at COVERAGE X (3x the reads: the loader's cap,
+    max_coverage = 30 reads, two event rows each, holds most regions),
+    coverage_consensus: wall, accuracy (>= 99.0 %), E_pad of every Viterbi
+    call (the first past the tiled instance's 32 events), observation
+    launches by instance (every call past 32 events on a redesigned
+    instance: tiled64 or chunked), engine host seconds, peak device memory;
+    the largest observation launch held to the twin bit for bit and timed
+    (event and queued ms) beside its bound and the twin's ms (printed
+    beside the earlier general path's on the same launch)."""
+    import torch
+
+    from poreseq_tpu_torch.engine.roofline import viterbi_obs_work
+    from poreseq_tpu_torch.engine.viterbi import (obs_multi_cuda,
+                                                  obs_multi_reference)
+
+    R = E2E_REGIONS
+    run = coverage_consensus(seed)
+    seqs, wall, peak, launches, instances, secs, calls = (
+        run[k] for k in ("seqs", "wall", "peak", "launches", "instances",
+                         "secs", "calls"))
+    accs = _accuracies(seqs, run["truth"])
+    if len(seqs) != R:
+        fail(f"coverage: {len(seqs)} output records, expected {R}")
+    ops = calls["largest"]
+    got = obs_multi_cuda(*ops)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    ref = obs_multi_reference(*ops)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t1) * 1e3
+    if not torch.equal(got, ref):
+        fail("coverage: the largest observation launch "
+             + _differs("obs", got, ref))
+    del got, ref
+    fn = lambda: obs_multi_cuda(*ops)
+    held = dict(queued_ms=queued_ms(fn), plain_ms=plain_ms,
+                **timed(event_ms(fn), viterbi_obs_work(ops[0], ops[2],
+                                                       ops[3]), ops[0].dtype))
+    acc = float(np.mean(accs))
+    print(f"[coverage] consensus {R} x 1 kb at {COVERAGE}X (max_coverage "
+          f"30 reads a region), widths 300/100/20, -i 4 --region-batch 8, "
+          f"f32: wall {wall:.2f} s, mean accuracy {acc:.3f}% (min "
+          f"{min(accs):.3f}%), Viterbi calls (E_pad, [B, R], instance) "
+          f"{calls['calls']}, observation launches by instance {instances}, "
+          f"launches {launches}, engine host seconds (calls, s) "
+          f"{ {m: (n, round(t, 3)) for m, (n, t) in secs.items()} }, peak "
+          f"device memory {peak / 2**20:.1f} MiB; the largest observation "
+          f"launch {list(ops[0].shape)} equal to the twin, "
+          f"{_timing(held)}, queued {held['queued_ms']:.4f} ms, twin "
+          f"{plain_ms:.1f} ms (the earlier general path on this launch: "
+          f"{OBS_GENERAL_MS['coverage']} ms, OBS_GENERAL_MS) | "
+          f"{gpu_line()}", flush=True)
+    if acc < 99.0:
+        fail(f"coverage mean accuracy {acc:.3f}% < 99.0%")
+    if not calls["calls"] or calls["calls"][0][0] <= 32:
+        fail(f"coverage: the first Viterbi call's E_pad is not past 32: "
+             f"{calls['calls'][:1]}")
+    wrong = [c for c in calls["calls"] if c[0] > 32 and c[2] == "tiled"]
+    if wrong:
+        fail(f"coverage: Viterbi calls past 32 events on the tiled "
+             f"instance: {wrong}")
+    _need_launches("coverage", launches)
+    return launches, held
 
 
 def _captured(argv):
@@ -2353,9 +2600,10 @@ def _scan_wide_run(seed: int, e2e: dict):
 
 # 10a: the JAX README's lambda configuration (48.5 kb at 10X, 8 kb reads
 # over 2 kb regions, widths 300/100/20, -i 4 --region-batch 8), cut to its
-# first 16 regions dealt over 2 shards: one lockstep batch of 8 a shard
+# first 10 regions dealt over 2 shards: one lockstep batch of 5 a shard
+# (cut from 16 for the smoke's time limit when the coverage phase came)
 GENOME_2KB = ["sharded", "--genome", "48500", "--region-length", "2000",
-              "--read-len", "8000", "--shards", "2", "--limit", "8"]
+              "--read-len", "8000", "--shards", "2", "--limit", "5"]
 # 10b: the lambda genome split at the defaults' region length (10 kb: 6
 # regions, reads of 10.4 kb), one lockstep batch
 GENOME_10KB = ["lambda", "--region-length", "10000"]
@@ -2363,11 +2611,14 @@ GENOME_10KB = ["lambda", "--region-length", "10000"]
 # launch (rows and groups are independent in the fill and the scorer; the
 # twins at full size ran the card out of memory at phase 9's widths)
 HOLD_ROWS, HOLD_GROUPS = 8, 2048
-# 10b's f64 run takes the batch's first 3 regions (cut: the phase ran 541 s
-# with all 6 on an H100 at 700 W, against a budget of about 240 s); it runs
-# in a process of its own while the f32 run's launches are held to their
-# twins
-F64_REGIONS = 3
+# 10b's f64 run takes the batch's first 2 regions (cut: the phase ran 541 s
+# with all 6 on an H100 at 700 W, against a budget of about 240 s; 3 until
+# the coverage phase came, when the holds waited 31.6 s for it); it runs in
+# a process of its own while the f32 run's launches are held to their twins
+F64_REGIONS = 2
+# and its f32 run the first 4 of the 6 (cut for time when the coverage
+# phase came: the 6 ran 206.2 s of the smoke's 967.7 s on an H100 at 700 W)
+F32_REGIONS = 4
 
 
 @contextlib.contextmanager
@@ -2544,7 +2795,7 @@ def _host_secs(secs: dict) -> dict:
 
 
 def genome_2kb(tool) -> dict:
-    """10a: the lambda genome's first 16 of 49 regions of 2 kb with 8 kb
+    """10a: the lambda genome's first 10 of 49 regions of 2 kb with 8 kb
     reads, dealt over 2 shards: one merged contig at >= 99.0 %, trimmed
     events, every kernel launched.  Returns the launches."""
     from poreseq_tpu_torch.io.fasta import read_fasta
@@ -2615,8 +2866,9 @@ def _f64_batch(run: dict, regions: list, reps: int) -> dict:
 
 
 def genome_10kb(tool, seed: int) -> tuple:
-    """10b: the lambda genome's 6 regions of 10 kb in one lockstep batch on
-    TorchEngine f32 (the CLI), and its first F64_REGIONS of them on f64
+    """10b: the lambda genome's first F32_REGIONS regions of 10 kb in one
+    lockstep batch on TorchEngine f32 (the CLI), and its first F64_REGIONS
+    of them on f64
     (pipeline.mutate_many, in a spawned process while the f32 run's
     largest fills and scorer launch are held to the twins on a slice):
     each merged at >= 99.0 %, no region degraded in f32, and every
@@ -2635,6 +2887,8 @@ def genome_10kb(tool, seed: int) -> tuple:
     try:
         args = tool.parse(GENOME_10KB)
         run = tool.build(args, d)
+        run["regions"] = run["regions"][:F32_REGIONS]
+        _write_lines(run["region_file"], run["regions"])
         regions, truth = run["regions"], run["truth"]
         b32 = _polish(tool, args, run, every=True)
         seqs32 = read_fasta(b32["outs"][0])
@@ -2695,9 +2949,7 @@ def genome_10kb(tool, seed: int) -> tuple:
                  " (pipeline.mutate_many, a process of its own beside the "
                  "holds)")
               + f": {len(todo)} regions of {args.region_length} b"
-              + ("" if todo is regions else
-                 f" (cut: the first {len(todo)} of "
-                 f"{run['regions_total']})")
+              + f" (cut: the first {len(todo)} of {run['regions_total']})"
               + f", reads "
               f"of {args.read_len} b, one lockstep batch, widths "
               f"300/100/20, -i 4: wall {sum(run_['walls']):.2f} s"
@@ -2847,7 +3099,7 @@ def main():
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", default=None, metavar="DIR",
                     help="run phase 3 under torch.profiler, trace into DIR")
-    ap.add_argument("--f32-regions", type=int, default=10, metavar="N",
+    ap.add_argument("--f32-regions", type=int, default=6, metavar="N",
                     help="regions of phase 8 (f32_equiv)")
     args = ap.parse_args()
 
@@ -2872,6 +3124,8 @@ def main():
     run("viterbi", phase_viterbi, args.seed)
     by_phase, held = {}, {}
     by_phase["e2e"], e2e = run("e2e", phase_e2e, args.seed, args.profile)
+    by_phase["coverage"], cov_held = run("coverage", phase_coverage,
+                                         args.seed)
     by_phase["variant"], held["variant"] = run("variant", phase_variant,
                                                args.seed)
     by_phase["train"], held["train"] = run("train", phase_train, args.seed)
@@ -2887,8 +3141,11 @@ def main():
           f"{time.perf_counter() - t_run:.1f} s | {gpu_line()}", flush=True)
 
     # the held launches' keys of each kernel: "fill fwd", "fill bwd",
-    # "mutscore" (phase 9: "mutscore Ws=N")
-    held_keys = {"fill": "fill", "mutscore": "mutscore"}
+    # "mutscore" (phase 9: "mutscore Ws=N"), "viterbi_obs" (the coverage
+    # phase's largest)
+    held_keys = {"fill": "fill", "mutscore": "mutscore",
+                 "viterbi_obs": "viterbi_obs"}
+    held["coverage"] = {"viterbi_obs": cov_held}
     entries = []
     for k in kernels:
         line = report[(k.name, False)]

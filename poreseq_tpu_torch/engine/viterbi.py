@@ -218,21 +218,24 @@ VITERBI_OBS = Kernel(
     "viterbi_obs",
     "poreseq_tpu/engine/tpu/viterbi.py:109 _obs_device / :442 _obs_multi_fn",
     {"psq_viterbi_obs_f32": _OBS_SIG, "psq_viterbi_obs_f64": _OBS_SIG})
-#: the observation kernel's paths by events a region (csrc/viterbi_obs.cu
-#: CAP and STAGED_EVENTS): the tiled path's register list, then the
-#: general path with the row's level data staged in shared memory, then
-#: the general path reading it from device memory
-OBS_PATHS = ((32, "tiled"), (8192, "staged"), (None, "unstaged"))
+#: the observation kernel's instances (its C entry's path index) and the
+#: events a region each takes at most (csrc/viterbi_obs.cu CAP and
+#: CAP_WIDE): the tiled instance's register list of 32, the tiled64
+#: instance's of 64, then the chunked instance, any count
+OBS_PATHS = ((32, "tiled"), (64, "tiled64"), (None, "chunked"))
 
 
 def obs_path(E: int) -> tuple[int, str]:
-    """(index, name) of the observation kernel's path for E_pad events."""
+    """(index, name) of the observation kernel's instance for E_pad events:
+    the first whose cap holds them."""
     return next((i, name) for i, (cap, name) in enumerate(OBS_PATHS)
                 if cap is None or E <= cap)
 
 
-def obs_multi_cuda(lvl, sd, valid, tabs):
-    """Launch csrc/viterbi_obs.cu: the twin's [B, R, 1024]."""
+def obs_multi_cuda(lvl, sd, valid, tabs, instance: str | None = None):
+    """Launch csrc/viterbi_obs.cu: the twin's [B, R, 1024].  ``instance``
+    names one of OBS_PATHS in place of obs_path's choice (one whose cap
+    holds E)."""
     B, R, E = lvl.shape
     dev, dt = lvl.device, lvl.dtype
     check("lvl", lvl, dt, (B, R, E), dev)
@@ -242,8 +245,17 @@ def obs_multi_cuda(lvl, sd, valid, tabs):
     if tabs.data_ptr() % 16:
         raise ValueError("tabs: must start on a 16-byte boundary (the "
                          "kernel stages it 16 bytes a copy)")
+    if instance is None:
+        path, name = obs_path(E)
+    else:
+        names = [n for _, n in OBS_PATHS]
+        if instance not in names:
+            raise ValueError(f"instance {instance!r} is none of {names}")
+        path, name = names.index(instance), instance
+        if OBS_PATHS[path][0] is not None and E > OBS_PATHS[path][0]:
+            raise ValueError(f"instance {instance!r} takes at most "
+                             f"{OBS_PATHS[path][0]} events, not {E}")
     obs = torch.empty((B, R, 1024), dtype=dt, device=dev)
-    path, name = obs_path(E)
     VITERBI_OBS.call(f"psq_viterbi_obs_{dtype_suffix(dt)}", dev, ptr(lvl),
                      ptr(sd), ptr(valid), ptr(tabs), ptr(obs), B, R, E, path,
                      stream(dev), instance=name)

@@ -35,14 +35,16 @@ def test_port_imports_nothing_of_the_jax_package():
     them) and no line of
     chip_smoke.py or the tools (tools/__init__.py, profile_phase3.py,
     sweep_constants.py, genome_run.py, bench.py, bench_consensus.py,
-    bench_multihost.py, dryrun.py, fill_instances.py) imports poreseq_tpu
+    bench_multihost.py, dryrun.py, fill_instances.py, obs_instances.py)
+    imports poreseq_tpu
     (or jax), lazily inside a function or not."""
     files = sorted((REPO / "poreseq_tpu_torch").rglob("*.py"))
     files += [REPO / "chip_smoke.py"] + [
         REPO / "tools" / f"{t}.py"
         for t in ("__init__", "profile_phase3", "sweep_constants",
                   "genome_run", "bench", "bench_consensus",
-                  "bench_multihost", "dryrun", "fill_instances")]
+                  "bench_multihost", "dryrun", "fill_instances",
+                  "obs_instances")]
     port = REPO / "poreseq_tpu_torch"
     assert port / "parallel" / "mesh.py" in files
     assert port / "engine" / "_native.py" in files

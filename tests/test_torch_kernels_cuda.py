@@ -19,9 +19,11 @@ The backtrace (W = 49 and 1401), the Viterbi sweep (with and without backpointer
 with all rows real or none), the sampler (1 and 16 candidates) and its
 Gumbel kernel alone (R = 1, nk = 1, rows below, at and above one pass of
 its grid), the Viterbi observations (E_pad 1 to 32: the tiled
-path, 33, 64 and 100: the staged general path's register drop list and its
-order-key bisection past it; 8193 and 12,289: the unstaged path, rows with
-every event valid, some, one and none; ragged row tiles), the per-base likes (T up to 3000, and a
+instance; 33 to 64: the tiled64 instance; 65, 100, 257, 8193 and 12,289: the
+chunked instance, its register list and its histogram passes over the
+order keys' digits; each instance also below its cap; rows with every event
+valid, some, one and none; ragged row tiles; and the engine's candidates
+on a 30X batch in f64 equal to the CPU twins'), the per-base likes (T up to 3000, and a
 backtrace at W = 1401), the scoring geometry (unsorted rows; T 1 to 4000
 levels, C 1 to 3000 columns; at, past and twice its shared-memory level
 cap) and its windows (T not a multiple of 32; Ws up to 1201) must equal
@@ -351,11 +353,14 @@ def _obs_inputs(E, dtype, seed=0, B=2, R=70):
 
 @pytest.mark.parametrize("engine", DTYPES, indirect=True)
 @pytest.mark.parametrize("E,R", [(1, 70), (16, 70), (31, 70), (32, 70),
-                                 (33, 70), (64, 70), (32, 1), (14, 960)])
+                                 (33, 70), (60, 70), (64, 70), (65, 70),
+                                 (257, 70), (32, 1), (14, 960)])
 def test_viterbi_obs_kernel_matches_twin(engine, E, R):
-    """E_pad below, at and above the tiled path's cap of 32 events (33 and
-    64 take the general path; 64 has rows with nskip > 8), R = 70 (not a
-    multiple of the 16-row tile), 960 (phase 2b's rows) and 1."""
+    """E_pad below, at and above the tiled instance's cap of 32 events (33,
+    60 (the loader's 30 reads, two rows each) and 64 take the tiled64
+    instance, 65 and 257 the chunked one; rows reach nskip > 8), R = 70
+    (not a multiple of the 16-row tile nor of the chunked instance's 8
+    rows), 960 (phase 2b's rows) and 1."""
     from poreseq_tpu_torch.engine.viterbi import (VITERBI_OBS,
                                                   obs_multi_cuda,
                                                   obs_multi_reference,
@@ -390,14 +395,15 @@ def _obs_rows_inputs(E, dtype, fracs, seed=0):
 
 
 @pytest.mark.parametrize("engine", DTYPES, indirect=True)
-@pytest.mark.parametrize("E,path", [(100, "staged"), (8193, "unstaged"),
-                                    (12289, "unstaged")])
+@pytest.mark.parametrize("E,path", [(64, "tiled64"), (100, "chunked"),
+                                    (8193, "chunked"), (12289, "chunked")])
 def test_viterbi_obs_kernel_bisects_past_its_register_list(engine, E, path):
-    """Rows of every event valid, 60 % and 5 % of them (nskip up to 3,072,
-    past the register list of 8: the order-key bisection) and of 2, 1 and 0
-    valid events, at E = 100 (the staged path) and past the staged path's
-    8192 events (the level data read from device memory): equal to the
-    twin in f64 and f32, counted under the path's name."""
+    """Rows of every event valid, 60 % and 5 % of them (nskip up to 3,072:
+    past the chunked instance's register list of 8, its histogram passes
+    over the order keys' digits) and of 2, 1 and 0 valid events, at E = 64
+    (the tiled64 instance's cap), 100 and past 8192 events (the chunked
+    instance, the events in many chunks): equal to the twin in f64 and
+    f32, counted under the instance's name."""
     from poreseq_tpu_torch.engine.viterbi import (VITERBI_OBS,
                                                   obs_multi_cuda,
                                                   obs_multi_reference)
@@ -408,6 +414,52 @@ def test_viterbi_obs_kernel_bisects_past_its_register_list(engine, E, path):
     assert VITERBI_OBS.instances[path] == n + 1
     assert torch.equal(got, obs_multi_reference(*args))
     assert int(args[2][0, 0].sum()) // 4 > 8
+
+
+@pytest.mark.parametrize("engine", DTYPES, indirect=True)
+@pytest.mark.parametrize("instance", ["tiled64", "chunked"])
+def test_viterbi_obs_instances_take_any_events_below_their_cap(engine,
+                                                               instance):
+    """An instance named in place of the route's choice (the tools time
+    them side by side) equals the twin at E_pad below its cap too, and
+    the wrapper refuses one whose cap is below E_pad before a launch."""
+    from poreseq_tpu_torch.engine.viterbi import (VITERBI_OBS,
+                                                  obs_multi_cuda,
+                                                  obs_multi_reference)
+
+    for E in (1, 14, 33):
+        args = _obs_inputs(E, engine.dtype, R=40)
+        n = VITERBI_OBS.instances[instance]
+        got = obs_multi_cuda(*args, instance=instance)
+        assert VITERBI_OBS.instances[instance] == n + 1
+        assert torch.equal(got, obs_multi_reference(*args))
+    n = VITERBI_OBS.launches
+    with pytest.raises(ValueError, match="at most"):
+        obs_multi_cuda(*_obs_inputs(33, engine.dtype, R=4), instance="tiled")
+    assert VITERBI_OBS.launches == n
+
+
+def test_viterbi_mutate_multi_at_30x_equals_the_cpu_twin():
+    """The engine's Viterbi candidates on a 30X batch (chip_smoke.py's
+    coverage run: three of its regions as the loader gives them, up to 60
+    event rows; E_pad past the tiled instance's cap) in f64: the same 16
+    candidates a region on the card as on the CPU twins, through the
+    tiled64 observation instance."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    import chip_smoke
+    from poreseq_tpu_torch.engine import TorchEngine
+    from poreseq_tpu_torch.engine.viterbi import VITERBI_OBS
+
+    events = chip_smoke.coverage_events(0, [1, 3, 6])
+    assert max(len(e) for e in events) > 32
+    run = lambda dev: TorchEngine(dev, torch.float64, seed=5) \
+        .viterbi_mutate_multi(events, 16, 0.05, 0.01, 0.33, 0.75)
+    n = VITERBI_OBS.instances["tiled64"]
+    card = run("cuda")
+    assert VITERBI_OBS.instances["tiled64"] == n + 1
+    assert card == run("cpu")
+    assert all(len(c) == 16 for c in card)
 
 
 @pytest.mark.parametrize("engine", DTYPES, indirect=True)

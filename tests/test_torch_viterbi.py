@@ -648,34 +648,40 @@ def _np_before(a, ia, b, ib):
     return (a < b) | ((a == b) & (ia < ib))
 
 
-def _np_bisect_threshold(per, ev, nskip):
-    """NumPy model of viterbi_obs.cu bisect_threshold over the states of
-    per [E, S] at the valid events ev: the threshold's order key bit by bit
-    from the top (the events agreeing with it above the bit and 0 there
-    counted against the rank), then the rank-th event of that key in event
-    order.  Returns (tv, ti) [S]."""
-    keys = _order_key(per[ev])                          # [nlik, S]
-    ut = keys.dtype.type
+# modes of viterbi_obs.cu's chunked selection (its enum Mode)
+_SUM, _KEYED, _COLLECT, _RADIX = range(4)
+
+
+def _np_collect(per, ev, inb, kbuf):
+    """The chunked instance's collect pass on per [E, S] at the valid events
+    ev: per state, the sorted register list (value, index) of the kbuf
+    smallest pairs in its bucket (inb [nlik, S]), filled by insertion in
+    event order.  Returns the list (bv, bi) [kbuf, S]."""
     S = per.shape[1]
-    key = np.zeros(S, dtype=keys.dtype)
-    rank = np.full(S, nskip)
-    for b in range(8 * keys.itemsize - 1, -1, -1):
-        below = ((keys >> ut(b)) == (key >> ut(b))).sum(axis=0)
-        up = below < rank
-        key = np.where(up, key | (ut(1) << ut(b)), key)
-        rank = np.where(up, rank - below, rank)
-    hit = np.cumsum(keys == key, axis=0)
-    j = np.argmax((keys == key) & (hit == rank), axis=0)
-    assert ((keys == key) & (hit == rank)).any(axis=0).all()
-    return per[ev[j], np.arange(S)], ev[j]
+    bv = np.full((kbuf, S), np.inf, per.dtype)
+    bi = np.full((kbuf, S), np.iinfo(np.int32).max)
+    for j, e in enumerate(ev):
+        x, xi = per[e].copy(), np.full(S, e)
+        go = inb[j] & _np_before(x, xi, bv[-1], bi[-1])
+        for k in range(kbuf):
+            sw = go & _np_before(x, xi, bv[k], bi[k])
+            bv[k], x = np.where(sw, x, bv[k]), np.where(sw, bv[k], x)
+            bi[k], xi = np.where(sw, xi, bi[k]), np.where(sw, bi[k], xi)
+    return bv, bi
 
 
-def _np_obs_general_row(per, ok, kbuf):
-    """NumPy model of one row of the general paths (staged and unstaged
-    alike: they differ only in where the row's level data lives): the drop
-    threshold, the nskip-th smallest (value, event index), from a sorted
-    list of kbuf (nskip <= kbuf) or by bisecting the order keys; the pairs
-    after it summed in event order."""
+def _np_obs_chunk_row(per, ok, kbuf, digit):
+    """NumPy model of one row of viterbi_obs.cu's chunked instance on a
+    slice of states (per [E, S] the row's emissions, ok [E] its valid
+    flags).  The drop threshold, the nskip-th smallest (value, index), by
+    passes over the events: a state whose rank is at most kbuf collects its
+    bucket's smallest kbuf pairs (the threshold is the rank-th); else it
+    counts its bucket's order keys by the next `digit` bits, keeps the digit
+    where the rank falls and the rank within it, and goes on until the rank
+    is at most kbuf or the key is whole (the threshold is then the rank-th
+    pair of that key in event order); the pairs after the threshold are
+    summed in event order.  Returns (obs [S], passes, the states' final
+    modes)."""
     one = per.dtype.type
     E, S = per.shape
     ev = np.nonzero(ok)[0]
@@ -683,47 +689,83 @@ def _np_obs_general_row(per, ok, kbuf):
     nskip = nlik // 4
     if nskip > nlik - 2 or nlik <= 1:
         nskip = 0
-    big = np.iinfo(np.int32).max
+    keys = _order_key(per[ev]) if nlik else np.zeros((0, S), np.uint64)
+    kt = _order_key(per[:1]).dtype.type
+    keys = keys.astype(kt)
+    bits, nb = 8 * np.dtype(kt).itemsize, 1 << digit
+    mode = np.full(S, _SUM if nskip == 0 else
+                   _COLLECT if nskip <= kbuf else _RADIX)
+    rank, sh = np.full(S, nskip), np.full(S, bits - digit)
+    pfx, hi = np.zeros(S, kt), np.zeros(S, kt)
     tv, ti = np.full(S, -np.inf, per.dtype), np.full(S, -1)
-    if 0 < nskip <= kbuf:
-        bv = np.full((kbuf, S), np.inf, per.dtype)
-        bi = np.full((kbuf, S), big)
-        for e in ev:
-            x, xi = per[e].copy(), np.full(S, e)
-            for j in range(kbuf):
-                sw = _np_before(x, xi, bv[j], bi[j])
-                bv[j], x = np.where(sw, x, bv[j]), np.where(sw, bv[j], x)
-                bi[j], xi = np.where(sw, xi, bi[j]), np.where(sw, bi[j], xi)
-        tv, ti = bv[nskip - 1], bi[nskip - 1]
-    elif nskip > 0:
-        tv, ti = _np_bisect_threshold(per, ev, nskip)
+    passes = 0
+    while (mode >= _COLLECT).any():
+        passes += 1
+        inb = ((keys ^ pfx) & hi) == 0                  # [nlik, S]
+        rad, col = mode == _RADIX, mode == _COLLECT
+        if rad.any():
+            s = np.where(rad, sh, 0).astype(kt)
+            dig = (keys >> s) & kt(nb - 1)
+            cnt = np.stack([((dig == d) & inb).sum(axis=0)
+                            for d in range(nb)])         # [nb, S]
+            cum = np.cumsum(cnt, axis=0)
+            dsel = np.argmax(cum >= rank, axis=0)
+            assert (cum[-1] >= rank)[rad].all()
+            below = cum[dsel, np.arange(S)] - cnt[dsel, np.arange(S)]
+            r2 = rank - below
+            p2 = pfx | (dsel.astype(kt) << s)
+            h2 = hi | (kt(nb - 1) << s)
+            m2 = np.where(r2 <= kbuf, _COLLECT,
+                          np.where(sh - digit < 0, _KEYED, _RADIX))
+            rank, pfx, hi = (np.where(rad, a, b) for a, b in
+                             ((r2, rank), (p2, pfx), (h2, hi)))
+            sh = np.where(rad, sh - digit, sh)
+        if col.any():
+            bv, bi = _np_collect(per, ev, inb, kbuf)
+            pick = np.clip(rank - 1, 0, kbuf - 1)
+            tv = np.where(col, bv[pick, np.arange(S)], tv)
+            ti = np.where(col, bi[pick, np.arange(S)], ti)
+        mode = np.where(col, _SUM, np.where(rad, m2, mode) if rad.any()
+                        else mode)
     acc = np.zeros(S, dtype=per.dtype)
-    for e in ev:
-        acc = np.where(_np_before(tv, ti, per[e], e), acc + per[e], acc)
-    return acc / one(max(nlik - nskip, 1))
+    seen = np.zeros(S, dtype=int)
+    keyed = mode == _KEYED
+    for j, e in enumerate(ev):
+        eq = keys[j] == pfx
+        seen = np.where(keyed & eq, seen + 1, seen)
+        keep = np.where(keyed, (keys[j] > pfx) | (eq & (seen > rank)),
+                        _np_before(tv, ti, per[e], e))
+        acc = np.where(keep, acc + per[e], acc)
+    return acc / one(max(nlik - nskip, 1)), passes, mode
 
 
-def _np_obs_grid(per, valid):
-    """NumPy model of csrc/viterbi_obs.cu's grid: E <= CAP takes the tiled
-    path (a block: NS states x RT rows of one region, its thread group g of
-    RG taking rows g, g + RG, ... of the tile), else a general path (a
-    block: NT states of one row).  Asserts that every (region, row, state)
-    is written exactly once; returns obs [B, R, 1024]."""
-    cap, ns, rg, rt, nt, kbuf = _cu_consts("viterbi_obs", "CAP", "NS", "RG",
-                                           "RT", "NT", "KBUF")
+def _np_obs_grid(per, valid, instance):
+    """NumPy model of csrc/viterbi_obs.cu's grid for one instance: "tiled"
+    and "tiled64" (a block: NS states x RT rows of one region, its thread
+    group g of RG taking rows g, g + RG, ... of the tile; tiled64 at
+    RG_WIDE, and in f64 NS_WIDE_F64 states), "chunked" (a block: 32 states
+    x CR rows, a warp a row).  Asserts that every (region, row, state) is
+    written exactly once; returns obs [B, R, 1024]."""
+    ns, ns64, rg, rgw, rt, cr, kbuf, digit = _cu_consts(
+        "viterbi_obs", "NS", "NS_WIDE_F64", "RG", "RG_WIDE", "RT", "CR",
+        "KBUF", "DIGIT")
     B, R, E, S = per.shape
-    assert tv.obs_path(E)[1] == ("tiled" if E <= cap else "staged")
     out = np.full((B, R, S), np.nan, dtype=per.dtype)
     hits = np.zeros((B, R, S), dtype=int)
-    if E <= cap:
+    if instance in ("tiled", "tiled64"):
+        if instance == "tiled64":
+            rg = rgw
+            ns = ns if per.dtype == np.float32 else ns64
         blocks = [(z, range(y * rt + g, min(y * rt + rt, R), rg), x * ns, ns)
                   for z in range(B) for y in range(-(-R // rt))
                   for x in range(S // ns) for g in range(rg)]
         row = _np_obs_tiled_row
     else:
-        blocks = [(z, range(y, y + 1), x * nt, nt)
-                  for z in range(B) for y in range(R) for x in range(S // nt)]
-        row = lambda p, ok: _np_obs_general_row(p, ok, kbuf)
+        blocks = [(z, range(r, r + 1), x * 32, 32)
+                  for z in range(B) for y in range(-(-R // cr))
+                  for r in range(y * cr, min(y * cr + cr, R))
+                  for x in range(S // 32)]
+        row = lambda p, ok: _np_obs_chunk_row(p, ok, kbuf, digit)[0]
     for z, rows, s0, n in blocks:
         for r in rows:
             out[z, r, s0:s0 + n] = row(per[z, r, :, s0:s0 + n], valid[z, r])
@@ -734,17 +776,21 @@ def _np_obs_grid(per, valid):
 
 @pytest.mark.parametrize("dtype", [np.float64, np.float32])
 @pytest.mark.parametrize("B,R,E", [(1, 1, 8), (8, 3, 31), (1, 33, 32),
-                                   (2, 37, 33), (1, 41, 40)])
+                                   (2, 37, 33), (1, 41, 40), (1, 9, 63),
+                                   (1, 10, 64), (1, 9, 65), (1, 9, 100)])
 def test_obs_kernel_grid_model_equals_twin(B, R, E, dtype):
     """The observation kernel's decomposition, bit for bit against
-    obs_multi_reference: R = 1, B = 8 and R not a multiple of the row tile;
-    E_pad 31 and 32 take the tiled path (at and below its cap), 33 and 40
-    the staged general one, whose rows reach nskip 9 and 10 (past its
-    register list: the order-key bisection).  Each region has rows with no valid event and
-    with every event valid; event 1 is a copy of event 0 (ties), and a stdv
-    is 0 now and then (the clamp)."""
-    cap, = _cu_consts("viterbi_obs", "CAP")
+    obs_multi_reference, in every instance whose cap holds E_pad: R = 1,
+    B = 8 and R not a multiple of the row tile; E_pad at and around the
+    tiled instance's cap of 32 and the tiled64 instance's of 64, 40 and 100
+    (rows reach nskip 9-25, past the chunked instance's register list: its
+    histogram passes).  Each region has rows with no valid event and with
+    every event valid; event 1 is a copy of event 0 (ties), and a stdv is 0
+    now and then (the clamp)."""
+    cap, cap_w = _cu_consts("viterbi_obs", "CAP", "CAP_WIDE")
     assert (E <= cap) == (E in (8, 31, 32))
+    assert tv.obs_path(E)[1] == ("tiled" if E <= cap else
+                                 "tiled64" if E <= cap_w else "chunked")
     rng = np.random.default_rng(E)
     lvl = rng.normal(60, 8, (B, R, E))
     sd = np.where(rng.random((B, R, E)) < 0.05, 0.0,
@@ -769,10 +815,13 @@ def test_obs_kernel_grid_model_equals_twin(B, R, E, dtype):
     ops.append(torch.as_tensor(tabs.astype(dtype)))
     ref = tv.obs_multi_reference(*ops).numpy()
     per = tv.obs_emissions(ops[0], ops[1], ops[3]).numpy()
-    np.testing.assert_array_equal(_np_obs_grid(per, valid), ref)
+    ran = [name for c, name in tv.OBS_PATHS if c is None or E <= c]
+    for name in ran:
+        np.testing.assert_array_equal(_np_obs_grid(per, valid, name), ref)
+    assert ran[-1] == "chunked" and len(ran) == 3 - (E > cap) - (E > cap_w)
     nlik = valid.sum(axis=2)
     assert (nlik == E).any() and (R == 1 or (nlik == 0).any())
-    if E == 40:
+    if E >= 40:
         assert (nlik // 4 > 8).any()
 
 
@@ -780,12 +829,16 @@ def test_obs_kernel_grid_model_equals_twin(B, R, E, dtype):
 @pytest.mark.parametrize("E,counts", [(40, (40, 39, 36, 12, 2, 1, 0)),
                                       (100, (100, 97, 64, 37, 36, 5))])
 def test_obs_bisect_threshold_equals_twin(E, counts, dtype):
-    """The general paths' selection past the register list (nskip > KBUF)
-    by order-key bisection, on rows of `counts` valid events of E: values
-    drawn from a few magnitudes with -0 and +0 among them, so that equal
-    keys (ties by index) are common; the row model equals the twin's trim
-    bit for bit."""
-    kbuf, = _cu_consts("viterbi_obs", "KBUF")
+    """The chunked instance's selection past its register list (nskip >
+    KBUF; the general path's order-key bisection before it): histogram
+    passes over the order keys' digits, then a collect pass or, where more
+    than KBUF equal keys remain, the threshold key's rank in event order,
+    on rows of `counts` valid events of E.  Values are drawn from a few
+    magnitudes with -0 and +0 among them, so that equal keys (ties by
+    index) are common; the row model equals the twin's trim bit for bit,
+    and both ends of the selection (a collect pass after histogram passes,
+    a whole key) are reached."""
+    kbuf, digit = _cu_consts("viterbi_obs", "KBUF", "DIGIT")
     rng = np.random.default_rng(E)
     S = 64
     pool = np.array([-3.7, -3.7, -0.0, 0.0, 0.3, 2.2, 1e7, -1e-3, -41.9])
@@ -796,20 +849,81 @@ def test_obs_bisect_threshold_equals_twin(E, counts, dtype):
     for r, n in enumerate(counts):
         valid[0, r, rng.choice(E, n, replace=False)] = True
     ref = tv.trimmed_mean(torch.as_tensor(per), torch.as_tensor(valid))
+    modes, passes = set(), []
     for r, n in enumerate(counts):
-        got = _np_obs_general_row(per[0, r], valid[0, r], kbuf)
+        got, p, mode = _np_obs_chunk_row(per[0, r], valid[0, r], kbuf, digit)
         np.testing.assert_array_equal(got, ref[0, r].numpy())
+        modes |= set(mode.tolist())
+        passes.append(p)
     assert max(counts) // 4 > kbuf
+    assert {_SUM, _KEYED} <= modes and max(passes) > 2
 
 
 def test_obs_paths_follow_the_kernel_constants():
-    """obs_path's limits are csrc/viterbi_obs.cu's CAP and STAGED_EVENTS;
-    past the staged path any event count takes the unstaged one."""
-    cap, staged = _cu_consts("viterbi_obs", "CAP", "STAGED_EVENTS")
-    got = [tv.obs_path(E) for E in (1, cap, cap + 1, staged, staged + 1,
-                                    12289, 1 << 20)]
-    assert got == [(0, "tiled")] * 2 + [(1, "staged")] * 2 + [
-        (2, "unstaged")] * 3
+    """obs_path's caps are csrc/viterbi_obs.cu's CAP and CAP_WIDE; past
+    them any event count takes the chunked instance."""
+    cap, cap_w = _cu_consts("viterbi_obs", "CAP", "CAP_WIDE")
+    got = [tv.obs_path(E) for E in (1, cap, cap + 1, cap_w, cap_w + 1,
+                                    8193, 12289, 1 << 20)]
+    assert got == [(0, "tiled")] * 2 + [(1, "tiled64")] * 2 + [
+        (2, "chunked")] * 4
+
+
+@pytest.mark.parametrize("instance,E,match", [
+    ("tiled", 33, "at most"), ("tiled64", 65, "at most"),
+    ("staged", 33, "none of")])
+def test_obs_kernel_wrapper_refuses_an_instance_below_e_pad(instance, E,
+                                                            match):
+    """obs_multi_cuda refuses an instance whose cap (OBS_PATHS) is below
+    E_pad, or a name OBS_PATHS does not hold, before anything is launched
+    (CPU operands reach the refusal)."""
+    B, R = 1, 4
+    lvl = torch.zeros((B, R, E))
+    valid = torch.ones((B, R, E), dtype=torch.bool)
+    tabs = torch.zeros((B, 6, E, 1024))
+    n = tv.VITERBI_OBS.launches
+    with pytest.raises(ValueError, match=match):
+        tv.obs_multi_cuda(lvl, lvl, valid, tabs, instance=instance)
+    assert tv.VITERBI_OBS.launches == n
+
+
+def _jax_obs_case(evs):
+    """One region's observation operands ([1, R, E] level data and its
+    model tables) from a session's events."""
+    lvl, sd, valid = tv._position_stats(evs)
+    return [x[None] for x in (lvl, sd, valid)] + [
+        tv._model_tabs(evs, len(evs))[None]]
+
+
+@pytest.mark.parametrize("coverage", [48, 100])
+def test_obs_and_sweep_match_jax_past_the_tiled_cap(x64, coverage):
+    """Regions of one event row a read at 48 and 100 reads (E_pad past the
+    tiled instance's 32 events: the tiled64 and the chunked instance on the
+    card), 120 b, 90 % of the levels anchored: the twin's obs, liks and
+    fwds equal
+    _obs_multi_fn's and _viterbi_sweep_multi's within 1e-9 in f64, on rows
+    that drop more than 8 events."""
+    # most levels anchored, so that rows hold most reads' events
+    evs = simulate_session(np.random.default_rng(coverage), ref_len=120,
+                           coverage=coverage, seed_subsample=0.9)[0].events
+    ops = _jax_obs_case(evs)
+    nlik = ops[2].sum(axis=2)
+    assert ops[0].shape[2] == coverage and (nlik // 4 > 8).any()
+    assert tv.obs_path(coverage)[1] == ("tiled64" if coverage <= 64
+                                        else "chunked")
+    obs_j = jv._obs_multi_fn()(*(jnp.asarray(x) for x in ops))
+    obs_t = tv.obs_multi(*(torch.as_tensor(x) for x in ops))
+    np.testing.assert_allclose(obs_t.numpy(), np.asarray(obs_j), rtol=0,
+                               atol=1e-9)
+    n_real = np.array([ops[0].shape[1]])
+    liks_j, fwds_j = jv._viterbi_sweep_multi(obs_j, jnp.asarray(n_real),
+                                             0.05, 0.01)
+    liks_t, fwds_t, _ = tv.viterbi_sweep(obs_t, torch.as_tensor(n_real),
+                                         0.05, 0.01)
+    np.testing.assert_allclose(liks_t.numpy(), np.asarray(liks_j), rtol=0,
+                               atol=1e-9)
+    np.testing.assert_allclose(fwds_t.numpy(), np.asarray(fwds_j), rtol=0,
+                               atol=1e-9)
 
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])

@@ -10,7 +10,7 @@ TpuEngine at widths 600/600/20 in f64: ScoreEvents, and ScoreMutations
 marked `slow`), and the kernel wrappers with the C library stubbed: each
 width reaches its C entry with its instance's arguments (a width below 1
 is refused), and a region of 8193 events reaches the observations'
-unstaged path."""
+chunked instance."""
 
 import numpy as np
 import pytest
@@ -184,7 +184,8 @@ def test_group_twin_at_scoring_width_2048_matches_jax(x64):
 
 
 def test_obs_twin_past_the_staged_events_matches_jax(x64):
-    """E = 8193 events a region (the unstaged path on the card), R = 2 rows:
+    """E = 8193 events a region (the chunked instance on the card, many
+    chunks), R = 2 rows:
     every event valid, and half of them; obs_multi_reference within 1e-9 of
     _obs_multi_fn (the JAX package's sort-based trim) in f64."""
     from poreseq_tpu.engine.tpu import viterbi as jv
@@ -209,7 +210,7 @@ def test_obs_twin_past_the_staged_events_matches_jax(x64):
     ref = np.asarray(jv._obs_multi_fn()(*(jnp.asarray(x) for x in (
         lvl, sd, valid, tabs))))
     np.testing.assert_allclose(got, ref, rtol=0, atol=1e-9)
-    assert tv.obs_path(E)[1] == "unstaged"
+    assert tv.obs_path(E)[1] == "chunked"
 
 
 def test_scoring_width_above_realign_width_matches_jax(x64, monkeypatch):
@@ -512,10 +513,11 @@ def test_geom_cuda_takes_the_scratch_instance_past_the_cap(stub, dtype):
 
 
 def test_viterbi_obs_cap_ends_in_engine_error(stub, monkeypatch):
-    """A region of 8193 events (past the staged path's 8192) no longer ends
-    in EngineError: the engine's observation call (sweep_inputs, the route
-    stubbed to the kernel's, the operands of the region's shape) reaches the
-    C entry with E = 8193 and the unstaged path, counted under its name."""
+    """A region of 8193 events (past the 8192 the port once refused) does
+    not end in EngineError: the engine's observation call (sweep_inputs,
+    the route stubbed to the kernel's, the operands of the region's shape)
+    reaches the C entry with E = 8193 and the chunked instance, counted
+    under its name."""
     from poreseq_tpu_torch.engine import viterbi as vit
 
     def obs_inputs(events_lists, device, dtype):
@@ -526,11 +528,11 @@ def test_viterbi_obs_cap_ends_in_engine_error(stub, monkeypatch):
 
     monkeypatch.setattr(vit, "obs_inputs", obs_inputs)
     monkeypatch.setattr(vit, "route", lambda *t: "cuda")
-    n, unstaged = vit.VITERBI_OBS.launches, \
-        vit.VITERBI_OBS.instances["unstaged"]
+    n, chunked = vit.VITERBI_OBS.launches, \
+        vit.VITERBI_OBS.instances["chunked"]
     act, obs, _ = vit.sweep_inputs([[None] * 8193], "cpu", torch.float32)
     (fn, a), = stub.calls
     assert fn == "psq_viterbi_obs_f32" and a[5:9] == (1, 64, 8193, 2)
     assert act == [0] and obs.shape == (1, 64, 1024)
     assert vit.VITERBI_OBS.launches == n + 1
-    assert vit.VITERBI_OBS.instances["unstaged"] == unstaged + 1
+    assert vit.VITERBI_OBS.instances["chunked"] == chunked + 1

@@ -2,6 +2,7 @@
 """Time variants of a hand kernel's compile-time constants on one card.
 
     python3 tools/sweep_constants.py KERNEL NAME=V1,V2 ... [--seed N]
+                                     [--obs-shape 30X|E] [--obs-instance I]
 
 KERNEL is one of viterbi_obs, likes, viterbi_gumbel, geom.  For every
 combination of the values given, a copy of poreseq_tpu_torch/csrc/<src>.cu
@@ -10,8 +11,12 @@ _build.py's nvcc flags (all variants at once; a combination the source's
 static_asserts refuse is reported as not built), loaded with ctypes and
 launched on the operands of chip_smoke.py's phase 2 in f32 and in f64:
 the observations and the Gumbel noise on phase 2b's 8 regions (960 rows,
-E_pad 14; 16 candidates), the likes and the geometry on a Mutate round's
-8-region batch (E = 96, T = 1024, C = 1024).  Each variant's outputs must
+E_pad 14; 16 candidates; the observations with --obs-shape 30X on the
+largest launch of the coverage phase's run, E_pad 60, or at an E of
+chip_smoke.OBS_SHAPES,
+on --obs-instance NAME of engine/viterbi.py OBS_PATHS, else obs_path's),
+the likes and the geometry on a Mutate round's 8-region batch (E = 96, T =
+1024, C = 1024).  Each variant's outputs must
 equal the plain twin's; its time is profile_phase3.queued_ms of a bare
 launch (CUDA events around 20 launches queued behind a spin kernel).  For
 each variant one line `[sweep] {json}` follows: the constants, built or
@@ -68,12 +73,13 @@ def sass_counts(lib: str) -> dict:
                           text=True, check=True).stdout
     counts = {}
     for fn in re.split(r"\n\s*Function : ", sass)[1:]:
-        m = re.search(r"([a-z_]+_kernel)I([fd])(?:Lb([01])E)?E",
+        m = re.search(r"([a-z_]+_kernel)I([fd])((?:L[ib]\d+E)*)E",
                       fn.split("\n", 1)[0])
         ops = re.findall(r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9_]+)",
                          fn)
         if m:
-            flag = f", {m.group(3)}" if m.group(3) else ""
+            flag = "".join(f", {v}" for v in re.findall(r"L[ib](\d+)E",
+                                                         m.group(3)))
             counts[f"{m.group(1)}<{m.group(2)}{flag}>"] = sum(
                 o != "NOP" for o in ops)
     return counts
@@ -85,17 +91,22 @@ def sass_counts(lib: str) -> dict:
 # its integer arguments (the Gumbel kernel's seed is 64-bit)
 _I, _U64 = ctypes.c_int, ctypes.c_uint64
 SOURCES = {"viterbi_obs": ("viterbi_obs", "psq_viterbi_obs", 0,
-                           (_I, _I, _I)),
+                           (_I, _I, _I, _I)),
            "likes": ("likes", "psq_likes", 0, (_I, _I, _I)),
            "viterbi_gumbel": ("viterbi_gumbel", "psq_viterbi_gumbel", 0,
                               (_I, _I, _U64)),
            "geom": ("geom", "psq_geom", 1, (_I, _I, _I, _I))}
 
 
-def operands(kernel: str, seed: int, dtype):
+def operands(kernel: str, seed: int, dtype, obs_shape: str | None = None,
+             obs_instance: str | None = None):
     """(inputs, the twin's outputs, the C entry's int arguments after the
     pointers) at phase 2's shapes in dtype; the entry takes the inputs'
-    and then the outputs' pointers."""
+    and then the outputs' pointers.  The observations: obs_shape `30X` (the
+    coverage phase's largest launch) or an E of chip_smoke.OBS_SHAPES in place
+    of phase 2b's batch, on obs_instance (else obs_path's choice); the
+    coverage phase's launch is taken once (chip_smoke.coverage_obs_operands
+    runs its consensus on the card)."""
     import torch
 
     import chip_smoke
@@ -103,16 +114,26 @@ def operands(kernel: str, seed: int, dtype):
 
     engine = TorchEngine("cuda", dtype)
     if kernel in ("viterbi_obs", "viterbi_gumbel"):
-        from poreseq_tpu_torch.engine.viterbi import (gumbel_reference,
+        from poreseq_tpu_torch.engine.viterbi import (OBS_PATHS,
+                                                      gumbel_reference,
                                                       obs_inputs,
-                                                      obs_multi_reference)
+                                                      obs_multi_reference,
+                                                      obs_path)
 
         regions = chip_smoke._mut_regions(seed)["refine"][0]
         _, ops, _ = obs_inputs([d.events for d in regions], engine.device,
                                dtype)
+        if kernel == "viterbi_obs" and obs_shape == "30X":
+            ops = chip_smoke.coverage_obs_operands(seed, dtype)
+        elif kernel == "viterbi_obs" and obs_shape:
+            ops = chip_smoke.obs_shape_inputs(
+                seed, *chip_smoke.OBS_SHAPES[int(obs_shape)], int(obs_shape),
+                dtype)
         B, R, E = ops[0].shape
         if kernel == "viterbi_obs":
-            return ops, (obs_multi_reference(*ops),), (B, R, E)
+            path = obs_path(E)[0] if obs_instance is None else [
+                n for _, n in OBS_PATHS].index(obs_instance)
+            return ops, (obs_multi_reference(*ops),), (B, R, E, path)
         nk = chip_smoke.SAMPLE_ARGS[0]
         rows = torch.arange(R, device=engine.device)
         return [], (gumbel_reference(seed, nk, rows, dtype),), (nk, R, seed)
@@ -133,6 +154,8 @@ def main():
     ap.add_argument("kernel", choices=tuple(SOURCES))
     ap.add_argument("constants", nargs="+", metavar="NAME=V1,V2")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--obs-shape", default=None, metavar="30X|E")
+    ap.add_argument("--obs-instance", default=None, metavar="NAME")
     args = ap.parse_args()
 
     import torch
@@ -159,7 +182,8 @@ def main():
             paths.append((src, os.path.join(tmp, f"libv{i}.so")))
         with ThreadPoolExecutor(len(paths)) as ex:
             built = list(ex.map(lambda p: build(*p), paths))
-        ops = {d: operands(args.kernel, args.seed, dt)
+        ops = {d: operands(args.kernel, args.seed, dt, args.obs_shape,
+                           args.obs_instance)
                for d, dt in (("f32", torch.float32), ("f64", torch.float64))}
         stream = P(torch.cuda.current_stream().cuda_stream)
         bad = 0
@@ -176,7 +200,7 @@ def main():
                     entry.restype = ctypes.c_int
                     outs = [torch.empty_like(r) for r in refs]
                     call = lambda: entry(*(P(x.data_ptr())
-                                           for x in ins + outs),
+                                           for x in [*ins, *outs]),
                                          *[None] * nulls, *ints, stream)
                     if call() != 0:
                         raise SystemExit(f"sweep_constants: {values} {d} "
