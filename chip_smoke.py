@@ -33,18 +33,23 @@ non-zero, nothing runs on the CPU instead):
                 four band rows a thread; forward with steps, backward
                 without) within the same tolerances, the group scorer on
                 a Mutate call's groups at scoring width 600 (Ws = 1201),
-                and the geometry at 256 levels past its staged cap and at
-                twice the cap (the instance that reads the row from device
-                memory), equal; past the register-held scan, on a 240 b
+                equal; past the register-held scan, on a 240 b
                 region at 8X, the fill at realign widths 2048 and 4096 (W =
                 4097 and 8193) on 8 event rows in both of its instances
                 there (the cluster instance, 5 and 9 CTAs an event in a
                 thread-block cluster, and the wide one, its column in
                 shared memory or a device scratch), the group scorer at
-                scoring width 2048 (Ws = 4097) on 60 mutations' groups,
-                equal; each timed in f32 (event and queued ms) under the
-                kernel's "wide" key, the fill's two instances in turns at 8
-                and at 128 event rows (the 8 repeated; timed only); and the
+                scoring widths 2048 and 4096 (Ws = 4097 and 8193) on 60
+                mutations' groups in both of its instances there (the
+                cluster instance, 2 and 4 CTAs a pair and an extra row, and
+                the wide one; equal to each other bit for bit), and the
+                geometry's cluster and memory instances at 256 levels past
+                its staged cap and twice it, and the memory one past the
+                cluster's capacity, equal; each timed in f32 (event and
+                queued ms) under the kernel's "wide" key, the fill's,
+                scorer's and geometry's two instances in turns (the fill
+                at 8 and at 128 event rows, the 8 repeated; timed only);
+                and the
                 observations past the tiled instance's cap of 32 events at
                 E = 60, 64, 65, 100, 257, 1024 and 8193 (OBS_SHAPES: rows
                 of every, some, 2, 1 and 0 valid events, ties, a stdv of
@@ -130,7 +135,8 @@ non-zero, nothing runs on the CPU instead):
                 first polished region alone (its second: the first has 2
                 reads, under the pipeline's 5; cut: 1 of 8) at 2048/2048/20
                 (W = Ws = 4097), -i 4 --region-batch 1: the fill's cluster
-                instance and the scorer's wide one launched (counted by
+                instance and the scorer's routed one (group_instance: the
+                cluster instance) launched (counted and printed by
                 instance),
                 accuracy no more than 0.5 points below the region's in
                 phase 3, its largest fills (8 event rows) and Ws = 4097
@@ -189,6 +195,7 @@ exceeds the kernel's (event times then read the host's pace).
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import functools
 import io
@@ -619,27 +626,42 @@ def _twin_totals(args):
     return torch.cat(out)
 
 
-def hold_mutscore(args, where: str, timing: dict | None = None) -> float:
-    """One group-scorer launch (group_totals_cuda's arguments) against its
-    plain twin on every group: totals equal (f64) or within 3e-3 + 2e-4 |x|
-    (f32), and no accept-sign flip.  Returns the max |diff|; timing: gets
-    the twin's wall (ms, one call closed by a synchronize) under
-    "plain_ms"."""
+def hold_mutscore(args, where: str, timing: dict | None = None,
+                  instance: str | None = None,
+                  cache: dict | None = None) -> float:
+    """One group-scorer launch (group_totals_cuda's arguments; instance: the
+    one named, else the route's) against its plain twin on every group:
+    totals equal (f64) or within 3e-3 + 2e-4 |x| (f32), and no accept-sign
+    flip.  Returns the max |diff|; timing: gets the twin's wall (ms, one
+    call closed by a synchronize) under "plain_ms"; cache: keeps the twin's
+    totals and the first held instance's deltas, and a later instance's
+    deltas and totals must equal those bit for bit."""
     import torch
 
     from poreseq_tpu_torch.engine.mutscore import group_totals_cuda
 
     f64 = args[1].dtype == torch.float64
-    tot_k, _ = group_totals_cuda(*args)
+    what = (f"{where} mutscore{f' ({instance})' if instance else ''} "
+            f"K={args[18]} D={args[20]} (f64={f64})")
+    tot_k, d_k = group_totals_cuda(*args, instance=instance)
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    tot_r = _twin_totals(args)
-    torch.cuda.synchronize()
-    if timing is not None:
-        timing["plain_ms"] = (time.perf_counter() - t0) * 1e3
+    cache = {} if cache is None else cache
+    if "deltas" in cache:
+        if not (torch.equal(d_k, cache["deltas"][1])
+                and torch.equal(tot_k, cache["totals"])):
+            fail(f"{what}: deltas differ from the {cache['deltas'][0]} "
+                 "instance's " + _differs("deltas", d_k, cache["deltas"][1]))
+    else:
+        cache.update(deltas=(instance, d_k), totals=tot_k)
+    tot_r = cache.get("twin")
+    if tot_r is None:
+        t0 = time.perf_counter()
+        tot_r = cache["twin"] = _twin_totals(args)
+        torch.cuda.synchronize()
+        if timing is not None:
+            timing["plain_ms"] = (time.perf_counter() - t0) * 1e3
     d = (tot_k - tot_r).abs()
     bound = 0.0 if f64 else 3e-3 + 2e-4 * tot_r.abs()
-    what = f"{where} mutscore K={args[18]} D={args[20]} (f64={f64})"
     if not bool((d <= bound).all()):
         fail(f"{what}: max |diff| {d.max().item()}")
     valid = args[13]["s_valid"].bool()
@@ -969,8 +991,21 @@ SCAN_WIDE_ROWS, SCAN_WIDE_MUTS = 8, 60
 # twin and timed at each SCAN_WIDE_FILL width: the cluster instance and the
 # wide (memory) one; timed also on SCAN_TIMED_ROWS event rows (the held 8
 # rows 16 times: every SM busy for either instance), not held there
-FILL_PAST_REGISTERS = ("cluster", "wide")
+FILL_PAST_REGISTERS = SCORER_PAST_REGISTERS = ("cluster", "wide")
 SCAN_TIMED_ROWS = 128
+# ... and so does the group scorer, at scoring widths SCAN_WIDE_SCORING (Ws =
+# 4097 and 8193, each on the small region's groups at realign width = the
+# scoring width): both instances held to the twin (and to each other bit for
+# bit), then timed in turns
+SCAN_WIDE_SCORING = (2048, 4096)
+# ... and the geometry past its staged cap: at GEOM_MAX_LEVELS + 256 and
+# twice it the cluster instance (the route's) and the memory one, held and
+# timed in turns; past the cluster's capacity (GEOM_CLUSTER_MAX slices + 256
+# levels) the memory instance, the route's there
+GEOM_PAST_CAP = (("cluster", "memory"), ("cluster", "memory"), ("memory",))
+# the launches a turn of those (each instance timed twice, in turns; 10
+# where the other timings take 20, for the smoke's time limit)
+TURN_REPS = 10
 OBS_WIDE_EVENTS, OBS_WIDE_ROWS = 8193, 8
 # the observations past the tiled instance's cap of 32 events: E_pad: (B, R)
 # of phase 2's holds and timings (the cap 64's edges, the chunked
@@ -1055,8 +1090,10 @@ def check_wide(engine, seed: int, f64: bool, report: dict):
     import torch
 
     from poreseq_tpu_torch.engine.fill import FILL, fill_cuda
-    from poreseq_tpu_torch.engine.mutscore import (GEOM_MAX_LEVELS, MUTSCORE,
-                                                   geom_cuda, geom_reference,
+    from poreseq_tpu_torch.engine.mutscore import (GEOM, GEOM_CLUSTER_MAX,
+                                                   GEOM_MAX_LEVELS, MUTSCORE,
+                                                   geom_cuda, geom_instance,
+                                                   geom_reference,
                                                    group_launches,
                                                    group_totals_cuda)
     from poreseq_tpu_torch.engine.roofline import (fill_work, geom_work,
@@ -1114,51 +1151,76 @@ def check_wide(engine, seed: int, f64: bool, report: dict):
                     runs[name if name not in runs else f"{name} (2)"] = d
 
     datas, mlists = _mut_regions(seed, WIDE_WIDTHS)["mutate"]
-    data = _session(seed, SCAN_WIDE_WIDTHS["realign_width"],
-                    scoring_width=SCAN_WIDE_WIDTHS["scoring_width"], **small)
+    calls = [(WIDE_WIDTHS, datas, mlists, (None,))]
+    for sw in SCAN_WIDE_SCORING:
+        data = _session(seed, sw, scoring_width=sw, **small)
+        calls.append((dict(SCAN_WIDE_WIDTHS, realign_width=sw,
+                           scoring_width=sw), [data], [_random_mutations(
+                               data.sequence, np.random.default_rng(seed + 2),
+                               SCAN_WIDE_MUTS)], SCORER_PAST_REGISTERS))
     n_groups = {}
-    for widths, (ds, ms) in ((WIDE_WIDTHS, (datas, mlists)),
-                             (SCAN_WIDE_WIDTHS, ([data], [
-                                 _random_mutations(
-                                     data.sequence,
-                                     np.random.default_rng(seed + 2),
-                                     SCAN_WIDE_MUTS)]))):
+    for widths, ds, ms, insts in calls:
         Ws = 2 * widths["scoring_width"] + 1
         n_groups[Ws] = 0
         for gp, _, args in group_launches(engine, ds, ms, [True] * len(ds)):
             if args[16] != Ws:
                 fail(f"kernels wide: a Mutate launch at Ws={args[16]}")
-            if widths is SCAN_WIDE_WIDTHS:     # the real groups only
+            if insts != (None,):            # the real groups only
                 args = _groups(args, gp["G"])
             n_groups[Ws] += gp["G"]
-            twin = {}
-            errs["mutscore"] = max(errs["mutscore"],
-                                   hold_mutscore(args, "kernels wide", twin))
-            if not f64:
-                wide["mutscore"].setdefault(f"Ws={Ws}", []).append(
-                    time_it(lambda: group_totals_cuda(*args),
-                            group_work(*args), G=gp["G"],
-                            C=args[1].shape[0], E=args[1].shape[1], **twin))
+            twin, cache = {}, {}
+            for inst in insts:              # the twin called once
+                errs["mutscore"] = max(errs["mutscore"], hold_mutscore(
+                    args, "kernels wide", twin, inst, cache))
+            del cache
+            if f64:
+                continue
+            shape = dict(G=gp["G"], C=args[1].shape[0], E=args[1].shape[1])
+            # past the register-held scan the two instances in turns
+            for inst in insts + insts[::-1] if insts != (None,) else insts:
+                wide["mutscore"].setdefault(
+                    f"Ws={Ws}" + (f" {inst}" if inst else ""), []).append(
+                    time_it(lambda: group_totals_cuda(*args, instance=inst),
+                            group_work(*args),
+                            reps=20 if inst is None else TURN_REPS, **shape,
+                            **twin))
 
     ran = {k.name: dict(k.instances - n0[k]) for k in n0}
     if not (ran["fill"].get("wide") and ran["fill"].get("cluster")
-            and ran["mutscore"].get("wide")):
+            and ran["mutscore"].get("wide") and ran["mutscore"].get("cluster")):
         fail(f"kernels wide: the new instances did not all run: {ran}")
 
     cap = GEOM_MAX_LEVELS[dt]
-    for T in (cap + 256, 2 * cap):
+    g0 = GEOM.instances.copy()
+    geom_T = (cap + 256, 2 * cap, GEOM_CLUSTER_MAX * cap + 256)
+    for T, insts in zip(geom_T, GEOM_PAST_CAP):
         ral, n0, S_e = _long_rows(np.random.default_rng(seed + T), 8, T)
         t = lambda x: torch.as_tensor(x, device="cuda")
         args = (t(ral).to(dt), t(n0), t(S_e), WIDE_WIDTHS["scoring_width"],
                 T)
-        for a, b in zip(geom_cuda(*args), geom_reference(*args)):
-            if not torch.equal(a, b):
-                fail(f"kernels wide geom T={T} (f64={f64}) "
-                     + _differs("geom", a, b))
-        if not f64:
-            wide["geom"][f"T={T}"] = time_it(
-                lambda: geom_cuda(*args), geom_work(args[0], args[1], T),
-                E=ral.shape[0], C=T)
+        route = geom_instance(T, int((n0 > 0).sum()), dt)
+        if route[0] != insts[0]:
+            fail(f"kernels wide geom T={T}: the route gives {route}")
+        t0g = time.perf_counter()
+        ref = geom_reference(*args)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0g) * 1e3
+        named = {n: route if n == route[0] else (n, 0) for n in insts}
+        for n, inst in named.items():
+            for a, b in zip(geom_cuda(*args, instance=inst), ref):
+                if not torch.equal(a, b):
+                    fail(f"kernels wide geom {inst} T={T} (f64={f64}) "
+                         + _differs("geom", a, b))
+        if f64:
+            continue
+        for n in insts + insts[::-1] if len(insts) > 1 else insts:
+            wide["geom"].setdefault(f"T={T} {n}", []).append(time_it(
+                lambda: geom_cuda(*args, instance=named[n]),
+                geom_work(args[0], args[1], T), reps=TURN_REPS,
+                E=ral.shape[0], C=T, ctas=named[n][1], plain_ms=plain_ms))
+    ran["geom"] = dict(GEOM.instances - g0)
+    if set(ran["geom"]) != {"cluster", "memory"}:
+        fail(f"kernels wide geom: launches by instance {ran['geom']}")
     for k, err in errs.items():
         # in f64 the fill's line comes after the pool's holds (phase_kernels)
         line = report.setdefault((k, f64), dict(max_abs_err=0.0))
@@ -1173,17 +1235,18 @@ def check_wide(engine, seed: int, f64: bool, report: dict):
           f"steps and backward held to the twin (past 4095 rows the "
           f"{' and '.join(FILL_PAST_REGISTERS)} instances; max |diff| "
           f"{errs['fill']:.3e}); mutscore on {n_groups} groups (by Ws) of "
-          f"{len(datas)} regions and one region held (max |diff| "
-          f"{errs['mutscore']:.3e}); geom T={cap + 256} and {2 * cap} equal "
-          f"the twin; launches by instance {ran}; "
-          f"{time.perf_counter() - t0:.1f} s"
+          f"{len(datas)} regions and one region a width held (past 4095 "
+          f"rows the {' and '.join(SCORER_PAST_REGISTERS)} instances, equal "
+          f"bit for bit; max |diff| {errs['mutscore']:.3e}); geom T="
+          f"{list(geom_T)} equal the twin ({GEOM_PAST_CAP} there); launches "
+          f"by instance {ran}; {time.perf_counter() - t0:.1f} s"
           + ("".join(f"; fill {w} {n} {fmt(d)}"
                      for w, runs in wide["fill"].items()
                      for n, d in runs.items())
              + "".join(f"; mutscore {w} G={d['G']} {fmt(d)}"
                        for w, runs in wide["mutscore"].items() for d in runs)
-             + "".join(f"; geom {w} {fmt(d)}"
-                       for w, d in wide["geom"].items())
+             + "".join(f"; geom {w} ctas {d['ctas']} {fmt(d)}"
+                       for w, runs in wide["geom"].items() for d in runs)
              + f" | {gpu_line()}" if not f64 else ""), flush=True)
 
 
@@ -1317,11 +1380,18 @@ VITERBI_KERNELS = ("viterbi_obs", "viterbi_sweep", "viterbi_sample",
                    "viterbi_gumbel")
 
 
+# each kernel's launches by instance over the whole run (the kernels line),
+# kept before a phase's counts are reset
+INSTANCES_RUN: dict = {}
+
+
 def _reset_launches():
     import torch
 
     torch.cuda.synchronize()
     for k in _kernels():
+        INSTANCES_RUN.setdefault(k.name, collections.Counter()).update(
+            k.instances)
         k.launches = 0
         k.instances.clear()
 
@@ -1416,7 +1486,12 @@ def largest_launches(by_width: bool = False, every: bool = False):
                 last["batch"] = b.arguments["batch"]
             if size > sizes.get(key, 0):
                 t0 = time.perf_counter()
-                kept[key] = _copied(tuple(b.arguments.values()), to)
+                # the scorer's operands without its instance (the route's
+                # at any replay): group_deltas_reference's arguments
+                kept[key] = _copied(tuple(
+                    v for k, v in b.arguments.items()
+                    if not (k == "instance" and key.startswith("mutscore"))),
+                    to)
                 sizes[key] = size
                 if key in ("backtrace", "windows"):
                     kept[f"{key} batch"] = _copied(
@@ -2499,8 +2574,9 @@ def _scan_wide_run(seed: int, e2e: dict):
     """Phase 9's second run (SCAN_WIDE_CONF): phase 3's first polished
     region alone through the CLI at W = Ws = 4097; it must launch the
     fill's instance there (fill_instance: the cluster instance) and the
-    group scorer's wide one and come within 0.5 points of that region's
-    accuracy in phase 3.  Its largest forward and backward fill
+    group scorer's (group_instance at its largest launch) and come within
+    0.5 points of that region's accuracy in phase 3; its launches by
+    instance are printed.  Its largest forward and backward fill
     (the first SCAN_HOLD_ROWS active rows) and its largest Ws = 4097 scorer
     launch (the first HOLD_GROUPS groups) are held to the twins and timed.
     Returns (launches, {held key: timing})."""
@@ -2508,7 +2584,8 @@ def _scan_wide_run(seed: int, e2e: dict):
 
     from poreseq_tpu_torch import cli
     from poreseq_tpu_torch.engine.fill import FILL, fill_cuda, fill_instance
-    from poreseq_tpu_torch.engine.mutscore import MUTSCORE, group_totals_cuda
+    from poreseq_tpu_torch.engine.mutscore import (MUTSCORE, group_instance,
+                                                   group_totals_cuda)
     from poreseq_tpu_torch.engine.roofline import fill_work, group_work
     from poreseq_tpu_torch.io.fasta import read_fasta
 
@@ -2582,11 +2659,12 @@ def _scan_wide_run(seed: int, e2e: dict):
           f"{gpu_line()}", flush=True)
     routed = {fill_instance(W, kept[k][1].shape[1], torch.float32)
               for k in ("fill fwd", "fill bwd")}
+    scorer = group_instance(W, G * x[21], torch.float32)
     if not (all(instances["fill"].get(r) for r in routed)
-            and instances["mutscore"].get("wide")):
+            and instances["mutscore"].get(scorer)):
         fail(f"wide W={W}: the fill's instances past the register-held scan "
-             f"({routed}) or the scorer's wide one were not launched: "
-             f"{instances}")
+             f"({routed}) or the scorer's ({scorer}, its largest launch's "
+             f"route) were not launched: {instances}")
     if acc < acc3 - 0.5:
         fail(f"wide W={W}: accuracy {acc:.3f}% more than 0.5 points below "
              f"phase 3's {acc3:.3f}%")
@@ -2634,8 +2712,7 @@ def path_shapes():
     import threading
 
     from poreseq_tpu_torch.engine import TorchEngine, fill, mutscore
-    from poreseq_tpu_torch.engine.fill import (fill_instance, instance_name,
-                                               rows_per_thread)
+    from poreseq_tpu_torch.engine.fill import fill_instance
     from poreseq_tpu_torch.io import load
 
     out = dict(loaded=0, trimmed=0, levels=0, C=0, E=0, T=0, fill=set(),
@@ -2676,8 +2753,10 @@ def path_shapes():
 
     def geom_instance(a):
         T = a["ral"].shape[1]
-        cap = mutscore.GEOM_MAX_LEVELS[a["ral"].dtype]
-        return f"{'staged' if T <= cap else 'unstaged'} (T {T}, cap {cap})"
+        name, ctas = a.get("instance") or mutscore.geom_instance(
+            T, int((a["n0"] > 0).sum()), a["ral"].dtype)
+        return (f"{name}{f' of {ctas} CTAs' if ctas else ''} (T {T}, cap "
+                f"{mutscore.GEOM_MAX_LEVELS[a['ral'].dtype]})")
 
     load._set_trim_hint = hint
     TorchEngine._prepare_multi, TorchEngine.score_alignments_multi = (prep,
@@ -2689,7 +2768,9 @@ def path_shapes():
     fill.fill_cuda = instance(real["fill"], "fill", lambda a: (
         f"W={a['W']} ({fill_name(a)})"))
     mutscore.group_totals_cuda = instance(real["scorer"], "scorer", lambda a: (
-        f"Ws={a['Ws']} ({instance_name(rows_per_thread(a['Ws']))})"))
+        f"Ws={a['Ws']} ({a.get('instance') or mutscore.group_instance(
+            a['Ws'], a['gp']['g_start'].shape[0] * a['E_g'],
+            a['Mf'].dtype)})"))
     mutscore.geom_cuda = instance(real["geom"], "geom", geom_instance)
     try:
         yield out
@@ -3156,6 +3237,8 @@ def main():
             max_abs_err=max(line["max_abs_err"],
                             report[(k.name, True)]["max_abs_err"]),
             library_ms=None, library_note=LIBRARY_NOTE[k.name],
+            instances=dict(INSTANCES_RUN.get(k.name, collections.Counter())
+                           + k.instances),
             **{key: v for key, v in line.items() if key != "max_abs_err"},
             held_launches={p: {hk: v for hk, v in t.items()
                                if k.name in held_keys

@@ -25,8 +25,8 @@
 // L2/DRAM per slot.  The design gives every (group, event row) its own block
 // of ceil32(Ws) threads (tens of thousands of blocks fill the card; past
 // 1024 window rows a thread holds RPT = 2 or 4 adjacent rows, so
-// ceil32(Ws / RPT) threads; past 4095 rows group_wide_kernel, below, keeps
-// the step's column in memory), keeps
+// ceil32(Ws / RPT) threads; past 4095 rows the cluster instance, next, or
+// group_wide_kernel, below, which keeps the step's column in memory), keeps
 // the carried column and the selected column in shared memory, precomputes
 // the band anchor each step shifts from, and lets a slot stop at its last
 // active step.  A step runs the warp-shuffle scan of common.cuh:mp_scan
@@ -38,8 +38,45 @@
 // warp 0 scans the tails.  Rows of other regions and invalid slots exit at
 // once.  Shared memory per block: (3Ws + 6*32 + 64) T + K int; registers
 // (nvcc -Xptxas -v, sm_90a, held to 64 by the 1024-thread launch bound):
-// f32 spills 28 bytes at one and two rows a thread and 160 at four, f64
-// 192, 300 and 1,204.
+// f32 spills 28 and 36 bytes at one and two rows a thread and 164 at
+// four, f64 184, 312 and 1,216.
+//
+// The cluster instance (CL, windows past RPT_ROWS rows up to GCL_MAX CTAs;
+// engine/mutscore.py group_instance): past 4095 rows one block no longer
+// holds the window in registers, so a (group, event row) pair takes a
+// thread-block cluster of ceil((Ws - 1) / SPAN) CTAs, CTA k holding window
+// rows [k SPAN, (k + 1) SPAN) at GCL_RPT rows a thread of GCL_THREADS
+// (SPAN = GCL_THREADS GCL_RPT, chosen by tools/sweep_constants.py
+// mutscore).  Ws = 2 width + 1 is odd, so at a power-of-two width the
+// window is n SPAN + 1 rows: its last row is a destination of one level-0
+// down-sweep combine only, from the row below, and the last CTA's last
+// thread takes it as an extra row (the cluster scans n SPAN rows and that
+// thread combines the last after), rather than a CTA for one row.  Each
+// cell is computed by the same code as above; what crosses CTAs goes
+// through distributed shared memory:
+//  - the scan (common.cuh:mp_scan_cluster, the fill's): each CTA's levels
+//    below SPAN, its total to the higher ranks, one cluster barrier, the
+//    levels above in every CTA's warp 0: the tree's combines, bit-equal;
+//  - the seams: a step reads the carried column at rows w + d and w + d -
+//    1 (d in [0, DMAX]), so each CTA keeps its rows of it with a halo of
+//    the row below and the DMAX rows above, which the neighbours write
+//    into it when they write their own rows (after the scan's cluster
+//    barrier, which every read of the step before has passed); a second
+//    cluster barrier a step, split (arrived at once the rows are sent,
+//    waited on before the next step reads them), makes them visible;
+//  - the column maxima: max is exact in any order, so each thread keeps
+//    the running max of its rows' column maxima over the steps and its
+//    value at k_star; the CTA's max of those is its part of sbest;
+//  - the joins: each CTA takes the old and new scores' maxima over its
+//    rows (the last CTA also the realign rows past the window) and sends
+//    them to rank 0, which takes the maxima and writes the deltas after
+//    the pair's last cluster barrier.
+// A step costs two block and two cluster barriers where the wide instance
+// has 2 log2 Ws + 2 block barriers.  The anchors are computed by every CTA
+// (the same values).  Shared memory per CTA: (3 SPAN + 2 + DMAX + 1 + 6*32
+// + 64 + 6*32 + 2 + (1 + P) GCL_MAX) T + K int, 27,088 bytes in f32 at
+// SPAN 2048, P = 9, K = 7; registers (sm_90a, GCL_THREADS 512, GCL_RPT 4)
+// 128 in f32, no spill, and 128 in f64, 288 bytes spilled.
 //
 // Built with --fmad=false so the kernel evaluates the twin's expression
 // tree without fused multiply-adds.
@@ -67,7 +104,8 @@ struct MutArgs {
   int C1, E, W, Ws, Q1, RS, K, P, DM, E_g, G;
   double lik_offset;
   int rpt;                              // window rows a thread: 1, 2 or 4;
-                                        // 0: group_wide_kernel
+                                        // 0: group_wide_kernel;
+                                        // RPT_CLUSTER: the cluster instance
   void* scratch;                        // [blocks, WIDE_ARRAYS, Ws] the wide
                                         // instance's arrays, or null: in
   int scratch_blocks;                   // shared memory (blocks a grid)
@@ -79,9 +117,25 @@ constexpr int RPT_ROWS = 4095;
 // the wide instance's arrays of Ws values: the carried and the selected
 // columns (M, S) and the six scan rows
 constexpr int WIDE_ARRAYS = 9;
+// the cluster instance (MutArgs.rpt RPT_CLUSTER; engine/mutscore.py
+// group_instance): GCL_THREADS threads of GCL_RPT window rows a CTA, so a
+// CTA spans GCL_THREADS * GCL_RPT rows (a power of two), and at most
+// GCL_MAX CTAs a cluster (past 8 the card's non-portable sizes)
+// (tools/sweep_constants.py, PERF.md §6)
+constexpr int RPT_CLUSTER = -1;
+constexpr int GCL_THREADS = 512;
+constexpr int GCL_RPT = 4;
+constexpr int GCL_MAX = 16;
 
 __device__ __forceinline__ int clampi(int x, int lo, int hi) {
   return min(max(x, lo), hi);
+}
+
+// the cluster instance's CTAs at window width Ws, SPAN rows a CTA:
+// ceil((Ws - 1) / SPAN), where Ws = n SPAN + 1 leaves its last row to the
+// last CTA's last thread
+__host__ __device__ constexpr unsigned group_ctas(int Ws, int span) {
+  return Ws < 2 ? 1u : (unsigned)((Ws - 2 + span) / span);
 }
 
 // a refill step's band and mutated state
@@ -95,6 +149,7 @@ template <typename T, int RPT>
 struct StepData {
   T m[6];
   T w[RPT][3];
+  T x[3];       // the cluster instance's extra row (its thread only)
 };
 
 // The parts of a (group, event row) pair's score that both instances of
@@ -123,10 +178,14 @@ __device__ __forceinline__ void group_anchors(const MutArgs& a, int g,
 }
 
 // old score: lag-0 join of the unmutated lattices at max(start-3, 1)
+// (rows rr0 <= rr < rr1 of the column only, where given: the cluster
+// instance's CTAs each take a part and reduce the maxima over the cluster,
+// max(max(max(m, 0), x), y) being a max of all its terms)
 template <typename T>
 __device__ __forceinline__ T old_score(const MutArgs& a, int e, int start,
                                        int sS, int n0e, const int* i0f_e,
-                                       T* red) {
+                                       T* red, int rr0 = 0,
+                                       int rr1 = INT_MAX) {
   const int E = a.E, W = a.W, C1 = a.C1;
   const T* Mf = static_cast<const T*>(a.Mf);
   const T* Sf = static_cast<const T*>(a.Sf);
@@ -136,7 +195,7 @@ __device__ __forceinline__ T old_score(const MutArgs& a, int e, int start,
   const size_t base = ((size_t)clampi(q_old, 0, C1 - 1) * E + e) * W;
   const int fao = i0f_e[clampi(q_old, 0, C1 - 1)];
   T m = T(0);
-  for (int rr = threadIdx.x; rr < W; rr += blockDim.x) {
+  for (int rr = rr0 + threadIdx.x; rr < min(W, rr1); rr += blockDim.x) {
     const int ii = fao + rr;
     if (ii >= 1 && ii <= n0e)
       m = mx(m, mx(Mf[base + rr] + Mb[base + rr],
@@ -158,7 +217,8 @@ __device__ __forceinline__ T new_score(const MutArgs& a, int e, int sS,
                                        int refind_used, bool use_sel, int sa,
                                        T sbest, const T* selM, const T* selS,
                                        int wi0, T wbest, const T* Mw,
-                                       const T* Sw, T* red) {
+                                       const T* Sw, T* red, int rr0 = 0,
+                                       int rr1 = INT_MAX) {
   const int E = a.E, W = a.W, Ws = a.Ws, C1 = a.C1;
   const T* Mb = static_cast<const T*>(a.Mb);
   const T* Sb = static_cast<const T*>(a.Sb);
@@ -175,7 +235,7 @@ __device__ __forceinline__ T new_score(const MutArgs& a, int e, int sS,
   const bool inr = use_sel ? (s >= JMIN && s <= JMAX)
                            : (s >= CMIN && s <= CMAX);
   T m = T(0);
-  for (int rr = threadIdx.x; rr < W; rr += blockDim.x) {
+  for (int rr = rr0 + threadIdx.x; rr < min(W, rr1); rr += blockDim.x) {
     const T FM = use_sel ? (rr < Ws ? selM[rr] : T(0)) : Mw[rr];
     const T FS = use_sel ? (rr < Ws ? selS[rr] : T(0)) : Sw[rr];
     if (fa + rr >= 1 && fa + rr <= n0e) {
@@ -191,32 +251,56 @@ __device__ __forceinline__ T new_score(const MutArgs& a, int e, int sS,
 }
 
 // RPT: window rows a thread (1 for Ws <= 1024, 2 up to 2048, 4 up to
-// 4095), adjacent scan positions (common.cuh:mp_scan)
-template <typename T, int RPT>
-__global__ void __launch_bounds__(1024) group_kernel(MutArgs a) {
+// 4095), adjacent scan positions (common.cuh:mp_scan).  CL: the cluster
+// instance, GCL_THREADS threads of RPT = GCL_RPT rows a CTA.
+template <typename T, int RPT, bool CL = false>
+__global__ void __launch_bounds__(CL ? GCL_THREADS : 1024)
+    group_kernel(MutArgs a) {
+  constexpr int SPAN = GCL_THREADS * RPT;      // CL: window rows a CTA
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int Ws = a.Ws, W = a.W, P = a.P, K = a.K, E = a.E, C1 = a.C1;
+  // CL: CTA `rank` of `ncta` holds window rows [base, base + SPAN) and keeps
+  // the carried column's rows base - 1 .. base + SPAN + DMAX - 1 (the row
+  // below and the DMAX rows above are its neighbours', which they send),
+  // row w at Mc[w + ro]; its selected column's row w at selM[w - base].
+  // Where Ws = ncta SPAN + 1 the last row is the extra row of the last
+  // CTA's last thread (xrow): a destination of one level-0 down-sweep
+  // combine only, from the row below, so the cluster scans ncta SPAN rows
+  // and that thread combines it after (no CTA for one row)
+  const unsigned ncta = CL ? group_ctas(Ws, SPAN) : 1;
+  const unsigned rank = CL ? cluster_rank() : 0;
+  const int base = CL ? rank * SPAN : 0, ro = CL ? 1 - base : 0;
+  const int nscan = CL ? min(Ws, (int)ncta * SPAN) : Ws;
+  const bool xrow = CL && nscan < Ws && rank + 1 == ncta &&
+                    (int)threadIdx.x + 1 == (int)blockDim.x;
+  const int xw = Ws - 1;                      // xrow: its window row
+  const int mcn = CL ? SPAN + DMAX + 1 : Ws, sn = CL ? SPAN + 1 : Ws;
   T* Mc = reinterpret_cast<T*>(smem_raw);     // carried refill column
-  T* selM = Mc + Ws;                          // selected column (k_star)
-  T* selS = selM + Ws;
-  T* tails = selS + Ws;                       // [6][32] mp_scan's
+  T* selM = Mc + mcn;                         // selected column (k_star)
+  T* selS = selM + sn;
+  T* tails = selS + sn;                       // [6][32] mp_scan's
   T* red_s = tails + 6 * 32;                  // [32] step column max
   T* red_j = red_s + 32;                      // [32] joins
-  int* cik = reinterpret_cast<int*>(red_j + 32);   // [K] anchor per step
+  T* tops = red_j + 32;     // CL: [6][32] lower ranks' totals
+  T* pref = tops + 6 * 32;  // CL: [2] the previous CTA's last final u
+  T* cl_j = pref + 2;       // CL, rank 0: [(1 + P) GCL_MAX] the CTAs' joins
+  int* cik = reinterpret_cast<int*>(CL ? cl_j + (1 + P) * GCL_MAX
+                                       : red_j + 32);   // [K] anchor per step
 
-  const int g = blockIdx.x / a.E_g, el = blockIdx.x % a.E_g;
+  const int pair = CL ? blockIdx.x / ncta : blockIdx.x;
+  const int g = pair / a.E_g, el = pair % a.E_g;
   const int r = threadIdx.x, nt = blockDim.x;
   const int lane = r & 31, warp = r >> 5, nw = nt >> 5;
-  // the thread's window rows r RPT + j
+  // the thread's window rows base + r RPT + j
   int wr[RPT];
 #pragma unroll
-  for (int j = 0; j < RPT; ++j) wr[j] = r * RPT + j;
+  for (int j = 0; j < RPT; ++j) wr[j] = base + r * RPT + j;
   T* out = static_cast<T*>(a.deltas) + (size_t)g * P * a.E_g + el;
   const int greg = a.g_region[g];
   const int e = clampi(a.g_evoff[g], 0, E - a.E_g) + el;
   if (!(a.active[e] && a.ev_region[e] == greg)) {
-    if (r < P) out[(size_t)r * a.E_g] = T(0);
-    return;
+    if (r < P && rank == 0) out[(size_t)r * a.E_g] = T(0);
+    return;                     // CL: every CTA of the cluster
   }
 
   const T NB = neg_big<T>();
@@ -247,15 +331,29 @@ __global__ void __launch_bounds__(1024) group_kernel(MutArgs a) {
   const T* wsd = static_cast<const T*>(a.win[1]);
   const T* wl = static_cast<const T*>(a.win[2]);
   const int FSMIN = -64, FSMAX = a.RS + 64 + DMAX;
+  // CL: the joins' rows of this CTA: its window rows, and the last CTA the
+  // realign rows past them
+  const int rr0 = CL ? base : 0;
+  const int rr1 = CL && rank + 1 < ncta ? base + SPAN : INT_MAX;
+  // the carried column at window row w (0 outside [0, Ws))
+  auto mc_at = [&](int w) {
+    return w >= 0 && w < Ws ? Mc[w + ro] : T(0);
+  };
 
+  // CL: each CTA its own anchors (the same values)
   if (r == 0) group_anchors(a, g, startind, st0, wi0, i0r_e, cik);
-  const T old = old_score(a, e, start, sS, n0e, i0f_e, red_j);
+  const T old = old_score(a, e, start, sS, n0e, i0f_e, red_j, rr0, rr1);
+  if constexpr (CL) {           // every CTA of the cluster running before
+    cluster_arrive();           // any sends
+    cluster_wait();
+    if (r == 0) cluster_map(cl_j, 0)[rank] = old;
+  }
   __syncthreads();              // cik visible
 
   for (int p = 0; p < P; ++p) {
     const int gp = g * P + p;
     if (!a.s_valid[gp]) {       // delta masked to 0
-      if (r == 0) out[(size_t)p * a.E_g] = T(0);
+      if (r == 0 && rank == 0) out[(size_t)p * a.E_g] = T(0);
       continue;
     }
     const int mlen = a.s_mlen[gp], nst = a.s_nst[gp];
@@ -266,12 +364,22 @@ __global__ void __launch_bounds__(1024) group_kernel(MutArgs a) {
 #pragma unroll
     for (int j = 0; j < RPT; ++j)
       if (wr[j] < Ws) {
-        Mc[wr[j]] = T(0);
-        selM[wr[j]] = T(0);
-        selS[wr[j]] = T(0);
+        Mc[wr[j] + ro] = T(0);
+        selM[wr[j] - rr0] = T(0);
+        selS[wr[j] - rr0] = T(0);
       }
+    if (xrow) {
+      Mc[xw + ro] = T(0);
+      selM[xw - rr0] = T(0);
+      selS[xw - rr0] = T(0);
+    }
     int sa = wi0 + a.RS;
     T sbest = wbest, cbest = wbest;   // meaningful in warp 0
+    // CL: the thread's running max of its rows' live M over the steps, and
+    // its value at k_star (the CTA's maxima then the cluster's give sbest:
+    // a max in any order)
+    T tbest = wbest, tsb = wbest;
+    bool pending = false;       // CL: a cluster barrier arrived at
 
     // step k's band and state, and its emission operands (indices past
     // the last step are clamped; their values are never used)
@@ -294,6 +402,12 @@ __global__ void __launch_bounds__(1024) group_kernel(MutArgs a) {
         d.w[j][1] = wr[j] < Ws ? wsd[wi] : T(1);
         d.w[j][2] = wr[j] < Ws ? wl[wi] : T(0);
       }
+      if (xrow) {
+        const size_t wi = ((size_t)qw * E + e) * Ws + xw;
+        d.x[0] = wm[wi];
+        d.x[1] = wsd[wi];
+        d.x[2] = wl[wi];
+      }
       return d;
     };
     auto emit = [&](const StepData<T, RPT>& d, const Step& s,
@@ -306,9 +420,19 @@ __global__ void __launch_bounds__(1024) group_kernel(MutArgs a) {
         eo[j] = wr[j] < Ws && s.i0 + wr[j] <= s.i1 && s.st >= 0 ? em : T(0);
       }
     };
+    // xrow: the extra row's emission
+    auto emit_x = [&](const StepData<T, RPT>& d, const Step& s) {
+      const T em = emission<T>(d.x[0], d.x[1], d.x[2], d.m[0], d.m[1],
+                               d.m[2], d.m[3], d.m[4], d.m[5], off);
+      return s.i0 + xw <= s.i1 && s.st >= 0 ? em : T(0);
+    };
     Step cur = step(0), nxt = step(1);
-    T eo[RPT];
-    emit(load(0, cur), cur, eo);
+    T eo[RPT], xeo = T(0);
+    {
+      const StepData<T, RPT> d0 = load(0, cur);
+      emit(d0, cur, eo);
+      if (xrow) xeo = emit_x(d0, cur);
+    }
     __syncthreads();
 
     for (int k = 0; k < K; ++k) {
@@ -317,58 +441,76 @@ __global__ void __launch_bounds__(1024) group_kernel(MutArgs a) {
       // loads for the next two steps, in flight while this one is solved
       const Step after = step(k + 2);
       const StepData<T, RPT> dn = load(k + 1, nxt);
-      T eo_n[RPT];
-      auto next_emission = [&]() { emit(dn, nxt, eo_n); };
+      T eo_n[RPT], xeo_n = T(0);
+      auto next_emission = [&]() {
+        emit(dn, nxt, eo_n);
+        if (xrow) xeo_n = emit_x(dn, nxt);
+      };
+      if (CL && pending) {      // the neighbours' rows of Mc arrived
+        cluster_wait();
+        pending = false;
+      }
 
       const int i0c = cur.i0, i1c = cur.i1;
-      T pm_i[RPT], pm_im1[RPT];
-      int p0, p1;
-      if (k == 0) {
-        // wide copy of the forward column through the seam offset
-        const int s = i0c - wi0 - 1;
-        const bool inr = s >= FSMIN - 1 && s <= FSMAX;
-#pragma unroll
-        for (int j = 0; j < RPT; ++j) {
-          pm_im1[j] = inr ? at_or_zero(Mw, wr[j] + s, W) : T(0);
-          pm_i[j] = inr ? at_or_zero(Mw, wr[j] + s + 1, W) : T(0);
+      // the previous column at window rows w and w - 1 (pm_i, pm_im1):
+      // the forward column through the seam offset (k = 0, a wide copy)
+      // or the carried column shifted by d in [0, DMAX], else zeros
+      const int s0 = i0c - wi0 - 1;
+      const bool inr = s0 >= FSMIN - 1 && s0 <= FSMAX;
+      const int ci0 = k == 0 ? 0 : cik[k];
+      const int d = i0c - ci0;
+      const bool okd = d >= 0 && d <= DMAX;
+      auto prev = [&](int w, T& pi, T& pim1) {
+        if (k == 0) {
+          pim1 = inr ? at_or_zero(Mw, w + s0, W) : T(0);
+          pi = inr ? at_or_zero(Mw, w + s0 + 1, W) : T(0);
+        } else {
+          pi = okd ? mc_at(w + d) : T(0);
+          pim1 = okd ? mc_at(w + d - 1) : T(0);
         }
-        p0 = wi0;
-        p1 = wi1;
-      } else {
-        // narrow carry: shifts d in [0, DMAX] (and d-1), else zeros
-        const int ci0 = cik[k];
-        const int d = i0c - ci0;
-        const bool okd = d >= 0 && d <= DMAX;
-#pragma unroll
-        for (int j = 0; j < RPT; ++j) {
-          pm_i[j] = okd ? at_or_zero(Mc, wr[j] + d, Ws) : T(0);
-          pm_im1[j] = okd ? at_or_zero(Mc, wr[j] + d - 1, Ws) : T(0);
-        }
-        p0 = ci0;
-        p1 = ci0 + Ws - 1;
-      }
+      };
+      const int p0 = k == 0 ? wi0 : ci0;
+      const int p1 = k == 0 ? wi1 : ci0 + Ws - 1;
+      // a row's scan element from its previous-column values and emission
+      auto element = [&](int w, T pi, T pim1, T e_, T (&x)[6]) {
+        const int i = i0c + w;
+        const bool valid_i = i >= p0 && i <= p1;
+        const bool valid_ul = i > p0 && i <= p1;
+        const T skip_c = (valid_i ? pi : T(0)) + lsk;
+        const T match_c = (valid_ul ? pim1 : T(0)) + e_;
+        const T ignore_c = valid_ul ? pim1 + lin : T(0);
+        const T D = mx(mx(T(0), skip_c), mx(match_c, ignore_c));
+        const T a_stay = e_ + lst, a_ext = e_ + lex;
+        const bool cut = w == 0;
+        x[0] = cut ? NB : mx(lin, a_stay);
+        x[1] = cut ? NB : a_ext;
+        x[2] = cut ? NB : a_stay;
+        x[3] = cut ? NB : a_ext;
+        x[4] = D;
+        x[5] = cut ? NB : T(0);
+      };
       T v[RPT][6];
       bool live[RPT];
 #pragma unroll
       for (int j = 0; j < RPT; ++j) {
-        const int i = i0c + wr[j];
-        live[j] = wr[j] < Ws && i <= i1c && cur.st >= 0;
-        const bool valid_i = i >= p0 && i <= p1;
-        const bool valid_ul = i > p0 && i <= p1;
-        const T skip_c = (valid_i ? pm_i[j] : T(0)) + lsk;
-        const T match_c = (valid_ul ? pm_im1[j] : T(0)) + eo[j];
-        const T ignore_c = valid_ul ? pm_im1[j] + lin : T(0);
-        const T D = mx(mx(T(0), skip_c), mx(match_c, ignore_c));
-        const T a_stay = eo[j] + lst, a_ext = eo[j] + lex;
-        const bool cut = wr[j] == 0;
-        v[j][0] = cut ? NB : mx(lin, a_stay);
-        v[j][1] = cut ? NB : a_ext;
-        v[j][2] = cut ? NB : a_stay;
-        v[j][3] = cut ? NB : a_ext;
-        v[j][4] = D;
-        v[j][5] = cut ? NB : T(0);
+        T pi, pim1;
+        prev(wr[j], pi, pim1);
+        live[j] = wr[j] < Ws && i0c + wr[j] <= i1c && cur.st >= 0;
+        element(wr[j], pi, pim1, eo[j], v[j]);
       }
-      mp_scan<T, RPT>(v, tails, Ws, next_emission);
+      T vx[6];
+      bool live_x = false;
+      if (xrow) {
+        T pi, pim1;
+        prev(xw, pi, pim1);
+        live_x = i0c + xw <= i1c && cur.st >= 0;
+        element(xw, pi, pim1, xeo, vx);
+      }
+      if constexpr (CL)
+        mp_scan_cluster<T, RPT>(v, tails, tops, pref, nscan, base, rank,
+                                ncta, next_emission);
+      else
+        mp_scan<T, RPT>(v, tails, Ws, next_emission);
       T lmax = live[0] ? v[0][4] : NB;   // the thread's column max
 #pragma unroll
       for (int j = 0; j < RPT; ++j) {
@@ -376,30 +518,84 @@ __global__ void __launch_bounds__(1024) group_kernel(MutArgs a) {
         const T Sn = live[j] ? v[j][5] : T(0);
         if (j > 0) lmax = mx(lmax, live[j] ? Mn : NB);
         if (wr[j] < Ws) {
-          Mc[wr[j]] = Mn;       // its readers passed barrier A
-          if (k == k_star) { selM[wr[j]] = Mn; selS[wr[j]] = Sn; }
+          Mc[wr[j] + ro] = Mn;  // its readers passed barrier A
+          if (k == k_star) {
+            selM[wr[j] - rr0] = Mn;
+            selS[wr[j] - rr0] = Sn;
+          }
+          if constexpr (CL) {
+            // the row into the halo of the CTA below (its top DMAX rows'
+            // reads) or above (its first row's d - 1), whose readers
+            // passed the scan's cluster barrier
+            if (rank > 0 && wr[j] - base < DMAX)
+              cluster_map(Mc, rank - 1)[wr[j] - base + SPAN + 1] = Mn;
+            if (rank + 1 < ncta && wr[j] == base + SPAN - 1)
+              cluster_map(Mc, rank + 1)[0] = Mn;
+          }
         }
       }
-      const T wmax = warp_max(lmax);
-      if (lane == 0) red_s[warp] = wmax;
+      if (xrow) {
+        // the extra row: the tree's level-0 down-sweep combine from the
+        // row below, the thread's last position, final now
+        mp_combine_u(v[RPT - 1][4], v[RPT - 1][5], vx);
+        const T Mn = live_x ? vx[4] : T(0);
+        lmax = mx(lmax, live_x ? Mn : NB);
+        Mc[xw + ro] = Mn;
+        if (k == k_star) {
+          selM[xw - rr0] = Mn;
+          selS[xw - rr0] = live_x ? vx[5] : T(0);
+        }
+      }
       if (k == k_star) sa = i0c;
-      __syncthreads();          // Mc and the partial maxima visible
-      if (warp == 0) {
-        const T cmax = warp_max(lane < nw ? red_s[lane] : NB);
-        const T bestn = mx(cmax, cbest);
-        cbest = bestn;
-        if (k == k_star) sbest = bestn;
+      if constexpr (CL) {
+        tbest = mx(tbest, lmax);
+        if (k == k_star) tsb = tbest;
+        cluster_arrive();       // Mc and the halos; waited before the
+        pending = true;         // next step reads them
+      } else {
+        const T wmax = warp_max(lmax);
+        if (lane == 0) red_s[warp] = wmax;
+        __syncthreads();        // Mc and the partial maxima visible
+        if (warp == 0) {
+          const T cmax = warp_max(lane < nw ? red_s[lane] : NB);
+          const T bestn = mx(cmax, cbest);
+          cbest = bestn;
+          if (k == k_star) sbest = bestn;
+        }
       }
       cur = nxt;
       nxt = after;
 #pragma unroll
       for (int j = 0; j < RPT; ++j) eo[j] = eo_n[j];
+      xeo = xeo_n;
     }
 
+    if constexpr (CL) {
+      if (pending) cluster_wait();
+      sbest = block_max(tsb, red_s);   // the CTA's part, in warp 0
+    }
     const T newv = new_score(a, e, sS, n0e, i0f_e, nst, refind_used,
-                             k_star >= 0, sa, sbest, selM, selS, wi0, wbest,
-                             Mw, Sw, red_j);
-    if (r == 0) out[(size_t)p * a.E_g] = newv - old;
+                             k_star >= 0, sa, sbest, selM - rr0,
+                             selS - rr0, wi0, wbest, Mw, Sw, red_j, rr0,
+                             rr1);
+    if constexpr (CL) {
+      if (r == 0) cluster_map(cl_j, 0)[(1 + p) * GCL_MAX + rank] = newv;
+    } else {
+      if (r == 0) out[(size_t)p * a.E_g] = newv - old;
+    }
+  }
+  if constexpr (CL) {
+    // rank 0 takes the maxima of the CTAs' joins: every partial sent
+    cluster_arrive();
+    cluster_wait();
+    if (rank == 0 && r < P && a.s_valid[g * P + r]) {
+      T o = cl_j[0], nv = cl_j[(1 + r) * GCL_MAX];
+      for (unsigned c = 1; c < ncta; ++c) {
+        o = mx(o, cl_j[c]);
+        nv = mx(nv, cl_j[(1 + r) * GCL_MAX + c]);
+      }
+      out[(size_t)r * a.E_g] = nv - o;
+    }
   }
 }
 
@@ -624,18 +820,67 @@ static int launch_wide(const MutArgs* a, cudaStream_t st) {
   return (int)cudaGetLastError();
 }
 
-// the group kernel's instance of a->rpt window rows a thread
-// (engine/fill.py:rows_per_thread): Ws <= 1024 rpt up to RPT_ROWS; rpt 0,
-// the wide instance
+// the cluster instance: a cluster of group_ctas(Ws, GCL_THREADS GCL_RPT)
+// CTAs a (group, event row) pair (cudaLaunchKernelEx with a cluster dimension;
+// past 8 CTAs the card's non-portable sizes), refused
+// (cudaErrorLaunchOutOfResources) where the card cannot place one such
+// cluster; never another instance instead
+template <typename T>
+static int launch_cluster(const MutArgs* a, cudaStream_t st) {
+  constexpr int SPAN = GCL_THREADS * GCL_RPT;
+  const int n = (int)group_ctas(a->Ws, SPAN);
+  const size_t smem = (size_t)(3 * SPAN + 2 + DMAX + 1 + 6 * 32 + 64 +
+                               6 * 32 + 2 + (1 + a->P) * GCL_MAX) *
+                          sizeof(T) +
+                      (size_t)a->K * sizeof(int);
+  auto kern = group_kernel<T, GCL_RPT, true>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err == cudaSuccess && n > 8)
+    err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err != cudaSuccess) return (int)err;
+  const long long pairs = (long long)a->G * a->E_g;
+  if (pairs == 0) return 0;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = n;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(pairs * n));
+  cfg.blockDim = dim3(GCL_THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int placed = 0;
+  err = cudaOccupancyMaxActiveClusters(&placed, (void*)kern, &cfg);
+  if (err != cudaSuccess) return (int)err;
+  if (placed < 1) return (int)cudaErrorLaunchOutOfResources;
+  err = cudaLaunchKernelEx(&cfg, kern, *a);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// the group kernel's instance a->rpt names (engine/mutscore.py
+// group_instance): window rows a thread 1, 2 or 4 (Ws <= 1024 rpt <=
+// RPT_ROWS); 0, the wide instance (Ws > RPT_ROWS); RPT_CLUSTER, the cluster
+// instance (RPT_ROWS < Ws <= GCL_MAX CTAs of GCL_THREADS GCL_RPT rows)
 template <typename T>
 static int launch(const MutArgs* a, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (a->Ws < 1 ||
-      !(a->rpt == 0 || a->rpt == 1 || a->rpt == 2 || a->rpt == 4) ||
+      !(a->rpt == RPT_CLUSTER || a->rpt == 0 || a->rpt == 1 ||
+        a->rpt == 2 || a->rpt == 4) ||
       (a->rpt > 0 && a->Ws > 1024 * a->rpt) ||
-      (a->rpt == 0 && a->Ws <= RPT_ROWS))
+      (a->rpt <= 0 && a->Ws <= RPT_ROWS) ||
+      (a->rpt == RPT_CLUSTER &&
+       (group_ctas(a->Ws, GCL_THREADS * GCL_RPT) > (unsigned)GCL_MAX ||
+        a->P > 32)))
     return (int)cudaErrorInvalidValue;
-  const int err = a->rpt == 0   ? launch_wide<T>(a, st)
+  const int err = a->rpt == RPT_CLUSTER ? launch_cluster<T>(a, st)
+                  : a->rpt == 0   ? launch_wide<T>(a, st)
                   : a->rpt == 1 ? launch_groups<T, 1>(a, st)
                   : a->rpt == 2 ? launch_groups<T, 2>(a, st)
                                 : launch_groups<T, 4>(a, st);

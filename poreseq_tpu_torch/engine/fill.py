@@ -95,13 +95,17 @@ def cluster_ctas(W: int) -> int:
     return -(-W // CLUSTER_SPAN)
 
 
+def measured_at(table: dict, n: int) -> int:
+    """A measured table's value at key n ({size: limit}): the size's, else
+    the lower of the values of the measured sizes next to it."""
+    below = max((k for k in table if k <= n), default=min(table))
+    above = min((k for k in table if k >= n), default=max(table))
+    return min(table[below], table[above])
+
+
 def cluster_rows(ctas: int, dtype) -> int:
-    """CLUSTER_ROWS at a cluster of ``ctas`` CTAs: a measured size's, else
-    the lower of the measured sizes' next to it."""
-    rows = CLUSTER_ROWS[dtype]
-    below = max((k for k in rows if k <= ctas), default=min(rows))
-    above = min((k for k in rows if k >= ctas), default=max(rows))
-    return min(rows[below], rows[above])
+    """CLUSTER_ROWS at a cluster of ``ctas`` CTAs (measured_at)."""
+    return measured_at(CLUSTER_ROWS[dtype], ctas)
 
 
 def fill_instance(W: int, E: int, dtype) -> str:

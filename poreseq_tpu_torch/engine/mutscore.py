@@ -33,7 +33,8 @@ from ..core.sequence import (_POW4, apply_mutation, seq_to_codes,
 from .align import both_dev, both_dev_sharded
 from .dp import (DMAX, MODEL_FIELDS, column_solve, emission,
                  level_windows, neg_big, window)
-from .fill import instance_name, rows_per_thread, wide_scratch
+from .fill import (CLUSTER_MAX, INSTANCE_RPT, instance_name, measured_at,
+                   rows_per_thread, wide_scratch)
 from .pack import (event_ref_indexes, fill_geometry, limited_geometry,
                    place_full, round_up)
 from .types import make_mutscores
@@ -306,31 +307,76 @@ def geom_reference(ral, n0, S_e, width: int, C: int):
     return i0.to(torch.int32), i1.to(torch.int32)
 
 
-_GEOM_SIG = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
+_GEOM_SIG = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
              + [ctypes.c_void_p])
 GEOM = Kernel("geom", "poreseq_tpu/engine/tpu/mutscore.py:171 _geom_body",
               {"psq_geom_f32": _GEOM_SIG, "psq_geom_f64": _GEOM_SIG})
 # the longest row the kernel's first instance stages (then rewrites to ri)
-# in shared memory; a longer one runs its second instance, which reads the
-# row from device memory and writes ri to a scratch row
+# in one block's shared memory (csrc/geom.cu ROW_BYTES); a longer one runs
+# the cluster instance, a slice of at most that many levels in each of up
+# to GEOM_CLUSTER_MAX CTAs (csrc/geom.cu GEOM_CL_MAX), and past that the
+# instance that reads the row from device memory and writes ri to a scratch
+# row
 GEOM_MAX_LEVELS = {torch.float32: 57344, torch.float64: 28672}
+GEOM_CLUSTER_MAX = 16
+#: the cluster instance's CTAs an event where fewer would hold the row: the
+#: size that measured fastest at tools/sweep_constants.py geom_cluster's
+#: row lengths and event counts (PERF.md §6)
+GEOM_CLUSTER_CTAS = {torch.float32: 16, torch.float64: 16}
+#: the most events a launch of the cluster instance takes, by dtype and by
+#: the fewest CTAs that hold the row: the largest of the sweep's event
+#: counts (8, 32, 64, 128) up to which it measured faster than the memory
+#: instance at every count (PERF.md §6: NVIDIA H100 80GB HBM3, 700.00 W);
+#: past it the memory instance runs
+GEOM_CLUSTER_ROWS = {torch.float32: {2: 128, 4: 128, 8: 64, 16: 32},
+                     torch.float64: {2: 128, 4: 128, 8: 64, 16: 32}}
 
 
-def geom_cuda(ral, n0, S_e, width: int, C: int):
-    """Launch csrc/geom.cu's geometry kernel: the twin's (i0, i1)."""
+def geom_instance(T: int, E: int, dtype) -> tuple[str, int]:
+    """The geometry instance csrc/geom.cu runs for E rows of T levels of
+    dtype, and its cluster's CTAs: "staged" (one block an event, the row in
+    its shared memory) up to GEOM_MAX_LEVELS; "cluster" up to
+    GEOM_CLUSTER_MAX slices of that many levels and GEOM_CLUSTER_ROWS
+    events, where it measured faster, on max(the CTAs that hold the row,
+    GEOM_CLUSTER_CTAS) CTAs; else "memory" (the row read from device
+    memory, ri in a scratch row)."""
+    cap = GEOM_MAX_LEVELS[dtype]
+    if T <= cap:
+        return "staged", 0
+    need = -(-T // cap)
+    if need > GEOM_CLUSTER_MAX or E > measured_at(GEOM_CLUSTER_ROWS[dtype],
+                                                  need):
+        return "memory", 0
+    return "cluster", max(need, min(GEOM_CLUSTER_CTAS[dtype],
+                                    GEOM_CLUSTER_MAX))
+
+
+def geom_cuda(ral, n0, S_e, width: int, C: int, instance=None):
+    """Launch csrc/geom.cu's geometry kernel: the twin's (i0, i1).
+    instance: geom_instance's choice for the rows with levels (n0 > 0), or
+    one named as (name, CTAs) (the cluster instance at any CTAs that hold
+    the row, or "memory" at any T; to hold and time them at one shape);
+    counted by name."""
     E, T = ral.shape
     dev, dt = ral.device, ral.dtype
     check("ral", ral, dt, (E, T), dev)
     check("n0", n0, torch.int32, (E,), dev)
     check("S_e", S_e, torch.int32, (E,), dev)
+    if instance is None:
+        # past the staged cap the route counts the rows with levels (a
+        # batch pads its event rows to a bucket): one read-back
+        work = (E if T <= GEOM_MAX_LEVELS[dt]
+                else int((n0 > 0).sum().item()))
+        instance = geom_instance(T, work, dt)
+    name, ctas = instance
     i0 = torch.empty((E, C + 1), dtype=torch.int32, device=dev)
     i1 = torch.empty((E, C + 1), dtype=torch.int32, device=dev)
     scratch = (torch.empty((E, T), dtype=dt, device=dev)
-               if T > GEOM_MAX_LEVELS[dt] else None)
+               if name == "memory" else None)
     GEOM.call(f"psq_geom_{dtype_suffix(dt)}", dev, ptr(ral), ptr(n0),
               ptr(S_e), ptr(i0), ptr(i1),
               None if scratch is None else ptr(scratch), E, T, C, width,
-              stream(dev))
+              ctas, stream(dev), instance=name)
     return i0, i1
 
 
@@ -602,6 +648,45 @@ class _MutArgs(ctypes.Structure):
 #: registers), striding over the (group, event row) pairs; any count is
 #: correct
 SCRATCH_BLOCKS = 132
+#: the group scorer's cluster instance (csrc/mutscore.cu GCL_THREADS x
+#: GCL_RPT): the window rows a CTA holds in registers; at most CLUSTER_MAX
+#: CTAs a cluster (csrc/mutscore.cu GCL_MAX)
+GROUP_CLUSTER_SPAN = 2048
+#: the most (group, event row) pairs a launch of the cluster instance
+#: takes, by dtype and by its CTAs: the largest of tools/sweep_constants.py
+#: mutscore's pair counts (100-6,400, at Ws = 4097, 6001, 8193 and 16,385:
+#: 2, 3, 4 and 8 CTAs) up to which it measured faster than the wide
+#: instance at every count (PERF.md §6: NVIDIA H100 80GB HBM3, 700.00 W;
+#: it measured faster at all of them); past it the wide instance runs
+GROUP_CLUSTER_PAIRS = {torch.float32: {2: 6400, 3: 6400, 4: 6400, 8: 6400},
+                       torch.float64: {2: 6400, 3: 6400, 4: 6400, 8: 6400}}
+
+
+def group_cluster_ctas(Ws: int) -> int:
+    """The CTAs of the group scorer's cluster instance at window width Ws
+    (csrc/mutscore.cu group_ctas): ceil((Ws - 1) / GROUP_CLUSTER_SPAN),
+    where Ws = n GROUP_CLUSTER_SPAN + 1 leaves its last row to the last
+    CTA's last thread."""
+    return max(1, -(-(Ws - 1) // GROUP_CLUSTER_SPAN))
+
+
+def group_instance(Ws: int, pairs: int, dtype) -> str:
+    """The group-scorer instance csrc/mutscore.cu runs at window width Ws
+    for ``pairs`` (group, event row) pairs of dtype: up to RPT_ROWS the one
+    block of rows_per_thread(Ws) rows a thread; past it the cluster
+    instance ("cluster": group_cluster_ctas(Ws) CTAs a pair, the window in
+    their registers, the scan's top levels, the carried column's seams and
+    the joins' maxima in distributed shared memory) up to CLUSTER_MAX CTAs
+    (Ws up to CLUSTER_MAX GROUP_CLUSTER_SPAN + 1) and GROUP_CLUSTER_PAIRS
+    pairs, where it measured faster, else the wide instance ("wide").
+    Below 1 row, ValueError."""
+    rpt = rows_per_thread(Ws, "group scorer")
+    if rpt:
+        return instance_name(rpt)
+    n = group_cluster_ctas(Ws)
+    return ("cluster" if n <= CLUSTER_MAX
+            and pairs <= measured_at(GROUP_CLUSTER_PAIRS[dtype], n)
+            else "wide")
 
 
 _SIG = [ctypes.POINTER(_MutArgs), ctypes.c_void_p]
@@ -614,27 +699,32 @@ MUTSCORE = Kernel(
 
 def group_totals_cuda(batch, Mf, Sf, Mb, Sb, i0f, i1f, i0r, i1r, win, bpf,
                       bpb, ev_region, gp, lik_offset, W, Ws, RS, K, P, DM,
-                      E_g):
-    """Launch csrc/mutscore.cu: (totals [G, P], deltas [G, P, E_g])."""
+                      E_g, instance: str | None = None):
+    """Launch csrc/mutscore.cu: (totals [G, P], deltas [G, P, E_g]).
+    instance: group_instance's choice, or one named (past RPT_ROWS
+    "cluster" or "wide", to hold and time both at one shape); the C entry
+    refuses one that does not take Ws."""
     return _launch_groups(True, batch, Mf, Sf, Mb, Sb, i0f, i1f, i0r, i1r,
                           win, bpf, bpb, ev_region, gp, lik_offset, W, Ws,
-                          RS, K, P, DM, E_g)
+                          RS, K, P, DM, E_g, instance)
 
 
-def group_deltas_cuda(*args):
+def group_deltas_cuda(*args, instance: str | None = None):
     """Launch csrc/mutscore.cu's group kernel alone (group_totals_cuda's
     arguments): deltas [G, P, E_g], summed later by ``sum_rows``."""
-    return _launch_groups(False, *args)[1]
+    return _launch_groups(False, *args, instance)[1]
 
 
 def _launch_groups(with_totals, batch, Mf, Sf, Mb, Sb, i0f, i1f, i0r, i1r,
                    win, bpf, bpb, ev_region, gp, lik_offset, W, Ws, RS, K, P,
-                   DM, E_g):
+                   DM, E_g, instance=None):
     C1, E, _ = Mf.shape
     Q1 = win[0].shape[0]
     dev, dt = Mf.device, Mf.dtype
     G = gp["g_start"].shape[0]
-    rpt = rows_per_thread(Ws, "group scorer")
+    rows_per_thread(Ws, "group scorer")     # below 1 row: ValueError
+    name = instance or group_instance(Ws, G * E_g, dt)
+    rpt = INSTANCE_RPT[name]
     if not 1 <= E_g <= E:
         raise ValueError(f"group scorer: Ws={Ws}, E_g={E_g}, E={E}")
     for n, t in (("Mf", Mf), ("Sf", Sf), ("Mb", Mb), ("Sb", Sb)):
@@ -666,7 +756,7 @@ def _launch_groups(with_totals, batch, Mf, Sf, Mb, Sb, i0f, i1f, i0r, i1r,
     # maxima and the K anchors
     scratch = (wide_scratch(min(G * E_g, SCRATCH_BLOCKS), Ws, dt,
                             64 * deltas.element_size() + 4 * K, dev)
-               if rpt == 0 else None)
+               if name == "wide" else None)
     args = _MutArgs(
         *[t.data_ptr() for t in (Mf, Sf, Mb, Sb, i0f, i1f, i0r, i1r)],
         (ctypes.c_void_p * 3)(*[t.data_ptr() for t in win]),
@@ -679,8 +769,7 @@ def _launch_groups(with_totals, batch, Mf, Sf, Mb, Sb, i0f, i1f, i0r, i1r,
         None if scratch is None else scratch.data_ptr(),
         0 if scratch is None else scratch.shape[0])
     MUTSCORE.call(f"psq_mutscore_{dtype_suffix(dt)}", dev,
-                  ctypes.byref(args), stream(dev),
-                  instance=instance_name(rpt))
+                  ctypes.byref(args), stream(dev), instance=name)
     return totals, deltas
 
 

@@ -11,7 +11,10 @@ columns and an inactive event, equal to the twin and to the wide
 instance bit for bit), forward with steps and backward with and without,
 the group scorer at Ws = 41 and 201 (Refine's point width and Mutate's
 scoring width), 1025 and 1201 (two window rows a thread), 4095 (four)
-and 4097 (the wide instance, on a small region): f64 must
+and 4097 (the wide instance, on a small region), and at Ws = 4097, 5001,
+8193 and its largest, 32,769 (the cluster instance, 2 to 16 CTAs a pair,
+with and without its extra row, equal to the wide instance bit for bit):
+f64 must
 equal the twin exactly, f32 within tolerances, with the step bytes, best
 coordinates and accept signs held, and the fill's running best (best,
 best_i, best_j, best_pfx) equal to dp.finish_fill on its own column maxima.
@@ -26,7 +29,11 @@ valid, some, one and none; ragged row tiles; and the engine's candidates
 on a 30X batch in f64 equal to the CPU twins'), the per-base likes (T up to 3000, and a
 backtrace at W = 1401), the scoring geometry (unsorted rows; T 1 to 4000
 levels, C 1 to 3000 columns; at, past and twice its shared-memory level
-cap) and its windows (T not a multiple of 32; Ws up to 1201) must equal
+cap; its cluster instance at 256 levels past the cap, twice it and near
+its capacity of 16 slices, at several cluster sizes, equal to the memory
+instance too, and the memory instance past that capacity; and one engine
+call, score_mutations_multi on a 60 kb region, whose geometry runs on the
+cluster instance, held to the CPU twin) and its windows (T not a multiple of 32; Ws up to 1201) must equal
 their twins exactly in f64 and f32.  A 2x2 mesh of the one card gives the single
 device's group totals bit for bit (also at W = 1401, Ws = 1201), and the fill, backtrace and scorer on
 cuda:1 equal their twins (skipped with one card).  At the genome-scale
@@ -625,9 +632,9 @@ def test_geom_kernel_at_the_level_cap(engine):
     """At GEOM_MAX_LEVELS (57,344 f32 / 28,672 f64 levels, 224 KB of
     staged row) the geometry kernel's staged instance equals its twin, on
     its first launch (which raises the card's shared memory limit) and its
-    second; one level more and twice the cap run the instance that reads
-    the row from device memory and writes ri to a scratch row, equal to the
-    twin bit for bit too."""
+    second; one level more and twice the cap run the instance the route
+    gives them (geom_instance: the cluster instance), equal to the twin bit
+    for bit too."""
     from poreseq_tpu_torch.engine.mutscore import (GEOM, GEOM_MAX_LEVELS,
                                                    geom_cuda, geom_reference)
 
@@ -643,6 +650,155 @@ def test_geom_kernel_at_the_level_cap(engine):
             assert GEOM.launches == n + 1
             for a, b in zip(got, ref):
                 assert torch.equal(a, b.to(torch.int32))
+
+
+def _geom_long_rows(T, C, E=6, seed=0):
+    """Geometry operands of E reads T levels long whose reference index
+    rises by 0-2 a level (one level in ten unanchored) over about C
+    columns: row 0 has no anchor, row 1 one anchor (NaN flanks), row 2 an
+    anchor at level 0 then a gap (the level-0 quirk), row 3 ends at T / 3
+    levels; S_e up to C."""
+    rng = np.random.default_rng(seed + T)
+    step = rng.integers(0, 3, (E, T)) * (C / T)
+    ral = np.floor(np.cumsum(step, axis=1)) + 1.0
+    ral[rng.random((E, T)) < 0.1] = -1.0
+    n0 = np.full(E, T, dtype=np.int32)
+    ral[0] = 0.0
+    ral[1] = 0.0
+    ral[1, T // 2] = C // 2
+    ral[2, 1:9] = 0.0
+    n0[3] = T // 3
+    S_e = np.minimum(ral.max(axis=1) + 1, C).clip(0).astype(np.int32)
+    S_e[4] = C
+    return ral, n0, S_e
+
+
+# the geometry's cluster instance: rows 256 levels past the staged cap,
+# twice it, and near its capacity (16 CTAs of a cap's levels); the C
+# columns of each row take several passes of the cluster's threads
+GEOM_CLUSTER_ROWS = {"cap + 256": lambda cap: cap + 256,
+                     "2 cap": lambda cap: 2 * cap,
+                     "near capacity": lambda cap: 16 * cap - 1000}
+
+
+@pytest.mark.parametrize("engine", DTYPES, indirect=True)
+@pytest.mark.parametrize("where", list(GEOM_CLUSTER_ROWS))
+def test_geom_cluster_instance_matches_twin_and_memory_instance(engine,
+                                                                where):
+    """Past GEOM_MAX_LEVELS the route gives 6 events the cluster instance
+    (counted under "cluster"); it equals the twin and the instance that reads the
+    row from device memory bit for bit, at the route's CTAs and at the
+    fewest that hold the row, one more, and 16; one level past its
+    capacity the route gives the memory instance, equal to the twin."""
+    from poreseq_tpu_torch.engine.mutscore import (GEOM, GEOM_MAX_LEVELS,
+                                                   geom_cuda, geom_instance,
+                                                   geom_reference)
+
+    dt = engine.dtype
+    cap = GEOM_MAX_LEVELS[dt]
+    T = GEOM_CLUSTER_ROWS[where](cap)
+    C = T // 3
+    t = lambda x: torch.as_tensor(x, device="cuda")
+    ral, n0, S_e = _geom_long_rows(T, C)
+    args = (t(ral).to(dt), t(n0), t(S_e), 100, C)
+    ref = [r.to(torch.int32) for r in geom_reference(*args)]
+    name, ctas = geom_instance(T, 6, dt)
+    assert name == "cluster"
+    n = GEOM.instances["cluster"]
+    for a, b in zip(geom_cuda(*args), ref):
+        assert torch.equal(a, b)
+    assert GEOM.instances["cluster"] == n + 1
+    need = -(-T // cap)
+    for k in sorted({need, min(need + 1, 16), 16}):
+        for a, b in zip(geom_cuda(*args, instance=("cluster", k)), ref):
+            assert torch.equal(a, b), k
+    for a, b in zip(geom_cuda(*args, instance=("memory", 0)), ref):
+        assert torch.equal(a, b)
+    if where == "near capacity":
+        T = 16 * cap + 1
+        assert geom_instance(T, 6, dt) == ("memory", 0)
+        ral, n0, S_e = _geom_long_rows(T, 2048)
+        args = (t(ral).to(dt), t(n0), t(S_e), 100, 2048)
+        n = GEOM.instances["memory"]
+        for a, b in zip(geom_cuda(*args), geom_reference(*args)):
+            assert torch.equal(a, b.to(torch.int32))
+        assert GEOM.instances["memory"] == n + 1
+
+
+def test_score_mutations_past_the_geometry_cap_equals_the_cpu_twin(
+        monkeypatch):
+    """One engine call past GEOM_MAX_LEVELS: score_mutations_multi on a
+    simulated 60 kb region of 2 reads (T past 57,344 levels; f32, so the
+    geometry runs on the card, on its cluster instance), its lattices
+    4 C1 E W 4 bytes, a few GB.  The geometry equals the CPU twin on the
+    call's own ral, and every scorer launch's totals the CPU twin's
+    (groups in chunks) within phase 2's f32 tolerance, with no accept-sign
+    flip."""
+    from poreseq_tpu_torch.engine import TorchEngine
+    from poreseq_tpu_torch.engine import mutscore as ms
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    pa, _ = simulate_session(np.random.default_rng(58), ref_len=60000,
+                             coverage=2, draft_error=0.01)
+    data = AlignData.from_session(pa)
+    T = max(len(ev.mean) for ev in data.events)
+    assert T > ms.GEOM_MAX_LEVELS[torch.float32]
+    rng = np.random.default_rng(3)
+    muts = []
+    for _ in range(40):
+        m = MutationInfo()
+        m.start = int(rng.integers(0, len(data.sequence) - 6))
+        m.orig, m.mut = data.sequence[m.start], "ACGT"[int(rng.integers(4))]
+        muts.append(m)
+    geoms, launches = [], []
+
+    def geom_body(*a):
+        out = ms.geom_cuda(*a)
+        geoms.append(([x.cpu() if torch.is_tensor(x) else x for x in a],
+                      [o.cpu() for o in out]))
+        return out
+
+    memo = {}                   # the lattices, copied once
+
+    def cpu(x):
+        if torch.is_tensor(x):
+            key = (x.data_ptr(), x.shape)
+            if key not in memo:
+                memo[key] = x.cpu()
+            return memo[key]
+        if isinstance(x, dict):
+            return {k: cpu(v) for k, v in x.items()}
+        if isinstance(x, tuple):
+            vals = [cpu(v) for v in x]
+            return type(x)(*vals) if hasattr(x, "_fields") else tuple(vals)
+        return x
+
+    def group_totals(*a):
+        out = ms.group_totals_cuda(*a)[0]
+        launches.append((cpu(a), out.cpu()))
+        return out
+
+    monkeypatch.setattr(ms, "geom_body", geom_body)
+    monkeypatch.setattr(ms, "group_totals", group_totals)
+    n = ms.GEOM.instances["cluster"]
+    engine = TorchEngine("cuda", torch.float32)
+    scores = engine.score_mutations_multi([data], [muts])[0]
+    assert ms.GEOM.instances["cluster"] == n + len(geoms) and geoms
+    assert all(np.isfinite(m.score) for m in scores)
+    for a, out in geoms:
+        for got, ref in zip(out, ms.geom_reference(*a)):
+            assert torch.equal(got, ref.to(torch.int32))
+    assert launches
+    for a, tot_k in launches:
+        gp, G = a[13], a[13]["g_start"].shape[0]
+        tot_r = torch.cat([ms.sum_rows_reference(ms.group_deltas_reference(
+            *a[:13], {k: v[at : at + 64] for k, v in gp.items()}, *a[14:]))
+            for at in range(0, G, 64)])
+        torch.testing.assert_close(tot_k, tot_r, rtol=2e-4, atol=3e-3)
+        valid = gp["s_valid"].bool()
+        assert not bool(((((tot_k - 1e-6) > 0) != ((tot_r - 1e-6) > 0))
+                         & valid).any())
 
 
 @pytest.mark.parametrize("engine", DTYPES, indirect=True)
@@ -737,7 +893,7 @@ def test_group_kernel_wide_instance_matches_twin(engine):
         assert args[16] == 4097
         args = (*args[:13], {k: v[: gp["G"]] for k, v in args[13].items()},
                 *args[14:])
-        tot_k, _ = group_totals_cuda(*args)
+        tot_k, _ = group_totals_cuda(*args, instance="wide")
         launches += 1
         tot_r = sum_rows_reference(_group_deltas_in_chunks(args))
         if engine.dtype == torch.float64:
@@ -749,6 +905,56 @@ def test_group_kernel_wide_instance_matches_twin(engine):
                              & valid).any())
         nonzero += int((tot_r != 0).sum())
     assert launches > 0 and MUTSCORE.instances["wide"] == n + launches
+    assert nonzero > 0
+
+
+# the group scorer's cluster instance: Ws = 4097, 5001, 8193 and its
+# largest, 16 spans + 1 (at 2048 window rows a CTA 2, 3, 4 and 16 CTAs:
+# the extra row at 4097, 8193 and the largest, a partial last CTA at 5001)
+GROUP_CLUSTER_WIDTHS = {"4097": 2048, "5001": 2500, "8193": 4096,
+                        "largest": None}
+
+
+@pytest.mark.parametrize("engine", DTYPES, indirect=True)
+@pytest.mark.parametrize("which", list(GROUP_CLUSTER_WIDTHS))
+def test_group_kernel_cluster_instance_matches_twin(engine, which):
+    """The cluster instance, named, on a 240 b region at 6X (point
+    mutations at every 8th base and a tail insertion): its deltas and
+    totals equal the wide instance's bit for bit (max |diff| 0), and its
+    totals the twin's (f64 exactly, f32 within tolerance and with no
+    accept-sign flip); counted under "cluster"."""
+    from poreseq_tpu_torch.engine.mutscore import (CLUSTER_MAX,
+                                                   GROUP_CLUSTER_SPAN,
+                                                   MUTSCORE, group_launches,
+                                                   group_totals_cuda,
+                                                   sum_rows_reference)
+
+    scoring = (GROUP_CLUSTER_WIDTHS[which]
+               or CLUSTER_MAX * GROUP_CLUSTER_SPAN // 2)
+    data = _data(realign=scoring, scoring=scoring)
+    tail = MutationInfo()
+    tail.start, tail.orig, tail.mut = len(data.sequence), "", "ACGTACGTA"
+    muts = [m for m in find_point_mutations(data) if m.start % 8 == 0]
+    n, launches, nonzero = MUTSCORE.instances["cluster"], 0, 0
+    for gp, _, args in group_launches(engine, [data], [muts + [tail]],
+                                      [True]):
+        assert args[16] == 2 * scoring + 1
+        args = (*args[:13], {k: v[: gp["G"]] for k, v in args[13].items()},
+                *args[14:])
+        tot_c, d_c = group_totals_cuda(*args, instance="cluster")
+        tot_w, d_w = group_totals_cuda(*args, instance="wide")
+        launches += 1
+        assert torch.equal(d_c, d_w) and torch.equal(tot_c, tot_w)
+        tot_r = sum_rows_reference(_group_deltas_in_chunks(args))
+        if engine.dtype == torch.float64:
+            assert torch.equal(tot_c, tot_r)
+        else:
+            torch.testing.assert_close(tot_c, tot_r, rtol=2e-4, atol=3e-3)
+            valid = args[13]["s_valid"].bool()
+            assert not bool(((((tot_c - 1e-6) > 0) != ((tot_r - 1e-6) > 0))
+                             & valid).any())
+        nonzero += int((tot_r != 0).sum())
+    assert launches > 0 and MUTSCORE.instances["cluster"] == n + launches
     assert nonzero > 0
 
 

@@ -19,7 +19,7 @@ f32 and f64.  So must the model of the fill's cluster instance
 (mp_scan_cluster): N CTAs of a power-of-two span, the levels below it in
 each CTA, the levels above over the CTAs' totals, each CTA's down-sweep
 from the u part handed to it (N 2-9, 1 and 2 rows a thread, n 4096 to
-16,385)."""
+16,385; and the group scorer's span and rows a thread, N up to 16)."""
 
 import numpy as np
 import pytest
@@ -279,6 +279,28 @@ CLUSTER_LENGTHS = [4096, 4097, 6144, 8193, 16385]
 CLUSTER_SIZES = [2, 3, 4, 5, 8, 9]
 
 
+def _scorer_span():
+    """The group scorer's cluster instance's span a CTA and rows a thread
+    (csrc/mutscore.cu GCL_THREADS x GCL_RPT, GCL_RPT)."""
+    import re
+    from pathlib import Path
+
+    from poreseq_tpu_torch.engine import mutscore
+
+    src = (Path(mutscore.__file__).parents[1] / "csrc"
+           / "mutscore.cu").read_text()
+    c = {k: int(v) for k, v in re.findall(r"constexpr int (\w+) = (-?\d+);",
+                                          src)}
+    return c["GCL_THREADS"] * c["GCL_RPT"], c["GCL_RPT"]
+
+
+def _scorer_cluster_cases():
+    """(N, n, rpt) of the group scorer's cluster instance at window widths
+    that leave its last CTA partial or full: 5001, 10,000 and 16 spans."""
+    span, rpt = _scorer_span()
+    return [(-(-n // span), n, rpt) for n in (5001, 10000, 16 * span)]
+
+
 def cluster_scan_model(elems, N, rpt, log=None):
     """common.cuh mp_scan_cluster on NumPy elements [6, n]: N CTAs, CTA k
     holding positions [k S, (k+1) S) with S the power of two for which
@@ -384,13 +406,16 @@ def cluster_scan_model(elems, N, rpt, log=None):
 
 
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])
-@pytest.mark.parametrize("rpt", [1, 2])
-@pytest.mark.parametrize("N,n", _cluster_cases())
+@pytest.mark.parametrize("N,n,rpt", [(N, n, rpt) for N, n in _cluster_cases()
+                                     for rpt in (1, 2)]
+                         + _scorer_cluster_cases())
 def test_cluster_scan_model_equals_twin_scan(N, n, rpt, dtype):
-    """The cluster instance's scan: N CTAs of S positions, the top levels
+    """The cluster instances' scan: N CTAs of S positions, the top levels
     over their totals in one warp of each CTA, each CTA's down-sweep from
     its handed-in u part; forward and reversed, the u rows equal the
-    twin's scan bit for bit and the combines are exactly the tree's."""
+    twin's scan bit for bit and the combines are exactly the tree's (the
+    fill's cases at 1 and 2 rows a thread, and the group scorer's span and
+    rows a thread up to its 16 CTAs)."""
     elems = _elements(n, seed=n + N).numpy().astype(dtype)
     for rev in (False, True):
         x = elems[:, ::-1].copy() if rev else elems
@@ -400,3 +425,29 @@ def test_cluster_scan_model_equals_twin_scan(N, n, rpt, dtype):
         np.testing.assert_array_equal(got.view(f"u{got.itemsize}"),
                                       ref.view(f"u{ref.itemsize}"))
         assert sorted(log) == sorted(tree_combines(n))
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("spans", [1, 4, 8, 16])
+def test_cluster_scan_model_with_the_extra_row(spans, dtype):
+    """The group scorer's cluster instance at Ws = N spans + 1 (4097, 8193,
+    16,385 at 1024 rows a CTA): N CTAs scan the first N spans and the last
+    row, a destination of one level-0 down-sweep combine only, is combined
+    from the row below after; forward and reversed, the u rows equal the
+    twin's scan of all n bit for bit."""
+    span, rpt = _scorer_span()
+    n = spans * span + 1
+    elems = _elements(n, seed=n).numpy().astype(dtype)
+    assert [c for c in tree_combines(n) if n - 1 in c[2:]] == \
+        [("down", 0, n - 2, n - 1)]
+    for rev in (False, True):
+        x = elems[:, ::-1].copy() if rev else elems
+        head = x[:, :-1].copy()
+        u = (cluster_scan_model(head, spans, rpt) if spans > 1
+             else _assoc_scan(torch.as_tensor(head))[4:].numpy())
+        last = _np_combine(np.concatenate([np.zeros((4, 1), dtype),
+                                           u[:, -1:]]), x[:, -1:])
+        got = np.concatenate([u, last[4:]], axis=1)
+        ref = _assoc_scan(torch.as_tensor(x))[4:].numpy()
+        np.testing.assert_array_equal(got.view(f"u{got.itemsize}"),
+                                      ref.view(f"u{ref.itemsize}"))

@@ -441,6 +441,67 @@ def _group_operands(W, Ws):
             i(E), gp, 4.5, W, Ws, max((W - Ws) // 2, 0), K, P, 1, E)
 
 
+def _group_routes():
+    """(Ws, pairs, dtype, instance) past the register instances, from
+    GROUP_CLUSTER_PAIRS: at each measured cluster size the most pairs it
+    takes and one more, and a width past its largest cluster."""
+    from poreseq_tpu_torch.engine.mutscore import (GROUP_CLUSTER_PAIRS,
+                                                   GROUP_CLUSTER_SPAN)
+
+    out = []
+    for dt, rows in GROUP_CLUSTER_PAIRS.items():
+        for ctas, most in sorted(rows.items()):
+            for Ws in (ctas * GROUP_CLUSTER_SPAN,
+                       ctas * GROUP_CLUSTER_SPAN + 1):
+                out += [(Ws, 2, dt, "cluster"), (Ws, most, dt, "cluster"),
+                        (Ws, most + 1, dt, "wide")]
+        out.append((16 * GROUP_CLUSTER_SPAN + 2, 2, dt, "wide"))
+    return out
+
+
+@pytest.mark.parametrize("Ws,pairs,dtype,name", _group_routes())
+def test_group_instance_routes_by_the_measured_table(Ws, pairs, dtype, name):
+    """group_instance past 4095 window rows: the cluster instance up to its
+    16 CTAs and GROUP_CLUSTER_PAIRS pairs, else the wide one; below, the
+    register instances by rows a thread; Ws = 0 is refused."""
+    from poreseq_tpu_torch.engine.mutscore import group_instance
+
+    assert group_instance(Ws, pairs, dtype) == name
+    for w, rows in ((201, "1 row"), (1201, "2 rows"), (4095, "4 rows")):
+        assert group_instance(w, pairs, dtype) == rows
+    with pytest.raises(ValueError, match="at least 1"):
+        group_instance(0, pairs, dtype)
+
+
+@pytest.mark.parametrize("Ws,name", [(4096, "cluster"), (8193, "cluster"),
+                                     ("16 spans", "cluster"),
+                                     ("16 spans + 1", "cluster"),
+                                     ("16 spans + 2", "wide")])
+def test_group_scorer_reaches_the_cluster_instance(stub, Ws, name):
+    """At few pairs past 4095 window rows the scorer launches the route's
+    instance: the cluster one (MutArgs.rpt -1, no scratch) up to 16 CTAs
+    (Ws up to 16 spans and the extra row), the wide one past; counted under
+    its name."""
+    from poreseq_tpu_torch.engine.fill import INSTANCE_RPT
+    from poreseq_tpu_torch.engine.mutscore import (GROUP_CLUSTER_SPAN,
+                                                   MUTSCORE,
+                                                   group_totals_cuda)
+
+    if isinstance(Ws, str):
+        Ws = 16 * GROUP_CLUSTER_SPAN + int(Ws.split("+")[-1]
+                                           if "+" in Ws else 0)
+    n, k = MUTSCORE.launches, MUTSCORE.instances[name]
+    totals, deltas = group_totals_cuda(*_group_operands(Ws, Ws))
+    (fn, (args, _)), = stub.calls
+    a = args._obj
+    assert fn == "psq_mutscore_f32"
+    assert (a.Ws, a.rpt, a.G, a.E_g) == (Ws, INSTANCE_RPT[name], 2, 2)
+    if name == "cluster":
+        assert a.scratch is None
+    assert totals.shape == (2, 9) and deltas.shape == (2, 9, 2)
+    assert MUTSCORE.launches == n + 1 and MUTSCORE.instances[name] == k + 1
+
+
 @pytest.mark.parametrize("Ws,rpt", [(201, 1), (1201, 2), (4095, 4)])
 def test_group_scorer_reaches_its_instance(stub, Ws, rpt):
     from poreseq_tpu_torch.engine.mutscore import (MUTSCORE,
@@ -457,8 +518,9 @@ def test_group_scorer_reaches_its_instance(stub, Ws, rpt):
 
 @pytest.mark.parametrize("Ws", [4096, 4097])
 def test_group_scorer_refuses_widths_past_its_instances(stub, Ws):
-    """Scoring windows past the register instances reach the wide one (rows
-    a thread 0), counted under "wide": in f32 its arrays fit shared memory,
+    """Scoring windows past the register instances reach the wide one,
+    named (rows a thread 0), counted under "wide": in f32 its arrays fit
+    shared memory,
     in f64 the C entry gets a device scratch for min(G E_g, SCRATCH_BLOCKS)
     blocks, the grid's; Ws = 0 is refused before any launch."""
     from poreseq_tpu_torch.engine.mutscore import (MUTSCORE, SCRATCH_BLOCKS,
@@ -466,13 +528,13 @@ def test_group_scorer_refuses_widths_past_its_instances(stub, Ws):
 
     n, wide = MUTSCORE.launches, MUTSCORE.instances["wide"]
     ops = _group_operands(Ws, Ws)
-    totals, deltas = group_totals_cuda(*ops)
+    totals, deltas = group_totals_cuda(*ops, instance="wide")
     to64 = lambda x: (x.double() if torch.is_tensor(x) and x.is_floating_point()
                       else x)
     batch64 = type(ops[0])(*(to64(x) for x in ops[0]))
     f64 = (batch64, *(to64(x) for x in ops[1:9]),
            tuple(to64(w) for w in ops[9]), *(to64(x) for x in ops[10:]))
-    group_totals_cuda(*f64)
+    group_totals_cuda(*f64, instance="wide")
     (f1, (a1, _)), (f2, (a2, _)) = stub.calls
     a1, a2 = a1._obj, a2._obj
     assert (f1, f2) == ("psq_mutscore_f32", "psq_mutscore_f64")
@@ -489,27 +551,113 @@ def test_group_scorer_refuses_widths_past_its_instances(stub, Ws):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_geom_cuda_takes_the_scratch_instance_past_the_cap(stub, dtype):
-    """At GEOM_MAX_LEVELS the staged instance (no scratch); at 256 levels
-    past it the C entry gets a scratch row [E, T] of the row's dtype."""
+    """At GEOM_MAX_LEVELS the staged instance (no scratch, no cluster);
+    past the cluster instance's capacity (GEOM_CLUSTER_MAX slices of that
+    many levels), and named ("memory") at 256 levels past the cap, the C
+    entry gets a scratch row [E, T] of the row's dtype; each counted under
+    its name."""
     import ctypes
 
-    from poreseq_tpu_torch.engine.mutscore import (GEOM, GEOM_MAX_LEVELS,
-                                                   geom_cuda)
+    from poreseq_tpu_torch.engine.mutscore import (GEOM, GEOM_CLUSTER_MAX,
+                                                   GEOM_MAX_LEVELS, geom_cuda)
 
     E, C = 2, 5
     n0 = torch.full((E,), 9, dtype=torch.int32)
     S_e = torch.full((E,), C, dtype=torch.int32)
     cap = GEOM_MAX_LEVELS[dtype]
-    n = GEOM.launches
-    for T in (cap, cap + 256):
-        i0, i1 = geom_cuda(torch.zeros((E, T), dtype=dtype), n0, S_e, 8, C)
+    n, staged, mem = (GEOM.launches, GEOM.instances["staged"],
+                      GEOM.instances["memory"])
+    big = GEOM_CLUSTER_MAX * cap + 1
+    for T, inst in ((cap, None), (cap + 256, ("memory", 0)), (big, None)):
+        i0, i1 = geom_cuda(torch.zeros((E, T), dtype=dtype), n0, S_e, 8, C,
+                           instance=inst)
         assert i0.shape == i1.shape == (E, C + 1)
     suffix = "f32" if dtype == torch.float32 else "f64"
-    (f1, a1), (f2, a2) = stub.calls
-    assert f1 == f2 == f"psq_geom_{suffix}" and GEOM.launches == n + 2
-    assert a1[5] is None and a1[7] == cap
-    assert isinstance(a2[5], ctypes.c_void_p) and a2[5].value
-    assert a2[6:10] == (E, cap + 256, C, 8)
+    (f1, a1), (f2, a2), (f3, a3) = stub.calls
+    assert f1 == f2 == f3 == f"psq_geom_{suffix}"
+    assert GEOM.launches == n + 3
+    assert a1[5] is None and a1[7] == cap and a1[10] == 0
+    for a, T in ((a2, cap + 256), (a3, big)):
+        assert isinstance(a[5], ctypes.c_void_p) and a[5].value
+        assert a[6:11] == (E, T, C, 8, 0)
+    assert GEOM.instances["staged"] == staged + 1
+    assert GEOM.instances["memory"] == mem + 2
+
+
+# rows past the staged cap, as multiples of it -> the cluster instance's
+# CTAs: the fewest that hold the row, or GEOM_CLUSTER_CTAS where more
+GEOM_CLUSTER_ROUTES = [1.0001, 1.5, 2, 3.9, 8, 15.5, 16]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("mult", GEOM_CLUSTER_ROUTES)
+def test_geom_cuda_reaches_the_cluster_instance_past_the_cap(stub, dtype,
+                                                              mult):
+    """geom_instance's table past GEOM_MAX_LEVELS up to GEOM_CLUSTER_MAX
+    slices: up to GEOM_CLUSTER_ROWS events the cluster instance on max(the
+    CTAs holding the row, GEOM_CLUSTER_CTAS) CTAs, no scratch (the C entry
+    gets that count and the launch is counted under "cluster"), one event
+    more the memory instance; one level past the capacity the memory
+    instance, at the cap the staged one."""
+    from poreseq_tpu_torch.engine.fill import measured_at
+    from poreseq_tpu_torch.engine.mutscore import (GEOM, GEOM_CLUSTER_CTAS,
+                                                   GEOM_CLUSTER_MAX,
+                                                   GEOM_CLUSTER_ROWS,
+                                                   GEOM_MAX_LEVELS, geom_cuda,
+                                                   geom_instance)
+
+    cap = GEOM_MAX_LEVELS[dtype]
+    T = int(mult * cap)
+    need = -(-T // cap)
+    ctas = max(need, min(GEOM_CLUSTER_CTAS[dtype], GEOM_CLUSTER_MAX))
+    most = measured_at(GEOM_CLUSTER_ROWS[dtype], need)
+    assert 2 <= need <= ctas <= GEOM_CLUSTER_MAX and most >= 2
+    assert geom_instance(T, most, dtype) == ("cluster", ctas)
+    assert geom_instance(T, most + 1, dtype) == ("memory", 0)
+    assert geom_instance(cap, 2, dtype) == ("staged", 0)
+    assert geom_instance(GEOM_CLUSTER_MAX * cap + 1, 2, dtype) == \
+        ("memory", 0)
+    E, C = 2, 5
+    n, k = GEOM.launches, GEOM.instances["cluster"]
+    i0, i1 = geom_cuda(torch.zeros((E, T), dtype=dtype),
+                       torch.full((E,), 9, dtype=torch.int32),
+                       torch.full((E,), C, dtype=torch.int32), 8, C)
+    assert i0.shape == i1.shape == (E, C + 1)
+    (fn, a), = stub.calls
+    assert a[5] is None and a[6:11] == (E, T, C, 8, ctas)
+    assert GEOM.launches == n + 1 and GEOM.instances["cluster"] == k + 1
+
+
+def test_cluster_constants_match_the_sources():
+    """engine/mutscore.py's cluster constants are csrc/mutscore.cu's and
+    csrc/geom.cu's: the scorer's span, largest cluster and rpt code, the
+    geometry's largest cluster and its staged cap (ROW_BYTES of a dtype)."""
+    import re
+    from pathlib import Path
+
+    from poreseq_tpu_torch.engine import fill, mutscore
+
+    csrc = Path(mutscore.__file__).parents[1] / "csrc"
+    const = lambda name: {k: int(v) for k, v in re.findall(
+        r"constexpr int (\w+) = (-?\d+);", (csrc / name).read_text())}
+    m, g = const("mutscore.cu"), const("geom.cu")
+    assert m["GCL_THREADS"] * m["GCL_RPT"] == mutscore.GROUP_CLUSTER_SPAN
+    assert m["GCL_MAX"] == fill.CLUSTER_MAX
+    assert m["RPT_CLUSTER"] == fill.INSTANCE_RPT["cluster"]
+    assert m["RPT_ROWS"] == fill.RPT_ROWS
+    span = mutscore.GROUP_CLUSTER_SPAN
+    assert span & (span - 1) == 0 and m["GCL_RPT"] in (1, 2, 4)
+    for Ws, n in ((4096, 4096 // span), (4097, 4096 // span),
+                  (4098, 4096 // span + 1), (2, 1)):
+        assert mutscore.group_cluster_ctas(Ws) == max(n, 1)
+    assert 32 <= m["GCL_THREADS"] <= 1024 and m["GCL_THREADS"] % 32 == 0
+    assert g["GEOM_CL_MAX"] == mutscore.GEOM_CLUSTER_MAX
+    for dt, size in ((torch.float32, 4), (torch.float64, 8)):
+        assert g["ROW_BYTES"] // size == mutscore.GEOM_MAX_LEVELS[dt]
+        assert set(mutscore.GROUP_CLUSTER_PAIRS[dt]) <= set(
+            range(2, fill.CLUSTER_MAX + 1))
+        assert set(mutscore.GEOM_CLUSTER_ROWS[dt]) <= set(
+            range(2, mutscore.GEOM_CLUSTER_MAX + 1))
 
 
 def test_viterbi_obs_cap_ends_in_engine_error(stub, monkeypatch):

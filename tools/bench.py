@@ -207,7 +207,8 @@ def kernel_bounds():
             rl.geom_work(a["ral"], a["n0"], a["C"]), a["ral"].dtype),
         (mutscore, "windows_cuda"): win_b,
         (mutscore, "group_totals_cuda"): lambda a, r: (
-            rl.group_work(*a.values()), a["Mf"].dtype),
+            rl.group_work(*(v for k, v in a.items() if k != "instance")),
+            a["Mf"].dtype),
     }
     real = {k: getattr(*k) for k in hooks}
 
