@@ -16,7 +16,8 @@ TorchEngine on ``--device``, or ``exact``, the CPU oracle
   --shard-index/--num-shards deal the regions round-robin by hand,
   --coordinator/--num-processes/--process-id do it for a multi-process run
   (each process writes OUTPUT.pN), --profile DIR writes a torch.profiler
-  Chrome trace, --mesh EVxMUT|auto shards each region's events and
+  Chrome trace (with the port's ``psq.*`` spans, ``obs.py``) and the run's
+  counters beside it, --mesh EVxMUT|auto shards each region's events and
   mutation groups over a device mesh (``parallel/mesh.py``).
 - ``variant``: ``pipeline.variant`` per region (-f variant sequences,
   -m a mutation file, -a every point mutation); scores go to stdout.
@@ -50,9 +51,8 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
-from . import pipeline
+from . import obs, pipeline
 from .api import BACKENDS
 from .core.params import load_params, save_params, vary_params
 from .core.regions import MutationInfo, RegionInfo
@@ -299,6 +299,8 @@ def consensus(args):
         path = os.path.join(args.profile,
                             "poreseq_torch.{}.trace.json".format(os.getpid()))
         prof.export_chrome_trace(path)
+        obs.write_counts(os.path.join(
+            args.profile, "poreseq_torch.{}.counts.json".format(os.getpid())))
         sys.stderr.write("Profile written to {}\n".format(path))
 
 
@@ -365,12 +367,14 @@ def _consensus(args):
         for pi, part in enumerate(parts):
             loaded = None
             if prefetch:
-                loaded = fut.result() if fut is not None else load_part(part)
+                with obs.span("psq.load_wait"):
+                    loaded = (fut.result() if fut is not None
+                              else load_part(part))
                 fut = (loader.submit(load_part, parts[pi + 1])
                        if pi + 1 < len(parts) else None)
             try:
-                # a span per batch in --profile traces (free without one)
-                with record_function("poreseq.batch[{}]".format(len(part))):
+                # the batch's span: every span of its rounds nests in it
+                with obs.span("psq.batch"):
                     results = pipeline.mutate_many(
                         args.ref, args.bam, args.dir, part,
                         params=args.params, test=args.test,
@@ -386,9 +390,10 @@ def _consensus(args):
                 _release(engine)
                 run_chunk(part, max(width // 2, 1))
                 continue
-            for region, res in zip(part, results):
-                if res is not None:   # None = region skipped during load
-                    emit(region, res[0], res[1])
+            with obs.span("psq.emit"):
+                for region, res in zip(part, results):
+                    if res is not None:   # None = region skipped during load
+                        emit(region, res[0], res[1])
 
     # under exact the regions run one by one whatever --region-batch says:
     # the sequential FASTA and the sequential libc rand() draws

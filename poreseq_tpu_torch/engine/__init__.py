@@ -31,6 +31,7 @@ import sys
 import numpy as np
 import torch
 
+from .. import obs
 from ..core.sequence import seq_to_states
 from ..parallel.mesh import ShardedBatch
 from .align import fwd_dev, fwd_dev_sharded, fwd_likes
@@ -200,6 +201,7 @@ class TorchEngine:
             self.flush_ref_likes()
 
     @_engine_call
+    @obs.spanned("psq.flush")
     def flush_ref_likes(self):
         """Materialize pending ref_like rows (one device read per distinct
         fill output).  Called at sync points (before AlignData.sync_back)."""
@@ -229,6 +231,7 @@ class TorchEngine:
         return self.score_alignments_multi([data], [likes])[0]
 
     @_engine_call
+    @obs.spanned("psq.align")
     def score_alignments_multi(self, datas: list[AlignData], likes_list=None,
                                participate=None, likes_only=False,
                                defer=False):
@@ -268,12 +271,13 @@ class TorchEngine:
             best, ral, rlk, vals = fwd_dev(*args)
 
         def finish():
-            ral_h = (ral.to(torch.float64).cpu().numpy()
-                     if ral is not None else None)
-            best_h = best.to(torch.float64).cpu().numpy()
             any_likes = any(l is not None for l in likes_list)
-            vals_h = (vals.to(torch.float64).cpu().numpy() if any_likes
-                      else None)
+            with obs.span("psq.align.wait"):
+                ral_h = (ral.to(torch.float64).cpu().numpy()
+                         if ral is not None else None)
+                best_h = best.to(torch.float64).cpu().numpy()
+                vals_h = (vals.to(torch.float64).cpu().numpy() if any_likes
+                          else None)
             out = []
             e = 0
             for r, data in enumerate(datas):
@@ -296,7 +300,9 @@ class TorchEngine:
                 out.append(scores)
             return out
 
-        return _engine_call(finish) if defer else finish()
+        if defer:   # the reads, later, in a span of the call's name
+            return _engine_call(obs.spanned("psq.align")(finish))
+        return finish()
 
     @_engine_call
     def map_alignments(self, data: AlignData, newseq: str):
@@ -307,10 +313,12 @@ class TorchEngine:
         return self.score_mutations_multi([data], [muts])[0]
 
     @_engine_call
+    @obs.spanned("psq.mutscore")
     def score_mutations_multi(self, datas, muts_list):
         from .mutscore import score_mutations_multi
 
         p = datas[0].params
+        obs.count("psq.mutations_scored", sum(map(len, muts_list)))
         if p.verbose:
             sys.stderr.write("Scoring[torch] ({})".format(p.scoring_width))
         out = score_mutations_multi(self, datas, muts_list)
@@ -325,6 +333,7 @@ class TorchEngine:
                                          verbose)[0]
 
     @_engine_call
+    @obs.spanned("psq.viterbi")
     def viterbi_mutate_multi(self, events_lists, nkeep, skip_prob, stay_prob,
                              mut_min, mut_max, verbose=False):
         """ViterbiMutate for R regions in one batched sweep; the draws are

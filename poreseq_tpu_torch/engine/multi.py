@@ -28,6 +28,7 @@ import sys
 
 import numpy as np
 
+from .. import obs
 from .driver import (candidate_dlikes, extract_mutations,
                      find_point_mutations, greedy_accept)
 from .types import AlignData
@@ -48,11 +49,13 @@ def make_mutations_multi(engine, datas, scores_list, live=None):
     pending = {r: scores_list[r] for r in range(R) if live[r]}
     while pending:
         extras = {}
-        for r, muts in pending.items():
-            nb, mutextra = greedy_accept(datas[r], muts)
-            nbases[r] += nb
-            if len(mutextra) > 10:
-                extras[r] = mutextra
+        with obs.span("psq.accept"):
+            for r, muts in pending.items():
+                nb, mutextra = greedy_accept(datas[r], muts)
+                nbases[r] += nb
+                obs.count("psq.bases_accepted", nb)
+                if len(mutextra) > 10:
+                    extras[r] = mutextra
         if not extras:
             break
         muts_list = [extras.get(r, []) for r in range(R)]
@@ -61,6 +64,7 @@ def make_mutations_multi(engine, datas, scores_list, live=None):
     return nbases
 
 
+@obs.spanned("psq.search")
 def find_mutations_multi(engine, datas, seqs_list, live=None):
     """FindMutations for R regions, batching device calls across regions.
     Regions with live[r] False (or no candidates) get [] and are untouched.
@@ -107,6 +111,8 @@ def find_mutations_multi(engine, datas, seqs_list, live=None):
             if fresh:
                 seen.add((r, seq))
             jobs.append((r, k, seq, fresh))
+    obs.count("psq.candidates", len(jobs))
+    obs.count("psq.candidates_fresh", len(seen))
 
     def run_job(job):
         r, k, seq, fresh = job
@@ -124,7 +130,8 @@ def find_mutations_multi(engine, datas, seqs_list, live=None):
         _, p0, _ = swfull(datas[r].sequence, seq)
         return (r, k, seq, fillinds(p0), None)
 
-    done_jobs = list(host_pool().map(run_job, jobs))
+    with obs.span("psq.search.remap"):
+        done_jobs = list(host_pool().map(run_job, jobs))
     tasks = [(r, k, seq, pairs) for (r, k, seq, pairs, _) in done_jobs]
     todo = [(r, seq, nd) for (r, _, seq, _, nd) in done_jobs
             if nd is not None]
@@ -178,15 +185,17 @@ def find_mutations_multi(engine, datas, seqs_list, live=None):
 
     alllikes = [[] for _ in range(R)]
     seqals = [[] for _ in range(R)]
-    for (r, k, seq, pairs) in tasks:
-        dl, als = candidate_dlikes(seqreflikes[r], datas[r].seqlikes[seq],
-                                   pairs)
-        alllikes[r].append(dl)
-        seqals[r].append(als)
+    with obs.span("psq.search.dlikes"):
+        for (r, k, seq, pairs) in tasks:
+            dl, als = candidate_dlikes(seqreflikes[r],
+                                       datas[r].seqlikes[seq], pairs)
+            alllikes[r].append(dl)
+            seqals[r].append(als)
 
-    return [extract_mutations(datas[r].sequence, seqs_list[r], alllikes[r],
-                              seqals[r]) if live[r] else []
-            for r in range(R)]
+    with obs.span("psq.search.extract"):
+        return [extract_mutations(datas[r].sequence, seqs_list[r],
+                                  alllikes[r], seqals[r]) if live[r] else []
+                for r in range(R)]
 
 
 def mutate_datas(engine, datas, seqs_list, reps, live=None):
@@ -199,6 +208,7 @@ def mutate_datas(engine, datas, seqs_list, reps, live=None):
     for _ in range(reps):
         if not any(live):
             break
+        obs.count("psq.rounds", sum(map(bool, live)))
         muts_list = find_mutations_multi(engine, datas, seqs_list, live=live)
         scores_list = engine.score_mutations_multi(datas, muts_list)
         nbases = make_mutations_multi(engine, datas, scores_list, live=live)
@@ -220,7 +230,9 @@ def refine_datas(engine, datas, live=None, point_width=None):
     if point_width is not None:
         for d in datas:
             d.params.scoring_width = int(point_width)
-    muts_list = [find_point_mutations(datas[r]) if live[r] else []
-                 for r in range(R)]
+    obs.count("psq.rounds", sum(map(bool, live)))
+    with obs.span("psq.points"):
+        muts_list = [find_point_mutations(datas[r]) if live[r] else []
+                     for r in range(R)]
     scores_list = engine.score_mutations_multi(datas, muts_list)
     return make_mutations_multi(engine, datas, scores_list, live=live)

@@ -26,6 +26,7 @@ import os
 import numpy as np
 import torch
 
+from .. import obs
 from .._build import Kernel, check, dtype_suffix, ptr, route, stream
 from ..parallel.mesh import pad_axis, shard_rows
 from ..core.sequence import (_POW4, apply_mutation, seq_to_codes,
@@ -921,7 +922,8 @@ def group_launches(engine, datas, muts_list, participate,
             float(p.lik_offset), p.realign_width, T, int(C + 2 * T + 8))
 
     # realigned events (ref_like read at the next sync point)
-    ral_h = ral.to(torch.float64).cpu().numpy()
+    with obs.span("psq.mutscore.wait"):
+        ral_h = ral.to(torch.float64).cpu().numpy()
     at = 0
     for r, data in enumerate(datas):
         for ev in data.events:
@@ -966,26 +968,29 @@ def group_launches(engine, datas, muts_list, participate,
                      if participate[r]])
 
     for (K_c, D_c) in sorted(classes):
-        parts, g_S_parts, g_region_parts, g_evoff_parts, idx_maps = \
-            [], [], [], [], []
-        for r, (muts_c, idx_c) in enumerate(classes[(K_c, D_c)]):
-            if not muts_c:
-                continue
-            part = _build_groups(datas[r].sequence, muts_c, K_c)
-            Gr = part["g_start"].shape[0]
-            parts.append(part)
-            g_S_parts.append(np.full(Gr, ctx["S_list"][r], np.int32))
-            g_region_parts.append(np.full(Gr, r, np.int32))
-            g_evoff_parts.append(np.full(Gr, ev_offs[r], np.int32))
-            idx_maps.append(np.asarray(idx_c, dtype=np.int64))
-        gp = _pad_groups(parts, g_S_parts, g_region_parts)
-        gp["g_evoff"][: gp["G"]] = np.concatenate(g_evoff_parts)
+        with obs.span("psq.mutscore.groups"):
+            parts, g_S_parts, g_region_parts, g_evoff_parts, idx_maps = \
+                [], [], [], [], []
+            for r, (muts_c, idx_c) in enumerate(classes[(K_c, D_c)]):
+                if not muts_c:
+                    continue
+                part = _build_groups(datas[r].sequence, muts_c, K_c)
+                Gr = part["g_start"].shape[0]
+                parts.append(part)
+                g_S_parts.append(np.full(Gr, ctx["S_list"][r], np.int32))
+                g_region_parts.append(np.full(Gr, r, np.int32))
+                g_evoff_parts.append(np.full(Gr, ev_offs[r], np.int32))
+                idx_maps.append(np.asarray(idx_c, dtype=np.int64))
+            gp = _pad_groups(parts, g_S_parts, g_region_parts)
+            gp["g_evoff"][: gp["G"]] = np.concatenate(g_evoff_parts)
+            if mesh is None:
+                gp_d = {k: torch.as_tensor(gp[k], device=dev)
+                        for k in GROUP_FIELDS}
         if mesh is not None:
             yield gp, idx_maps, (mesh, shards, batch.bounds, gp,
                                  float(p.lik_offset), W, Ws, RS, K_c,
                                  P_SLOTS, D_c, E_g)
             continue
-        gp_d = {k: torch.as_tensor(gp[k], device=dev) for k in GROUP_FIELDS}
         args = (batch, Mf, Sf, Mb, Sb, i0f, i1f, i0r, i1r, win, bpf, bpb,
                 ev_region_d, gp_d, float(p.lik_offset), W, Ws, RS, K_c,
                 P_SLOTS, D_c, E_g)
@@ -1005,12 +1010,16 @@ def score_mutations_multi(engine, datas, muts_list):
     totals_of = group_totals if engine.mesh is None else group_totals_sharded
     for gp, idx_maps, args in group_launches(engine, datas, muts_list,
                                              participate):
-        totals_h = totals_of(*args).to(torch.float64).cpu().numpy()
-        for g in range(gp["G"]):
-            r = int(gp["g_region"][g])
-            im = idx_maps[int(gp["g_part"][g])]
-            for t in range(P_SLOTS):
-                mi = gp["s_idx"][g, t]
-                if mi >= 0:
-                    mutscores_list[r][int(im[mi])].score += totals_h[g, t]
+        totals = totals_of(*args)
+        with obs.span("psq.mutscore.wait"):
+            totals_h = totals.to(torch.float64).cpu().numpy()
+        with obs.span("psq.mutscore.assign"):
+            for g in range(gp["G"]):
+                r = int(gp["g_region"][g])
+                im = idx_maps[int(gp["g_part"][g])]
+                for t in range(P_SLOTS):
+                    mi = gp["s_idx"][g, t]
+                    if mi >= 0:
+                        mutscores_list[r][int(im[mi])].score += \
+                            totals_h[g, t]
     return mutscores_list

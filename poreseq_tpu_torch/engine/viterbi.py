@@ -34,6 +34,7 @@ import functools
 import numpy as np
 import torch
 
+from ..obs import span
 from .._build import Kernel, check, dtype_suffix, ptr, route, stream
 from ..core.events import getrefstates, update_refs
 from ..core.sequence import next_state, state_base
@@ -582,9 +583,10 @@ def viterbi_mutate_multi(events_lists, nkeep, skip_prob, stay_prob, mut_min,
                                     need_bp=nkeep == 0)
 
     if nkeep == 0:
-        bps_h = bps.cpu().numpy()
-        start_h = torch.argmax(liks, dim=1).cpu().numpy()
-        n_real = n_real_d.cpu().numpy()
+        with span("psq.viterbi.wait"):
+            bps_h = bps.cpu().numpy()
+            start_h = torch.argmax(liks, dim=1).cpu().numpy()
+            n_real = n_real_d.cpu().numpy()
         for bp, b in enumerate(act):
             n = int(n_real[bp])
             states = np.zeros(n, dtype=np.int64)
@@ -596,9 +598,10 @@ def viterbi_mutate_multi(events_lists, nkeep, skip_prob, stay_prob, mut_min,
         return out
 
     paths = sample_paths(*sample_inputs(liks, fwds, n_real_d, nkeep, mut_min,
-                                        mut_max), skip_prob, stay_prob,
-                         seed).cpu().numpy()
-    n_real = n_real_d.cpu().numpy()
+                                        mut_max), skip_prob, stay_prob, seed)
+    with span("psq.viterbi.wait"):
+        paths = paths.cpu().numpy()
+        n_real = n_real_d.cpu().numpy()
     for bp, b in enumerate(act):
         R_b = int(n_real[bp])
         out[b] = [_states_to_seq(paths[bp, k, :R_b]) for k in range(nkeep)]

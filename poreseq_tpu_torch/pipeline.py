@@ -12,6 +12,7 @@ import sys
 
 import numpy as np
 
+from . import obs
 from .api import PSAlign, swalign
 from .core.regions import RegionInfo
 from .io.fasta import read_fasta
@@ -138,14 +139,16 @@ def load_many(
     the CLI can PREFETCH the next chunk's loads on a thread while the device
     computes the current chunk (host IO was serial with device work)."""
     out = []
-    for region in regions:
-        try:
-            pa = load_aligned_events(fastafile, bamfile, fast5dir,
-                                     RegionInfo(region), dict(params or {}),
-                                     backend=backend, engine=engine)
-            out.append((pa, None))
-        except Exception as e:
-            out.append((None, str(e)))
+    with obs.span("psq.load"):
+        for region in regions:
+            try:
+                pa = load_aligned_events(fastafile, bamfile, fast5dir,
+                                         RegionInfo(region),
+                                         dict(params or {}),
+                                         backend=backend, engine=engine)
+                out.append((pa, None))
+            except Exception as e:
+                out.append((None, str(e)))
     return out
 
 
@@ -218,6 +221,7 @@ def mutate_many(
     for slot, result in _lockstep_consensus(sessions, params, reps,
                                             verbose).items():
         results[slot] = result
+    obs.count("psq.regions", sum(r is not None for r in results))
     return results
 
 
@@ -244,14 +248,17 @@ def _lockstep_consensus(sessions, params, reps, verbose):
             _consensus_rounds(pa, refseq, reps, verbose)
     elif sessions:
         # ---- phase 1: Mutate(reps) from the reads' own 2D basecalls ----
-        datas = [AlignData.from_session(pa) for _, pa, _ in sessions]
+        with obs.span("psq.sync"):
+            datas = [AlignData.from_session(pa) for _, pa, _ in sessions]
         seqs_list = [[x.sequence for x in pa.events[::2]]
                      for _, pa, _ in sessions]
         mutate_datas(engine, datas, seqs_list, reps)
         getattr(engine, "flush_ref_likes", lambda: None)()
-        for (_, pa, refseq), data in zip(sessions, datas):
-            data.sync_back(pa)
-            if verbose > 0:
+        with obs.span("psq.sync"):
+            for (_, pa, _), data in zip(sessions, datas):
+                data.sync_back(pa)
+        if verbose > 0:
+            for _, pa, refseq in sessions:
                 acc = swalign(pa.sequence, refseq)[0]
                 sys.stderr.write("Accuracy: " + str(round(acc, 1)) + "%\n")
 
@@ -262,7 +269,8 @@ def _lockstep_consensus(sessions, params, reps, verbose):
             if all(done):
                 break
             live = [not d for d in done]
-            datas = [AlignData.from_session(pa) for _, pa, _ in sessions]
+            with obs.span("psq.sync"):
+                datas = [AlignData.from_session(pa) for _, pa, _ in sessions]
             vm_multi = getattr(engine, "viterbi_mutate_multi", None)
             if vm_multi is not None:
                 # one device round-trip for ALL live regions' candidate
@@ -279,18 +287,21 @@ def _lockstep_consensus(sessions, params, reps, verbose):
                     for j in range(len(sessions))]
             mutate_datas(engine, datas, seqs_list, reps, live=live)
             getattr(engine, "flush_ref_likes", lambda: None)()
-            for j, (_, pa, _) in enumerate(sessions):
-                if live[j]:
-                    datas[j].sync_back(pa)
-
-            datas = [AlignData.from_session(pa) for _, pa, _ in sessions]
+            with obs.span("psq.sync"):
+                for j, (_, pa, _) in enumerate(sessions):
+                    if live[j]:
+                        datas[j].sync_back(pa)
+                datas = [AlignData.from_session(pa) for _, pa, _ in sessions]
             nbases = refine_datas(engine, datas, live=live,
                                   point_width=point_width)
             getattr(engine, "flush_ref_likes", lambda: None)()
+            with obs.span("psq.sync"):
+                for j, (_, pa, _) in enumerate(sessions):
+                    if live[j]:
+                        datas[j].sync_back(pa)
             for j, (_, pa, refseq) in enumerate(sessions):
                 if not live[j]:
                     continue
-                datas[j].sync_back(pa)
                 if verbose > 0:
                     acc = swalign(pa.sequence, refseq)[0]
                     sys.stderr.write("Accuracy: " + str(round(acc, 1)) + "%\n")
@@ -309,7 +320,8 @@ def _lockstep_consensus(sessions, params, reps, verbose):
             seq = seq[int(params["end_trim"]) : -int(params["end_trim"])]
         return seq, swalign(seq, refseq)
 
-    finals = list(host_pool().map(_final, sessions))
+    with obs.span("psq.final"):
+        finals = list(host_pool().map(_final, sessions))
     for (i, pa, refseq), (seq, (acc, inds)) in zip(sessions, finals):
         if verbose > 0:
             errs = np.sum(np.array(inds) == 0, 0)

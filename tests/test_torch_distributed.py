@@ -104,7 +104,7 @@ def test_profile_writes_a_chrome_trace(tmp_path):
     assert len(traces) == 1
     names = {e.get("name") for e in json.loads(traces[0].read_text())[
         "traceEvents"]}
-    assert "poreseq.batch[1]" in names
+    assert "psq.batch" in names
     assert list(read_fasta(str(tmp_path / "out.fasta"))) == ["synthref:0:100"]
 
 
