@@ -111,8 +111,8 @@ def test_consensus_profile_nests_spans_and_counts_the_rounds(
     span of ``PARENTS`` is in the Chrome trace on the main thread, each
     inside the span its caller opens (psq.search.remap inside psq.search
     inside psq.batch), and the counts file beside it holds the bases the
-    rounds accepted (``mutate_datas``, ``refine_datas``) and the regions
-    written."""
+    rounds accepted (``mutate_datas``, ``refine_datas``), the regions
+    written and every scored mutation on the scorer's array path."""
     from poreseq_tpu_torch import cli
     from poreseq_tpu_torch.engine import multi
     from poreseq_tpu_torch.io.fasta import read_fasta
@@ -154,7 +154,10 @@ def test_consensus_profile_nests_spans_and_counts_the_rounds(
     assert {name for name, _, _ in counts["records"]} == {
         "psq.regions", "psq.rounds", "psq.candidates",
         "psq.candidates_fresh", "psq.mutations_scored",
-        "psq.bases_accepted"}
+        "psq.bases_accepted", "psq.mutations_columnar"}
+    # a pure-ACGT run: every scored mutation takes the scorer's array path
+    assert (counts["totals"]["psq.mutations_columnar"]
+            == counts["totals"]["psq.mutations_scored"] > 0)
     for name, total in counts["totals"].items():
         assert total == sum(n for k, _, n in counts["records"] if k == name)
     assert counts["totals"]["psq.rounds"] == 3      # Mutate, Mutate, Refine
